@@ -1,0 +1,61 @@
+"""Build a CUDA source of this package into a shared library, at first use.
+
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
+-Xcompiler -fPIC`` into ``emsar_tpu_torch/_build/``, keyed by a hash of the
+source and the flags, then ``ctypes`` loads it.  Sources expose plain
+``extern "C"`` launchers (no PyTorch headers), so a build takes seconds.
+The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
+is kept beside the library as ``<lib>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): cannot build the CUDA kernels")
+
+
+def library_path(source: str) -> str:
+    """Where the library built from ``csrc/<source>`` lives."""
+    with open(os.path.join(CSRC_DIR, source), "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build ``csrc/<source>`` if its library is missing, then load it.
+    Raises RuntimeError with the compiler's output when the build fails."""
+    so = library_path(source)
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) for "
+                               f"{source}:\n{proc.stdout}{proc.stderr}")
+        with open(so + ".log", "w") as fh:
+            fh.write(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+    return ctypes.CDLL(so)
