@@ -1,17 +1,20 @@
-"""emsar CLI (PyTorch port): quantify transcript abundance from a prebuilt
-rsh index.
+"""emsar CLI (PyTorch port): quantify transcript abundance from
+alignments.
 
 The port of ``emsar_tpu/cli/emsar.py``, flag-compatible with the reference
 quantifier (src/emsar_main.c):
 
+    emsar-torch <options> -x fastafile outdir outprefix alnfile|alnfilelist
     emsar-torch <options> -I rshfile outdir outprefix alnfile|alnfilelist
     bowtie ... | emsar-torch <options> -I rshfile outdir outprefix
 
-The device comes from ``EMSAR_TORCH_DEVICE`` (default ``cuda``).
-``--solver_pallas`` selects the hand-written CUDA SQUAREM kernel for the
-dense module batches.  ``-x`` (index from FASTA), ``-m 1``,
-``--batch_samples`` and ``--dist_merge_shards`` are not ported yet and
-exit with an error.
+The device comes from ``EMSAR_TORCH_DEVICE`` (default ``cuda``).  ``-x``
+builds the SE index on it (``index.build.build_se_index``), with the
+read-length range learned from the alignment file; ``-R`` writes that
+index and ``-m 1`` the positional-bias table.  ``--solver_pallas`` selects
+the hand-written CUDA SQUAREM kernel for the dense module batches.  ``-x``
+with ``--PE``, ``--batch_samples`` and ``--dist_merge_shards`` are not
+ported yet and exit with an error.
 """
 
 from __future__ import annotations
@@ -28,17 +31,22 @@ import torch
 from emsar_tpu.cli.common import die
 from emsar_tpu.config import MAX_N_ALNFILES, QuantConfig, StrandType
 from emsar_tpu.ingest import native as native_mod
-from emsar_tpu.ingest.collapse import ReadCollapser, group_alignments
+from emsar_tpu.config import BuildConfig
+from emsar_tpu.ingest.collapse import (PosBias, ReadCollapser,
+                                       group_alignments)
 from emsar_tpu.io import bowtie
 from emsar_tpu.io.bam import read_bam_records
+from emsar_tpu.io.fasta import read_fasta
 from emsar_tpu.io.outputs import (write_fpkm, write_fraglength_dist,
-                                  write_segments)
+                                  write_posbias, write_segments)
 from emsar_tpu.io.rsh import RshIndex
-from emsar_tpu.io.sam import (read_sam_records, stream_alignments_pe,
+from emsar_tpu.io.sam import (probe_readlength_range_sam_bam,
+                              read_sam_records, stream_alignments_pe,
                               stream_alignments_se)
 from emsar_tpu.utils.timing import phase
 
 from ..device import resolve_device
+from ..index.build import build_se_index
 from ..model.quantify import index_modules, quantify_sample
 
 SHORT = "vqPs:b:p:h:t:F:f:n:e:r:d:gm:MHBSW:w:k:i:l:TRI:x:"
@@ -55,9 +63,11 @@ NOT_PORTED = "not yet ported to emsar_tpu_torch"
 
 
 def usage(prog: str) -> None:
-    print(f"Usage : {prog} <options> -I rshfile outdir outprefix "
+    print(f"Usage : {prog} <options> -x fastafile outdir outprefix "
           f"alignmentfile|alignmentfilelist")
-    print(f"Usage2 : bowtie command | {prog} <options> -I rshfile outdir "
+    print(f"Usage2 : {prog} <options> -I rshfile outdir outprefix "
+          f"alignmentfile|alignmentfilelist")
+    print(f"Usage3 : bowtie command | {prog} <options> -I rshfile outdir "
           f"outprefix")
     print("\t(see the reference emsar for the full option list; flags are "
           "compatible)")
@@ -65,7 +75,8 @@ def usage(prog: str) -> None:
           "hand-written CUDA SQUAREM kernel")
     print("\tdevice: $EMSAR_TORCH_DEVICE (default cuda; 'cpu' runs the "
           "kernel's plain PyTorch version)")
-    print(f"\t-x, -m 1, --batch_samples, --dist_merge_shards: {NOT_PORTED}")
+    print(f"\t-x with --PE, --batch_samples, --dist_merge_shards: "
+          f"{NOT_PORTED}")
 
 
 def _sam_bam_records(path: str, fmt: str):
@@ -83,6 +94,7 @@ def main(argv=None) -> int:
     cfg = QuantConfig()
     strand_str = "ns"
     rshfile = ""
+    fastafile = ""
     try:
         opts, args = getopt.gnu_getopt(argv, SHORT, LONG)
     except getopt.GetoptError as e:
@@ -91,8 +103,7 @@ def main(argv=None) -> int:
         if o in ("-I", "--rsh"):
             rshfile = a
         elif o in ("-x", "--fasta"):
-            die(f"error: -x (index from a fasta file) is {NOT_PORTED}; "
-                f"build the rsh index first and use -I.")
+            fastafile = a
         elif o in ("-P", "--PE"):
             cfg.pe = True
         elif o in ("-s", "--strand_type"):
@@ -129,9 +140,6 @@ def main(argv=None) -> int:
             cfg.print_segments = True
         elif o in ("-m", "--bias_model"):
             cfg.posmodel = int(a)
-            if cfg.posmodel == 1:
-                die(f"error: the positional bias model (-m 1) is "
-                    f"{NOT_PORTED}.")
         elif o in ("-M", "--multisample"):
             cfg.multisample = True
         elif o == "-H":
@@ -176,9 +184,9 @@ def main(argv=None) -> int:
         elif o in ("-q", "--no_verbose"):
             cfg.verbose = 0
 
-    if not rshfile:
-        die("error: an rsh file must be given with -I (building the index "
-            f"from a fasta file with -x is {NOT_PORTED}).")
+    if not rshfile and not fastafile:
+        die("error: either fasta file or an rsh file must be used as an "
+            "input.")
     if cfg.min_fraglength > cfg.max_fraglength or cfg.min_fraglength < 1 \
             or cfg.max_fraglength < 1:
         die("error: invalid fragment length range.")
@@ -188,7 +196,7 @@ def main(argv=None) -> int:
         die("error: invalid strand type.")
 
     if cfg.verbose > 0:
-        _echo_params(cfg, rshfile, strand_str)
+        _echo_params(cfg, fastafile, rshfile, strand_str)
 
     if len(args) < 2:
         usage("emsar-torch")
@@ -210,16 +218,21 @@ def main(argv=None) -> int:
         if len(alnfiles) > MAX_N_ALNFILES:
             die(f"error: too many alignment files (max {MAX_N_ALNFILES})")
 
+    if cfg.pe and not rshfile:
+        die(f"error: the paired-end index build (-x with --PE) is "
+            f"{NOT_PORTED}; build the rsh index first and use -I.")
     os.makedirs(outdir, exist_ok=True)
     device = resolve_device()
-    return run_quantifier(cfg, rshfile, outdir, outprefix, alnfiles, device)
+    return run_quantifier(cfg, rshfile, outdir, outprefix, alnfiles, device,
+                          fastafile=fastafile)
 
 
-def _echo_params(cfg: QuantConfig, rshfile: str, strand_str: str) -> None:
+def _echo_params(cfg: QuantConfig, fastafile: str, rshfile: str,
+                 strand_str: str) -> None:
     """Startup parameter echo (reference src/emsar_main.c:225-248)."""
     fmt = {"bowtie": "default bowtie output", "sam": "SAM",
            "bam": "BAM"}[cfg.aln_format]
-    print("input fastafile name= ")
+    print(f"input fastafile name= {fastafile}")
     print(f"input rshfile name= {rshfile}")
     print(f"Input type= {fmt}")
     print(f"Paired-end= {'y' if cfg.pe else 'n'}")
@@ -248,24 +261,70 @@ def _echo_params(cfg: QuantConfig, rshfile: str, strand_str: str) -> None:
     print(f"print rsh structure = {'y' if cfg.print_rsh else 'n'}")
 
 
+def _build_index(cfg: QuantConfig, fastafile: str, outdir: str,
+                 outprefix: str, alnfile: str, device: torch.device):
+    """``-x``: read the FASTA, learn the SE read-length range by scanning
+    the alignment file (reference src/emsar_main.c:307-316) and build the
+    index.  Returns (transcriptome, index)."""
+    with phase("reading fasta file", cfg.verbose):
+        tx = read_fasta(fastafile, cfg.header_fmt)
+    with phase("probing read length", cfg.verbose):
+        if not alnfile:
+            # the reference has the same limitation (SURVEY quirk (b))
+            die("error: single-end -x requires a file (not stdin): the "
+                "read-length range is learned by scanning the whole "
+                "alignment file. Build an rsh index first and use -I for "
+                "streaming.")
+        if cfg.aln_format == "bowtie":
+            rl_lo, rl_hi = bowtie.probe_readlength_range(alnfile)
+        else:
+            rl_lo, rl_hi = probe_readlength_range_sam_bam(
+                _sam_bam_records(alnfile, cfg.aln_format))
+    bcfg = BuildConfig(pe=cfg.pe, strand=cfg.strand,
+                       min_fraglength=cfg.min_fraglength,
+                       max_fraglength=cfg.max_fraglength,
+                       max_repeat=cfg.max_repeat, header_fmt=cfg.header_fmt,
+                       binsize=cfg.binsize, taglen=cfg.taglen,
+                       verbose=cfg.verbose)
+    sfa_path = os.path.join(outdir, outprefix + ".sfa") \
+        if cfg.print_sfa else None
+    with phase("building rsh index", cfg.verbose):
+        index = build_se_index(tx, rl_lo, rl_hi, bcfg, sfa_path=sfa_path,
+                               device=device)
+    return tx, index
+
+
 def run_quantifier(cfg: QuantConfig, rshfile: str, outdir: str,
                    outprefix: str, alnfiles: List[str],
-                   device: torch.device) -> int:
+                   device: torch.device, fastafile: str = "") -> int:
     os.makedirs(outdir, exist_ok=True)
     rshfile_out = os.path.join(outdir, outprefix + ".rsh")
 
-    with phase("reading rsh file", cfg.verbose):
-        try:
-            index = RshIndex.load(rshfile)
-        except OSError:
-            die("can't open input rsh file.")
-    # -I overrides the fragment-length filter with the header's values
-    # (reference parse_rsh_headerline :1406-1430)
-    cfg.min_fraglength = index.min_fraglength
-    cfg.max_fraglength = index.max_fraglength
+    if not rshfile:
+        tx, index = _build_index(cfg, fastafile, outdir, outprefix,
+                                 alnfiles[0], device)
+    else:
+        with phase("reading rsh file", cfg.verbose):
+            try:
+                index = RshIndex.load(rshfile)
+            except OSError:
+                die("can't open input rsh file.")
+        # -I overrides the fragment-length filter with the header's values
+        # (reference parse_rsh_headerline :1406-1430)
+        cfg.min_fraglength = index.min_fraglength
+        cfg.max_fraglength = index.max_fraglength
 
     name_to_tid = {n: i for i, n in enumerate(index.names)}
     pe_readlength = [index.readlength if index.readlength > 0 else -1]
+
+    posbias = None
+    if cfg.posmodel == 1:
+        # positional-bias accumulation needs transcript lengths, so it
+        # requires the -x (fasta) path, as in the reference
+        if not fastafile or rshfile:
+            die("error: positional bias model (-m 1) requires -x fastafile "
+                "(not -I).")
+        posbias = PosBias(tx.transcript_lengths(), cfg.perpos_freq_len)
 
     native_collapser = None
     if native_mod.available():
@@ -275,18 +334,20 @@ def run_quantifier(cfg: QuantConfig, rshfile: str, outdir: str,
     # Multisample ingest/solve overlap: while sample i solves on the
     # device, a worker thread ingests file i+1 (the C++ collapser releases
     # the GIL and brings its own threads).  Counts are private per file,
-    # so results are bit-identical to the serial loop.  Not for stdin.
-    prefetch_ok = (native_collapser is not None and len(alnfiles) > 1
-                   and all(alnfiles))
+    # so results are bit-identical to the serial loop.  Not for stdin, and
+    # not with -m 1 (it accumulates into one PosBias in file order).
+    prefetch_ok = (native_collapser is not None and posbias is None
+                   and len(alnfiles) > 1 and all(alnfiles))
     # the module decomposition is index-only at EUMAcut 0: compute it on a
     # worker thread while the alignment file streams
     threading.Thread(target=index_modules, args=(index,), daemon=True).start()
 
-    def _ingest(path):
+    def _ingest(path, posbias=None):
         return native_collapser.collapse_file(
             path, cfg.aln_format, cfg.pe, cfg.strand.code, cfg.max_repeat,
             cfg.min_fraglength, cfg.max_fraglength,
-            pe_readlength if cfg.pe else None, nthreads=cfg.max_threads)
+            pe_readlength if cfg.pe else None, nthreads=cfg.max_threads,
+            posbias=posbias)
 
     executor = (concurrent.futures.ThreadPoolExecutor(max_workers=1)
                 if prefetch_ok else None)
@@ -298,13 +359,18 @@ def run_quantifier(cfg: QuantConfig, rshfile: str, outdir: str,
                 if pending is not None:
                     counts = pending.result()
                 elif native_collapser is not None:
-                    counts = _ingest(alnfile)
+                    counts = _ingest(alnfile, posbias)
                 else:
                     counts = _collapse_python(index, name_to_tid, cfg,
-                                              alnfile, pe_readlength)
+                                              alnfile, pe_readlength,
+                                              posbias)
             pending = (executor.submit(_ingest, alnfiles[i + 1])
                        if executor is not None and i + 1 < len(alnfiles)
                        else None)
+
+            if posbias is not None and i == 0:
+                write_posbias(os.path.join(outdir, outprefix + ".posbias"),
+                              posbias)
 
             if cfg.print_rsh:
                 with phase("writing rsh file", cfg.verbose):
@@ -340,9 +406,10 @@ def run_quantifier(cfg: QuantConfig, rshfile: str, outdir: str,
 
 
 def _collapse_python(index: RshIndex, name_to_tid, cfg: QuantConfig,
-                     alnfile: str, pe_readlength):
+                     alnfile: str, pe_readlength, posbias=None):
     collapser = ReadCollapser(index, cfg.min_fraglength,
-                              cfg.max_fraglength, cfg.max_repeat, cfg.pe)
+                              cfg.max_fraglength, cfg.max_repeat, cfg.pe,
+                              posbias=posbias)
     if cfg.aln_format == "bowtie":
         src = alnfile if alnfile else sys.stdin
         if cfg.pe:

@@ -1,11 +1,19 @@
-"""SE rsh index construction on the host (NumPy), without JAX.
+"""SE rsh index construction: the backend dispatcher and the host NumPy
+builder, without JAX.
 
-A copy of the NumPy backend of ``emsar_tpu/index/build.py`` (and the NumPy
-branch of ``emsar_tpu/index/kernels.py::se_group``): that module imports
-``jax.numpy`` when it loads, and a machine that runs the port has no JAX,
-yet quantification from a prebuilt index (``emsar -I``) needs a ``.rsh``.
-Output is byte-identical to ``emsar_tpu.index.build.build_se_index``
-(``tests/test_torch_index_build.py``).
+``build_se_index(..., backend="auto")`` builds on the torch device
+(``index/device_build.py``, the port of the JAX package's device-resident
+builder); ``EMSAR_TORCH_BUILD_BACKEND=numpy`` or ``backend="numpy"``
+selects the host builder below, and so does ``-T``/``--print_sfa`` (the
+device builder never materializes the sfa).  Nothing else falls back: a
+device build that fails raises.
+
+The NumPy builder is a copy of the NumPy backend of
+``emsar_tpu/index/build.py`` (and the NumPy branch of
+``emsar_tpu/index/kernels.py::se_group``): that module imports
+``jax.numpy`` when it loads.  Both backends write the same bytes as
+``emsar_tpu.index.build.build_se_index`` (``tests/test_torch_index_build.py``,
+``tests/test_torch_device_build.py``).
 
 SE semantics (reference preprocess_SE + construct_rshbucket_2,
 src/emsar_functions.c:3243-3290, 1758-1819): for each read length, every
@@ -16,11 +24,13 @@ contributes EUMA[sig, readlength] += 1 where sig is the sorted multiset of
 the run's transcripts (L == 1 -> single-transcript segment; L >= MAX_REPEAT
 dropped).
 
-The device SE build and the PE build are not ported yet.
+The PE build is not ported yet.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -250,9 +260,38 @@ def se_group(p16: np.ndarray, positions: np.ndarray, seqlength: int,
     return positions[order].astype(np.int64), run_id, canon[order]
 
 
+BACKEND_ENV = "EMSAR_TORCH_BUILD_BACKEND"
+BACKENDS = ("device", "numpy")
+
+
+def resolve_backend(backend: str = "auto") -> str:
+    """'auto' is ``$EMSAR_TORCH_BUILD_BACKEND`` when set, else 'device'."""
+    if backend == "auto":
+        backend = os.environ.get(BACKEND_ENV) or "device"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown SE build backend {backend!r} "
+                         f"(one of {', '.join(BACKENDS)})")
+    return backend
+
+
 def build_se_index(tx: Transcriptome, readlength_min: int,
-                   readlength_max: int, cfg: BuildConfig) -> RshIndex:
-    """Build an SE rsh index for a read-length range."""
+                   readlength_max: int, cfg: BuildConfig,
+                   backend: str = "auto", sfa_path: Optional[str] = None,
+                   device=None) -> RshIndex:
+    """Build an SE rsh index for a read-length range, on the torch device
+    (``device``, else ``$EMSAR_TORCH_DEVICE``) or on the host."""
+    backend = resolve_backend(backend)
+    if backend == "device" and sfa_path is not None:
+        if cfg.verbose > 0:
+            print("[emsar-build] falling back to the 'numpy' backend: "
+                  "-T/--print_sfa requested (the device builder never "
+                  "materializes the sfa)", file=sys.stderr, flush=True)
+        backend = "numpy"
+    if backend == "device":
+        from ..device import resolve_device
+        from .device_build import build_se_index_device
+        return build_se_index_device(tx, readlength_min, readlength_max, cfg,
+                                     resolve_device(device))
     fl_min, fl_max = readlength_min, readlength_max
     nfl = fl_max - fl_min + 1
     acc = SignatureAccumulator(tx.n_transcripts, nfl)
@@ -274,9 +313,15 @@ def build_se_index(tx: Transcriptome, readlength_min: int,
                                               prefix_bases)
             else:
                 bounds = np.array([0, cand.size], dtype=np.int64)
+            sfa_chunks = [] if sfa_path else None
             for lo, hi in _chunks(bounds, cfg.chunk_positions):
-                _se_chunk(acc, tx, p16, cand[lo:hi], readlength, fl_ind,
-                          stranded, cfg.max_repeat)
+                spos = _se_chunk(acc, tx, p16, cand[lo:hi], readlength,
+                                 fl_ind, stranded, cfg.max_repeat)
+                if sfa_chunks is not None:
+                    sfa_chunks.append(spos)
+            if sfa_chunks is not None:
+                # the reference overwrites the .sfa per pass; last wins
+                _write_sfa(sfa_path, np.concatenate(sfa_chunks))
 
     sig_offsets, sig_tids, multi_euma = acc.finalize()
     return RshIndex(names=list(tx.names), readlength=-1,
@@ -301,3 +346,13 @@ def _se_chunk(acc: SignatureAccumulator, tx: Transcriptome, p16: np.ndarray,
         sig_flat, sig_sizes, _ = _sorted_run_signatures(run_id, tids, multi)
         acc.add_multi_batch(sig_flat, sig_sizes,
                             np.full(len(sig_sizes), fl_ind, dtype=np.int32))
+    return spos
+
+
+def _write_sfa(path: str, positions: np.ndarray) -> None:
+    """Debug dump of the grouped window positions (reference print_sfa,
+    src/emsar_functions.c:1277-1295, format "i\\tpos"), as
+    ``emsar_tpu/index/build.py::_write_sfa`` writes it."""
+    with open(path, "w", buffering=1 << 20) as fh:
+        for i, p in enumerate(positions):
+            fh.write(f"{i}\t{p}\n")

@@ -9,9 +9,10 @@ EM fixed-point updates on the identical objective:
     theta_t <- theta_t * (sum_c m_ct R_c / s_c) / (sum_c m_ct E_c)
 
 accelerated by stabilized SQUAREM cycles, over ALL modules jointly as one
-global (cid, tid, multiplicity) edge list.  Segment sums are
-``index_add_``; on CUDA these use float atomics, so sums vary in the last
-bit from run to run (a deterministic segmented-sum kernel is queued).
+global (cid, tid, multiplicity) edge list.  Both segment sums of an EM
+step go through ``kernels.segment_sum`` over the edges grouped by cid
+(CSR) and by tid (CSC): a fixed summation order, so a solve gives the same
+bits on every run (``index_add_`` on CUDA sums with float atomics).
 
 The loop runs on the host one block of ``block_iters`` cycles at a time and
 syncs once per block to test convergence (JAX's ``lax.while_loop`` keeps it
@@ -29,6 +30,8 @@ import numpy as np
 import torch
 
 from emsar_tpu.model.modules import ModuleDecomposition, SegmentGraph
+
+from ..kernels.segment_sum import segment_sum
 
 
 @dataclasses.dataclass
@@ -50,13 +53,24 @@ class SolverProblem:
 
 
 @dataclasses.dataclass
+class EdgeGroups:
+    """The edges grouped by one endpoint, for ``kernels.segment_sum``:
+    the CSR ``offsets`` of the groups, the other endpoint ``idx`` and the
+    multiplicity ``mult``, both in grouped order."""
+
+    offsets: torch.Tensor  # int64 [n_seg + 1]
+    idx: torch.Tensor  # int64 [E]
+    mult: torch.Tensor  # [E]
+
+
+@dataclasses.dataclass
 class DeviceProblem:
-    """A SolverProblem's arrays on a torch device in the solve dtype."""
+    """A SolverProblem's arrays on a torch device in the solve dtype, its
+    edges grouped by cid (``by_cid``) and by tid (``by_tid``)."""
 
     n_segments: int
-    edge_cid: torch.Tensor  # int64 [E]
-    edge_tid: torch.Tensor  # int64 [E]
-    edge_mult: torch.Tensor  # [E]
+    by_cid: EdgeGroups
+    by_tid: EdgeGroups
     eumaps: torch.Tensor  # [C]
     reads: torch.Tensor  # [C]
     inv_denom: torch.Tensor  # [ntid], 0 where denom == 0
@@ -97,35 +111,53 @@ def build_problem(graph: SegmentGraph, modules: ModuleDecomposition,
 
 def problem_to_device(problem: SolverProblem, device: torch.device,
                       dtype: torch.dtype) -> DeviceProblem:
-    """Move a SolverProblem to ``device`` in ``dtype`` (indices int64)."""
+    """Move a SolverProblem to ``device`` in ``dtype`` (indices int64),
+    with the edges grouped by cid and by tid.  Both groupings are stable
+    sorts of the edge list, so each segment keeps the edges' own order
+    (``build_problem`` emits edges sorted by (cid, tid): the cid grouping
+    is then the identity)."""
+    cid = np.asarray(problem.edge_cid, dtype=np.int64)
+    tid = np.asarray(problem.edge_tid, dtype=np.int64)
+    mult = np.asarray(problem.edge_mult)
+
     def f(a):
         return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
 
     def i(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(device)
 
+    def groups(seg, other, n_seg):
+        order = np.argsort(seg, kind="stable")
+        offsets = np.zeros(n_seg + 1, dtype=np.int64)
+        np.cumsum(np.bincount(seg, minlength=n_seg), out=offsets[1:])
+        return EdgeGroups(offsets=i(offsets),
+                          idx=i(other[order]), mult=f(mult[order]))
+
+    n_seg = len(problem.eumaps)
     denom = f(problem.denom)
     pos = denom > 0
     inv_denom = torch.where(pos, 1.0 / torch.where(pos, denom, 1.0), 0.0)
     return DeviceProblem(
-        n_segments=len(problem.eumaps),
-        edge_cid=i(problem.edge_cid), edge_tid=i(problem.edge_tid),
-        edge_mult=f(problem.edge_mult), eumaps=f(problem.eumaps),
-        reads=f(problem.reads), inv_denom=inv_denom)
+        n_segments=n_seg, by_cid=groups(cid, tid, n_seg),
+        by_tid=groups(tid, cid, problem.n_transcripts),
+        eumaps=f(problem.eumaps), reads=f(problem.reads),
+        inv_denom=inv_denom)
+
+
+def _segment_sum(g: EdgeGroups, x: torch.Tensor) -> torch.Tensor:
+    return segment_sum(x.contiguous(), g.mult, g.idx, g.offsets)
 
 
 def _intensities(p: DeviceProblem, theta: torch.Tensor) -> torch.Tensor:
     """s [R, C] = segment sums of mult * theta[:, tid] over edges."""
-    s = theta.new_zeros((theta.shape[0], p.n_segments))
-    return s.index_add_(1, p.edge_cid, p.edge_mult * theta[:, p.edge_tid])
+    return _segment_sum(p.by_cid, theta)
 
 
 def _em_iter(p: DeviceProblem, theta: torch.Tensor) -> torch.Tensor:
     s = _intensities(p, theta)
     pos = s > 0
     ratio = torch.where(pos, p.reads / torch.where(pos, s, 1.0), 0.0)
-    num = theta.new_zeros(theta.shape)
-    num.index_add_(1, p.edge_tid, p.edge_mult * ratio[:, p.edge_cid])
+    num = _segment_sum(p.by_tid, ratio)
     return theta * num * p.inv_denom
 
 

@@ -21,7 +21,11 @@ _NO_JAX = textwrap.dedent("""
     import numpy as np
     import emsar_tpu_torch
     import emsar_tpu_torch.cli.emsar
+    import emsar_tpu_torch.cli.emsar_build
+    import emsar_tpu_torch.index.device_build
+    import emsar_tpu_torch.kernels.segment_sum
     import emsar_tpu_torch.kernels.squarem
+    import emsar_tpu_torch.kernels.window_hash
     import emsar_tpu_torch.model.quantify as quant
     from emsar_tpu.config import BuildConfig, QuantConfig
     from emsar_tpu.ingest.collapse import SampleCounts
@@ -33,6 +37,8 @@ _NO_JAX = textwrap.dedent("""
     rng = np.random.default_rng(1)
     names, seqs, _ = gene_family_transcriptome(rng, 6, n_exons=4,
                                                min_exon=40, max_exon=90)
+    # the device backend (the default) on the CPU: the kernels' plain
+    # versions
     idx = build_se_index(build_transcriptome(names, seqs), 20, 20,
                          BuildConfig(verbose=0))
     counts = SampleCounts(
@@ -46,6 +52,9 @@ _NO_JAX = textwrap.dedent("""
         res = quant.quantify_sample(
             idx, counts, QuantConfig(verbose=0, solver_pallas=pallas), dev)
         assert np.isfinite(res.loglik) and np.isfinite(res.fpkm).all()
+    res = quant.quantify_sample(
+        idx, counts, QuantConfig(verbose=0, solver_mode="csr"), dev)
+    assert np.isfinite(res.loglik) and np.isfinite(res.fpkm).all()
     assert sys.modules["jax"] is None
     assert not [m for m in sys.modules if m.startswith("jax.")]
     print("OK")

@@ -125,3 +125,35 @@ def test_polish_matches_jax(native):
     want = jsolver.polish_host_f64(problem, theta, native=native)
     got = tsolver.polish_host_f64(problem, theta, native=native)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_segment_sums_match_index_add(seed):
+    """The CSR (by cid) and CSC (by tid) segment sums of the EM step equal
+    ``index_add_`` over the edge list in its own order, bit for bit on the
+    CPU, also when the edges do not come sorted by cid."""
+    rng = np.random.default_rng(seed)
+    n_seg, ntid, E = 300, 120, 2000
+    cid = rng.integers(0, n_seg, E)
+    if seed == 0:
+        cid = np.sort(cid)
+    problem = jsolver.SolverProblem(
+        n_transcripts=ntid, edge_cid=cid.astype(np.int32),
+        edge_tid=rng.integers(0, ntid, E).astype(np.int32),
+        edge_mult=rng.integers(1, 3, E).astype(np.float64),
+        eumaps=rng.uniform(0.1, 2, n_seg), reads=rng.poisson(5, n_seg) * 1.0,
+        denom=rng.uniform(0.5, 3, ntid))
+    p = tsolver.problem_to_device(problem, CPU, torch.float64)
+    theta = torch.as_tensor(rng.uniform(0, 10, (2, ntid)))
+    ratio = torch.as_tensor(rng.uniform(0, 10, (2, n_seg)))
+    e_cid = torch.as_tensor(cid)
+    e_tid = torch.as_tensor(problem.edge_tid.astype(np.int64))
+    mult = torch.as_tensor(problem.edge_mult)
+    s_want = theta.new_zeros((2, n_seg)).index_add_(
+        1, e_cid, mult * theta[:, e_tid])
+    n_want = theta.new_zeros((2, ntid)).index_add_(
+        1, e_tid, mult * ratio[:, e_cid])
+    assert torch.equal(tsolver._intensities(p, theta), s_want)
+    assert torch.equal(tsolver._segment_sum(p.by_tid, ratio), n_want)
+    assert p.by_cid.offsets[-1] == p.by_tid.offsets[-1] == E
+
