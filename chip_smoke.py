@@ -12,10 +12,12 @@ exit, no result line):
    source, all started together; sm_90a); ptxas registers and spills.
 3. SQUAREM kernel against its plain PyTorch version on the card: every
    size class x {float32, float64}, on padded batches of a real
-   gene-family index and on random modules; max error and median
-   CUDA-event times.  Segment-sum kernel against its plain version on
-   random CSR problems (rel 1e-12 f64, 1e-5 f32), and bit-identical
-   across two launches.
+   gene-family index and on random modules; max error and times.
+   Segment-sum kernel and em_step against their plain versions on the CPU
+   on random problems (float32 and float64, R 1 and 3, every lane count,
+   empty segments, one segment of >3,000 edges): the same bits, and the
+   same bits on two launches; sparse.mm of the same CSR matrix timed as
+   the library yardstick.
 4. Fixture (cached under bench_cache/torch_smoke/): the SE bench workload,
    a 2000-gene family transcriptome (~12k transcripts, ~15 Mbp) as
    smoke.fa, SE l50 .rsh from the port's NumPy builder, 1M simulated reads
@@ -29,9 +31,13 @@ exit, no result line):
    FPKM) within rel 1e-9 (1e-7 for float32), gene-level inferred read
    counts within 1e-3, gene-level TPM within rel 1e-3 (5e-3 for float32)
    of max(TPM, 1), .fraglength_effect byte-equal.
+   The CSR run's logL must be CSR_LOGL.
 6. Kernels against plain versions at the main path's shapes: the SQUAREM
-   block on its dense batches (float64), the segment sums on its CSR
-   problem; max abs error and times.
+   block on its dense batches (float64), the segment sums and em_step on
+   its CSR problem (bit-equal to the CPU); max abs error, device and host
+   times, bounds.  Then the CSR solve: CSR_BLOCKS blocks to its end, and
+   over three blocks the ms per block, the kernel launches per block and
+   the device busy share (torch.profiler).
 7. The SE index build on the card: ``emsar-build-torch smoke.fa 50`` must
    write the NumPy builder's smoke.rsh byte for byte (window-hash launch
    count > 0), and ``emsar-torch --solver_pallas -x smoke.fa`` must agree
@@ -47,6 +53,11 @@ exit, no result line):
    transcript its single counts and its windows in multi records, and the
    class-size histogram, all equal.
 
+Times on the card (``kernels/measure.py``): ``ms`` is device time per
+call, CUDA events around calls queued back to back behind a sleep kernel;
+``host_ms`` the host's time per call with no sync; ``bound_ms`` the bytes
+or operations of the call over the H100's published rates.
+
 The last lines are the kernels JSON, the card line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -57,7 +68,6 @@ import concurrent.futures
 import itertools
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -72,6 +82,11 @@ N_ITERS = 8
 SCALE_GENES = 42000
 SCALE_SEED = 20260820
 SCALE_READLEN = 76
+# the CSR run's logL (from its .fpkm) and the CSR solve's block count on the
+# smoke fixture: fixed by the deterministic segment sums, whose order any
+# redesign keeps bit for bit
+CSR_LOGL = 3262461.230667876
+CSR_BLOCKS = 136
 KERNELS = {
     "squarem_block": {"name": "squarem_block", "route": "cuda",
                       "source": "emsar_tpu_torch/csrc/squarem_block.cu",
@@ -79,6 +94,9 @@ KERNELS = {
     "segment_sum": {"name": "segment_sum", "route": "cuda",
                     "source": "emsar_tpu_torch/csrc/segment_sum.cu",
                     "replaces": "emsar_tpu/model/solver.py:114"},
+    "em_step": {"name": "em_step", "route": "cuda",
+                "source": "emsar_tpu_torch/csrc/segment_sum.cu",
+                "replaces": "emsar_tpu/model/solver.py:113"},
     "window_hash": {"name": "window_hash", "route": "cuda",
                     "source": "emsar_tpu_torch/csrc/window_hash.cu",
                     "replaces": "emsar_tpu/index/device_build.py:1477"},
@@ -86,19 +104,29 @@ KERNELS = {
 
 
 def kernel_modules():
-    """{kernel name: its wrapper module} (each has LAUNCHES and build)."""
+    """{kernel source's name: its wrapper module} (each has build)."""
     from emsar_tpu_torch.kernels import segment_sum, squarem, window_hash
     return {"squarem_block": squarem, "segment_sum": segment_sum,
             "window_hash": window_hash}
 
 
+def launch_counters():
+    """{kernel name: (wrapper module, name of its launch count)}."""
+    mods = kernel_modules()
+    return {"squarem_block": (mods["squarem_block"], "LAUNCHES"),
+            "segment_sum": (mods["segment_sum"], "LAUNCHES"),
+            "em_step": (mods["segment_sum"], "EM_LAUNCHES"),
+            "window_hash": (mods["window_hash"], "LAUNCHES")}
+
+
 def reset_launches() -> None:
-    for mod in kernel_modules().values():
-        mod.LAUNCHES = 0
+    for mod, attr in launch_counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    return {k: mod.LAUNCHES for k, mod in kernel_modules().items()}
+    return {k: getattr(mod, attr) for k, (mod, attr)
+            in launch_counters().items()}
 
 
 def log(msg: str) -> None:
@@ -112,33 +140,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` between CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def gene_family_batches(n_genes: int, seed: int, dtypes):
     """{dtype: padded dense batches} of a real gene-family index (port
     builder) with Poisson read counts."""
     import numpy as np
 
-    from emsar_tpu.config import BuildConfig
-    from emsar_tpu.io.fasta import build_transcriptome
-    from emsar_tpu.model.modules import build_segment_graph
-    from emsar_tpu.sim import gene_family_transcriptome
+    from emsar_tpu_torch.config import BuildConfig
+    from emsar_tpu_torch.io.fasta import build_transcriptome
+    from emsar_tpu_torch.model.modules import build_segment_graph
+    from emsar_tpu_torch.sim import gene_family_transcriptome
     from emsar_tpu_torch.index.build import build_se_index
     from emsar_tpu_torch.model.dense import partition_modules
     from emsar_tpu_torch.model.quantify import index_modules
@@ -165,6 +175,7 @@ def phase_kernel_check(dev) -> float:
     from emsar_tpu_torch.kernels import squarem
     from emsar_tpu_torch.kernels.check import (block_agreement, block_tol,
                                                random_modules)
+    from emsar_tpu_torch.kernels.measure import device_ms
     from emsar_tpu_torch.model.dense import (SIZE_CLASSES, _theta0,
                                              batch_to_device)
 
@@ -191,9 +202,10 @@ def phase_kernel_check(dev) -> float:
                                          f"({C},{T}) {dt} {kind}")
                 err, _, n = block_agreement(got, want, *args, n_it)
                 tol = block_tol(dt, n_it)
-                k_ms = cuda_ms(lambda: squarem.squarem_block(*args, n_it))
-                p_ms = cuda_ms(lambda: squarem.squarem_block_ref(*args, n_it),
-                               reps=5)
+                k_ms = device_ms(lambda: squarem.squarem_block(*args, n_it),
+                                 n=50)
+                p_ms = device_ms(lambda: squarem.squarem_block_ref(*args,
+                                                                   n_it), n=5)
                 log(f"kernel check ({C},{T}) {str(dt)[6:]} {kind} "
                     f"B={args[0].shape[0]} cycles={n_it}: max rel diff "
                     f"{err:.3e} over {n} modules (tol {tol:g}); kernel "
@@ -220,10 +232,10 @@ def ensure_fixture(n_genes: int = N_GENES, n_reads: int = N_READS,
     member of the read's window group, strand from the canonical flags."""
     import numpy as np
 
-    from emsar_tpu.config import BuildConfig
-    from emsar_tpu.index import pack
-    from emsar_tpu.io.fasta import build_transcriptome
-    from emsar_tpu.sim import gene_family_transcriptome, simulate_fragments
+    from emsar_tpu_torch.config import BuildConfig
+    from emsar_tpu_torch.index import pack
+    from emsar_tpu_torch.io.fasta import build_transcriptome
+    from emsar_tpu_torch.sim import gene_family_transcriptome, simulate_fragments
     from emsar_tpu_torch.index.build import build_se_index, se_group
 
     os.makedirs(cache, exist_ok=True)
@@ -319,10 +331,10 @@ def phase_main_path(rsh: str, aln: str, out_root: str):
     launches}}, {run: phase seconds}, the sample's inputs)."""
     import numpy as np
 
-    from emsar_tpu.config import QuantConfig
-    from emsar_tpu.ingest import native as native_mod
-    from emsar_tpu.io.rsh import RshIndex
-    from emsar_tpu.utils.timing import phase_times, reset_phases
+    from emsar_tpu_torch.config import QuantConfig
+    from emsar_tpu_torch.ingest import native as native_mod
+    from emsar_tpu_torch.io.rsh import RshIndex
+    from emsar_tpu_torch.utils.timing import phase_times, reset_phases
     from emsar_tpu_torch.cli import emsar as cli
     from emsar_tpu_torch.model.quantify import _host_loglik, prepare_sample
     from emsar_tpu_torch.model.solver import build_problem
@@ -372,15 +384,21 @@ def phase_main_path(rsh: str, aln: str, out_root: str):
             f"launches {launches[name]}, phases "
             + ", ".join(f"{k} {v:.3f}" for k, v in seconds[name].items()))
     for name, _ in RUNS:
-        kernel = ("squarem_block" if name.startswith("kernel") else
-                  "segment_sum" if name.startswith("csr") else None)
-        if kernel and launches[name][kernel] <= 0:
-            raise AssertionError(f"run {name} never launched {kernel}")
+        kernels = (("squarem_block",) if name.startswith("kernel") else
+                   ("segment_sum", "em_step") if name.startswith("csr")
+                   else ())
+        for kernel in kernels:
+            if launches[name][kernel] <= 0:
+                raise AssertionError(f"run {name} never launched {kernel}")
     same = fpkm_bytes["csr"] == fpkm_bytes["csr_again"]
-    log(f"csr vs csr_again: .fpkm byte-identical {same}")
+    log(f"csr vs csr_again: .fpkm byte-identical {same}; CSR logL "
+        f"{lls['csr']!r} (want {CSR_LOGL!r})")
     if not same:
         raise AssertionError("two CSR runs on the same input gave different "
                              ".fpkm bytes")
+    if lls["csr"] != CSR_LOGL:
+        raise AssertionError(f"the CSR run's logL {lls['csr']!r} moved from "
+                             f"{CSR_LOGL!r}")
     # EM approaches an isoform whose ML abundance is 0 sublinearly, so the
     # paths stop at the same 1e-9 logL gain with such isoforms at different
     # small FPKM; EM keeps each module's read total, so that mass moves to
@@ -416,39 +434,55 @@ def phase_main_path(rsh: str, aln: str, out_root: str):
 def phase_main_path_shapes(x, dev):
     """Kernel vs plain version on the main path's own dense batches
     (float64, one block from the read-attribution start).  ``x`` is the
-    sample's ``prepare_sample`` result.  Returns (max abs err, kernel ms,
-    plain ms) summed over the batches."""
+    sample's ``prepare_sample`` result.  Returns what it measured: times
+    and bounds summed over the batches, host ms per call their mean.  The
+    bound counts each batch's inputs and output once and 16 C T
+    operations per module and cycle (the eight passes over M, a
+    multiply and an add each; the elementwise work is left out)."""
     import numpy as np
     import torch
 
-    from emsar_tpu_torch.kernels import squarem
+    from emsar_tpu_torch.kernels import measure, squarem
     from emsar_tpu_torch.kernels.check import block_agreement, block_tol
     from emsar_tpu_torch.model.dense import (_theta0, batch_to_device,
                                              partition_modules)
 
     part = partition_modules(x.graph, x.modules, x.eumaps, x.read_count,
                              dtype=np.float64)
-    max_abs, k_total, p_total = 0.0, 0.0, 0.0
+    if not part.batches:
+        raise AssertionError("the fixture produced no dense batches")
+    tot = {"err": 0.0, "ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "library_ms": None}
+    bound_by = {}
     for batch in part.batches:
         db = batch_to_device(batch, dev, torch.float64)
         args = [db.m, db.eumaps, db.reads, db.inv_denom, _theta0(db)]
         got = squarem.squarem_block(*args, N_ITERS)
         want = squarem.squarem_block_ref(*args, N_ITERS)
         err, diff, n = block_agreement(got, want, *args, N_ITERS)
-        k_ms = cuda_ms(lambda: squarem.squarem_block(*args, N_ITERS))
-        p_ms = cuda_ms(lambda: squarem.squarem_block_ref(*args, N_ITERS),
-                       reps=5)
+        host = measure.host_ms(lambda: squarem.squarem_block(*args,
+                                                             N_ITERS))
+        k_ms = measure.device_ms(lambda: squarem.squarem_block(*args,
+                                                               N_ITERS),
+                                 host_per_call_ms=host)
+        p_ms = measure.device_ms(lambda: squarem.squarem_block_ref(
+            *args, N_ITERS), n=5)
+        B, C, T = batch.shape
+        bound, by = measure.bound_ms(measure.nbytes(*args, got),
+                                     16 * B * C * T * N_ITERS)
+        bound_by[by] = bound_by.get(by, 0.0) + bound
         log(f"main-path batch {batch.shape}: max rel diff {err:.3e} over "
-            f"{n} modules, max abs diff {diff:.3e}; kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms per {N_ITERS}-cycle block")
+            f"{n} modules, max abs diff {diff:.3e}; kernel {k_ms:.4f} ms on "
+            f"the card, {host:.4f} ms host per call; plain {p_ms:.4f} ms "
+            f"per {N_ITERS}-cycle block; bound {bound:.4f} ms ({by})")
         if err > block_tol(torch.float64, N_ITERS):
             raise AssertionError(f"kernel disagrees on batch {batch.shape}")
-        max_abs = max(max_abs, diff)
-        k_total += k_ms
-        p_total += p_ms
-    if not part.batches:
-        raise AssertionError("the fixture produced no dense batches")
-    return max_abs, k_total, p_total
+        tot["err"] = max(tot["err"], diff)
+        for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
+                     ("host_ms", host / len(part.batches))):
+            tot[k] += v
+    tot["bound_by"] = max(bound_by, key=bound_by.get)
+    return tot
 
 
 def phase_build_kernels() -> None:
@@ -476,67 +510,186 @@ def phase_build_kernels() -> None:
                         log(f"ptxas {name}: {ln.strip()}")
 
 
-def random_csr(rng, n_seg: int, n_x: int, n_edges: int, dev, dtype):
+def random_csr(rng, n_seg: int, n_x: int, n_edges: int, dev, dtype,
+               long_seg: int = 0):
     """A random edge list grouped by segment, as segment_sum's arguments
-    (w, idx, offsets) on ``dev``."""
+    (w, idx, offsets) on ``dev``: segments drawn uniformly (some stay
+    empty), idx unsorted within a segment, and ``long_seg`` more edges in
+    one segment."""
     import numpy as np
     import torch
-    seg = np.sort(rng.integers(0, n_seg, n_edges))
+    seg = np.sort(np.concatenate([rng.integers(0, n_seg, n_edges),
+                                  np.full(long_seg, n_seg // 2)]))
+    E = len(seg)
     off = np.zeros(n_seg + 1, dtype=np.int64)
     np.cumsum(np.bincount(seg, minlength=n_seg), out=off[1:])
-    w = torch.as_tensor(rng.integers(1, 3, n_edges) * 1.0).to(dev, dtype)
+    w = torch.as_tensor(rng.integers(1, 3, E) * 1.0).to(dev, dtype)
     return (w, *(torch.as_tensor(a).to(dev) for a in
-                 (rng.integers(0, n_x, n_edges), off)))
+                 (rng.integers(0, n_x, E), off)))
 
 
-def check_segment_sum(x, args, label: str):
-    """Segment-sum kernel against its plain version on one input:
-    bit-identical across two launches, within rel 1e-12 (f64) / 1e-5 (f32).
-    Returns (max abs err, kernel ms, plain ms)."""
+def check_segment_sum(x, args, label: str) -> dict:
+    """Segment-sum kernel against its plain version on the CPU: the same
+    bits (tolerance 0), and the same bits on two launches.  Times the
+    prepared launch (device and host ms), the plain version on the card
+    and one ``torch.sparse.mm`` of the same CSR matrix (the library
+    yardstick).  Returns what it measured."""
+    import warnings
+
     import torch
 
+    from emsar_tpu_torch.kernels import measure
     from emsar_tpu_torch.kernels import segment_sum as ss
+    w, idx, off = args
+    g = ss.prepare(off, idx, w, x.shape[1])
     a = ss.segment_sum(x, *args)
-    b = ss.segment_sum(x, *args)
+    b = ss.sum_groups(x, g)
     torch.cuda.synchronize()
-    want = ss.segment_sum_ref(x, *args)
+    want = ss.segment_sum_ref(*(t.cpu() for t in (x, w, idx, off)))
+    plain = ss.segment_sum_ref(x, *args)
+    err = float((a.cpu() - want).abs().max()) if a.numel() else 0.0
+    d_plain = float((a - plain).abs().max()) if a.numel() else 0.0
     if not torch.equal(a, b):
         raise AssertionError(f"segment_sum {label}: two launches differ")
-    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[x.dtype]
-    err = float((a - want).abs().max()) if a.numel() else 0.0
-    rel = err / max(float(want.abs().max()), 1e-300) if a.numel() else 0.0
-    k_ms = cuda_ms(lambda: ss.segment_sum(x, *args))
-    p_ms = cuda_ms(lambda: ss.segment_sum_ref(x, *args))
-    log(f"segment_sum {label} {str(x.dtype)[6:]} R={x.shape[0]} "
-        f"G={args[2].shape[0] - 1} E={args[0].shape[0]}: max abs diff "
-        f"{err:.3e}, rel {rel:.3e} (tol {tol:g}), two launches equal; "
-        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    if rel > tol or not torch.isfinite(a).all():
-        raise AssertionError(f"segment_sum {label} disagrees: rel {rel:.3e}")
-    return err, k_ms, p_ms
+    if not torch.equal(a.cpu(), want) or not torch.isfinite(a).all():
+        raise AssertionError(f"segment_sum {label}: not the CPU plain "
+                             f"version's bits (max abs diff {err:.3e})")
+    R, N = x.shape
+    G = g.n_groups
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        A = torch.sparse_csr_tensor(off, idx.to(off.dtype), w, size=(G, N),
+                                    check_invariants=False)
+        xt = x.T.contiguous()
+        d_lib = float((torch.sparse.mm(A, xt).T - want.to(x.device)).abs()
+                      .max()) if a.numel() else 0.0
+        lib_ms = measure.device_ms(lambda: torch.sparse.mm(A, xt))
+    host = measure.host_ms(lambda: ss.sum_groups(x, g))
+    k_ms = measure.device_ms(lambda: ss.sum_groups(x, g),
+                             host_per_call_ms=host)
+    p_ms = measure.device_ms(lambda: ss.segment_sum_ref(x, *args), n=20)
+    E = idx.shape[0]
+    n_bytes = measure.nbytes(x, g.mult, g.idx, g.offsets) + a.numel() * \
+        a.element_size()
+    bound, by = measure.bound_ms(n_bytes, 2 * E * R, x.dtype)
+    log(f"segment_sum {label} {str(x.dtype)[6:]} R={R} G={G} E={E} lanes "
+        f"{g.lanes}: bit-equal to the CPU plain version, two launches "
+        f"equal (max abs diff to the card's plain version {d_plain:.3e}, "
+        f"to sparse.mm {d_lib:.3e}); kernel {k_ms:.4f} ms on the card, "
+        f"{host:.4f} ms host per call; plain {p_ms:.4f} ms; sparse.mm "
+        f"{lib_ms:.4f} ms; bound {bound:.4f} ms ({by}, {n_bytes} B)")
+    return {"err": err, "ms": k_ms, "host_ms": host, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+
+
+def cpu_groups(g):
+    """A prepared edge grouping's copy on the CPU."""
+    import dataclasses
+    return dataclasses.replace(g, offsets=g.offsets.cpu(), idx=g.idx.cpu(),
+                               mult=g.mult.cpu())
+
+
+def check_em_step(p, theta, label: str) -> dict:
+    """em_step on the card against its plain version on the CPU: the same
+    bits (tolerance 0), and the same bits on two calls.  ``p`` is a
+    DeviceProblem on the card, theta [R, ntid] in its dtype.  Returns
+    what it measured (the bound counts em_step's inputs and output once:
+    theta, both groupings, reads, inv_denom, the new theta)."""
+    import torch
+
+    from emsar_tpu_torch.kernels import measure
+    from emsar_tpu_torch.kernels import segment_sum as ss
+    args = (p.by_cid, p.by_tid, p.reads, p.inv_denom)
+    a = ss.em_step(theta, *args)
+    b = ss.em_step(theta, *args)
+    torch.cuda.synchronize()
+    want = ss.em_step_ref(theta.cpu(), cpu_groups(p.by_cid),
+                          cpu_groups(p.by_tid), p.reads.cpu(),
+                          p.inv_denom.cpu())
+    err = float((a.cpu() - want).abs().max())
+    if not torch.equal(a, b):
+        raise AssertionError(f"em_step {label}: two calls differ")
+    if not torch.equal(a.cpu(), want) or not torch.isfinite(a).all():
+        raise AssertionError(f"em_step {label}: not the CPU plain version's "
+                             f"bits (max abs diff {err:.3e})")
+    host = measure.host_ms(lambda: ss.em_step(theta, *args))
+    k_ms = measure.device_ms(lambda: ss.em_step(theta, *args),
+                             host_per_call_ms=host)
+    p_ms = measure.device_ms(lambda: ss.em_step_ref(theta, *args), n=20)
+    R = theta.shape[0]
+    E = p.by_cid.idx.shape[0]
+    C, T = p.by_cid.n_groups, p.by_tid.n_groups
+    n_bytes = measure.nbytes(
+        theta, p.reads, p.inv_denom, a, *(t for g in (p.by_cid, p.by_tid)
+                                          for t in (g.mult, g.idx,
+                                                    g.offsets)))
+    bound, by = measure.bound_ms(n_bytes, R * (4 * E + C + 2 * T),
+                                 theta.dtype)
+    log(f"em_step {label} {str(theta.dtype)[6:]} R={R} C={C} T={T} E={E} "
+        f"lanes {p.by_cid.lanes}/{p.by_tid.lanes}: bit-equal to the CPU "
+        f"plain version, two calls equal; kernel {k_ms:.4f} ms on the card "
+        f"(two launches), {host:.4f} ms host per call; plain {p_ms:.4f} "
+        f"ms; bound {bound:.4f} ms ({by}, {n_bytes} B)")
+    return {"err": err, "ms": k_ms, "host_ms": host, "plain_ms": p_ms,
+            "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+
+def random_problem(rng, n_seg: int, ntid: int, n_edges: int):
+    """A random SolverProblem with read-less segments and transcripts of
+    zero denominator among the rest."""
+    import numpy as np
+
+    from emsar_tpu_torch.model.solver import SolverProblem
+    key = np.unique(rng.integers(0, n_seg, n_edges) * ntid
+                    + rng.integers(0, ntid, n_edges))
+    reads = rng.poisson(3, n_seg) * 1.0
+    denom = rng.uniform(0.5, 3, ntid)
+    denom[rng.random(ntid) < 0.05] = 0.0
+    return SolverProblem(
+        n_transcripts=ntid, edge_cid=(key // ntid).astype(np.int32),
+        edge_tid=(key % ntid).astype(np.int32),
+        edge_mult=rng.integers(1, 3, len(key)).astype(np.float64),
+        eumaps=rng.uniform(0.1, 2, n_seg), reads=reads, denom=denom)
 
 
 def phase_segment_sum_random(dev) -> None:
+    """Segment sums and em_step on random problems, float32 and float64,
+    R in {1, 3}: each lane count (4, 8, 16, 32 by the mean edges per
+    segment), many empty segments, one segment of 3,000 more edges."""
     import numpy as np
     import torch
+
+    from emsar_tpu_torch.model.solver import problem_to_device
     for dtype in (torch.float32, torch.float64):
-        for n_seg, n_x, n_e, R in ((1000, 800, 5000, 1), (200_000, 150_000,
-                                                          2_000_000, 3)):
+        for n_seg, n_x, n_e, R, long_seg in (
+                (5000, 4000, 2000, 1, 0), (1000, 800, 5000, 3, 3000),
+                (200_000, 150_000, 2_000_000, 3, 0),
+                (1000, 800, 25_000, 1, 0)):
             rng = np.random.default_rng(n_seg + R)
             x = torch.as_tensor(rng.uniform(0, 10, (R, n_x))).to(dev, dtype)
-            check_segment_sum(x, random_csr(rng, n_seg, n_x, n_e, dev, dtype),
-                              "random")
+            check_segment_sum(x, random_csr(rng, n_seg, n_x, n_e, dev, dtype,
+                                            long_seg), "random")
+        for R in (1, 3):
+            rng = np.random.default_rng(R)
+            problem = random_problem(rng, 20_000, 8_000, 80_000)
+            p = problem_to_device(problem, dev, dtype)
+            theta = rng.uniform(0, 10, (R, problem.n_transcripts))
+            theta[:, rng.random(problem.n_transcripts) < 0.2] = 0.0
+            check_em_step(p, torch.as_tensor(theta).to(dev, dtype), "random")
 
 
 def phase_window_hash_check(fa: str, dev):
     """Window-hash kernel against its plain version on the smoke
     transcriptome at l50, unstranded and stranded: bit-equal.  Returns
-    (max abs lane difference, kernel ms, plain ms) of the unstranded
-    pass, the build's own."""
+    what it measured of the unstranded pass, the build's own.  The bound
+    counts the codes, the windows' tids and the four output lanes once;
+    the hash's integer operations are not counted (no published integer
+    rate outside the tensor cores)."""
     import torch
 
-    from emsar_tpu.io.fasta import read_fasta
     from emsar_tpu_torch.index.device_build import DeviceRef
+    from emsar_tpu_torch.io.fasta import read_fasta
+    from emsar_tpu_torch.kernels import measure
     from emsar_tpu_torch.kernels import window_hash as wh
 
     ref = DeviceRef(read_fasta(fa, "E"), dev)
@@ -551,46 +704,114 @@ def phase_window_hash_check(fa: str, dev):
         want = wh.window_hash_ref(*args)
         diff = max(int((g.long() - w.long()).abs().max())
                    for g, w in zip(got, want))
-        k_ms = cuda_ms(lambda: wh.window_hash(*args))
-        p_ms = cuda_ms(lambda: wh.window_hash_ref(*args), reps=3)
+        host = measure.host_ms(lambda: wh.window_hash(*args))
+        k_ms = measure.device_ms(lambda: wh.window_hash(*args),
+                                 host_per_call_ms=host)
+        p_ms = measure.device_ms(lambda: wh.window_hash_ref(*args), n=3)
+        bound, by = measure.bound_ms(
+            measure.nbytes(ref.codes, tidf[:n], *got), 0)
         n_valid = int((got[3] >= 0).sum())
         log(f"window_hash l{READLEN} {'ns' if unstranded else 'ss'}: "
             f"{n} windows, {n_valid} valid, max lane/tid diff {diff}; "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            f"kernel {k_ms:.4f} ms on the card, {host:.4f} ms host per "
+            f"call; plain {p_ms:.4f} ms; bound {bound:.4f} ms ({by})")
         if diff != 0 or n_valid == 0:
             raise AssertionError("window_hash is not bit-equal to its plain "
                                  "version")
-        measured[unstranded] = (float(diff), k_ms, p_ms)
+        measured[unstranded] = {
+            "err": float(diff), "ms": k_ms, "host_ms": host,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
     return measured[True]
 
 
 def phase_segment_sum_main(x, dev):
-    """Segment sums of one CSR EM step on the main path's problem (the
-    whole fixture in --solver_mode csr, float64): by cid (intensities) and
-    by tid (the EM numerator).  Returns (max abs err, kernel ms, plain
-    ms), summed over the two."""
+    """Segment sums and em_step on the main path's CSR problem (the whole
+    fixture in --solver_mode csr, float64, R = 1): the sums by cid
+    (intensities) and by tid (the EM numerator), and em_step in float64
+    and float32.  Returns ({kernel: measured}, the SolverProblem); the
+    segment-sum times are the two sums' together, its host time their
+    mean."""
     import numpy as np
     import torch
 
-    from emsar_tpu_torch.model.solver import build_problem, problem_to_device
-
+    from emsar_tpu_torch.model.solver import (build_problem, problem_to_device,
+                                              read_attribution_start)
     problem = build_problem(x.graph, x.modules, x.eumaps, x.read_count)
     p = problem_to_device(problem, dev, torch.float64)
     rng = np.random.default_rng(5)
-    total = [0.0, 0.0, 0.0]
-    for label, g, n_x in (("by cid", p.by_cid, problem.n_transcripts),
-                          ("by tid", p.by_tid, len(problem.eumaps))):
-        xs = torch.as_tensor(rng.uniform(0, 10, (1, n_x))).to(dev)
-        err, k_ms, p_ms = check_segment_sum(
-            xs, (g.mult, g.idx, g.offsets), f"main path {label}")
-        total = [max(total[0], err), total[1] + k_ms, total[2] + p_ms]
-    return tuple(total)
+    sums = []
+    for label, g in (("by cid", p.by_cid), ("by tid", p.by_tid)):
+        xs = torch.as_tensor(rng.uniform(0, 10, (1, g.n_x))).to(dev)
+        sums.append(check_segment_sum(
+            xs, (g.mult, g.idx, g.offsets), f"main path {label}"))
+    seg = {k: sum(m[k] for m in sums) for k in
+           ("err", "ms", "plain_ms", "library_ms", "bound_ms")}
+    seg["err"] = max(m["err"] for m in sums)
+    seg["host_ms"] = sum(m["host_ms"] for m in sums) / len(sums)
+    seg["bound_by"] = sums[0]["bound_by"]
+    theta = torch.as_tensor(read_attribution_start(problem))[None].to(dev)
+    em = check_em_step(p, theta, "main path")
+    p32 = problem_to_device(problem, dev, torch.float32)
+    check_em_step(p32, theta.float(), "main path")
+    return {"segment_sum": seg, "em_step": em}, problem
+
+
+def phase_csr_profile(problem, dev, n_blocks: int = 3) -> dict:
+    """The CSR solve of the main path on the card: the whole solve must
+    stop after CSR_BLOCKS blocks; then ``n_blocks`` blocks from the same
+    start, timed (ms per block, host clock around work that ends in a
+    sync), counted (kernel launches per block: the port's counts and every
+    kernel the profiler saw) and profiled (device busy share: kernel time
+    on the card over the wall time of the window, torch.profiler)."""
+    import numpy as np
+    import torch
+
+    from emsar_tpu_torch.kernels import segment_sum as ss
+    from emsar_tpu_torch.model.solver import (em_solve, problem_to_device,
+                                              read_attribution_start, solve)
+    _, ll, blocks = solve(problem, dev, dtype=np.float64)
+    log(f"CSR solve: {blocks} blocks (want {CSR_BLOCKS}), logL {ll!r}")
+    if blocks != CSR_BLOCKS:
+        raise AssertionError(f"the CSR solve took {blocks} blocks, not "
+                             f"{CSR_BLOCKS}")
+    p = problem_to_device(problem, dev, torch.float64)
+    th0 = torch.as_tensor(read_attribution_start(problem))[None].to(dev)
+    max_iters = n_blocks * 8 * 3
+
+    def run():
+        out = em_solve(p, th0, 1e-9, 8, max_iters)
+        torch.cuda.synchronize()
+        return out
+
+    run()
+    n0 = ss.LAUNCHES + ss.EM_LAUNCHES
+    t0 = time.perf_counter()
+    _, _, it = run()
+    wall = time.perf_counter() - t0
+    ours = (ss.LAUNCHES + ss.EM_LAUNCHES - n0) / it
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        prof_wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    busy = busy_us / (prof_wall * 1e6) if kernels else None
+    out = {"blocks": it, "ms_per_block": wall * 1e3 / it,
+           "port_kernel_launches_per_block": ours,
+           "device_kernels_per_block": len(kernels) / it,
+           "device_busy_share": busy, "profiled_wall_s": prof_wall}
+    log(f"CSR blocks on the card: {out}")
+    return out
 
 
 def phase_build_smoke(fa: str, rsh: str, out_root: str):
     """``emsar-build-torch smoke.fa 50`` on the card against the NumPy
     builder's smoke.rsh.  Returns the run's kernel launches."""
-    from emsar_tpu.utils.timing import phase_times, reset_phases
+    from emsar_tpu_torch.utils.timing import phase_times, reset_phases
     from emsar_tpu_torch.cli import emsar_build
 
     out = os.path.join(out_root, "build")
@@ -618,7 +839,7 @@ def phase_build_smoke(fa: str, rsh: str, out_root: str):
 def phase_fasta_path(fa: str, aln: str, out_root: str, x):
     """``emsar-torch --solver_pallas -x smoke.fa`` against the -I kernel
     run: logL rel 1e-12, .fraglength_effect byte-equal."""
-    from emsar_tpu.utils.timing import phase_times, reset_phases
+    from emsar_tpu_torch.utils.timing import phase_times, reset_phases
     from emsar_tpu_torch.cli import emsar as cli
     from emsar_tpu_torch.model.quantify import _host_loglik
     from emsar_tpu_torch.model.solver import build_problem
@@ -674,14 +895,17 @@ def check_window_hash_scale(ref, tidf, rl: int, chunk: int = 1 << 25):
     unstranded kernel output)."""
     import torch
 
+    from emsar_tpu_torch.kernels import measure
     from emsar_tpu_torch.kernels import window_hash as wh
     n = ref.borderpos - rl + 1
     measured, kept = {}, None
     for unstranded in (True, False):
         args = (ref.codes, tidf, ref.borderpos, ref.seqlength, rl,
                 unstranded)
-        k_ms = cuda_ms(lambda: wh.window_hash(*args), reps=5, warmup=1)
+        k_ms = measure.device_ms(lambda: wh.window_hash(*args), n=5)
         got = wh.window_hash(*args)
+        bound, by = measure.bound_ms(
+            measure.nbytes(ref.codes, tidf[:n], *got), 0)
         n_bad, p_ms = 0, 0.0
         for a in range(0, n, chunk):
             b = min(a + chunk, n)
@@ -701,7 +925,7 @@ def check_window_hash_scale(ref, tidf, rl: int, chunk: int = 1 << 25):
         log(f"window_hash at scale l{rl} {'ns' if unstranded else 'ss'}: "
             f"{n} windows, {n_valid} valid, {n_bad} differ from the plain "
             f"version; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (in "
-            f"{-(-n // chunk)} chunks)")
+            f"{-(-n // chunk)} chunks); bound {bound:.3f} ms ({by})")
         if n_bad or n_valid == 0:
             raise AssertionError(f"window_hash at scale: {n_bad} windows "
                                  f"differ from the plain version")
@@ -780,11 +1004,11 @@ def phase_scale_build(dev, out_root: str, n_genes: int = SCALE_GENES):
     import numpy as np
     import torch
 
-    from emsar_tpu.config import BuildConfig
-    from emsar_tpu.io.fasta import read_fasta
-    from emsar_tpu.io.rsh import RshIndex
-    from emsar_tpu.sim import gene_family_transcriptome
-    from emsar_tpu.utils.timing import phase_times, reset_phases
+    from emsar_tpu_torch.config import BuildConfig
+    from emsar_tpu_torch.io.fasta import read_fasta
+    from emsar_tpu_torch.io.rsh import RshIndex
+    from emsar_tpu_torch.sim import gene_family_transcriptome
+    from emsar_tpu_torch.utils.timing import phase_times, reset_phases
     from emsar_tpu_torch.cli import emsar_build
     from emsar_tpu_torch.index.device_build import DeviceRef
 
@@ -875,29 +1099,34 @@ def main() -> int:
     t0 = time.perf_counter()
     fa, rsh, aln = ensure_fixture()
     log(f"fixture: {time.perf_counter() - t0:.1f} s")
-    wh_err, wh_ms, wh_plain = phase_window_hash_check(fa, dev)
+    measured = {"window_hash": phase_window_hash_check(fa, dev)}
 
     out_root = os.path.join(CACHE, "out")
     launches, seconds, sample = phase_main_path(rsh, aln, out_root)
-    sq_err, sq_ms, sq_plain = phase_main_path_shapes(sample, dev)
-    ss_err, ss_ms, ss_plain = phase_segment_sum_main(sample, dev)
+    measured["squarem_block"] = phase_main_path_shapes(sample, dev)
+    csr_measured, problem = phase_segment_sum_main(sample, dev)
+    measured.update(csr_measured)
+    csr_blocks = phase_csr_profile(problem, dev)
     build_launches = phase_build_smoke(fa, rsh, out_root)
     phase_fasta_path(fa, aln, out_root, sample)
     scale = phase_scale_build(dev, out_root)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
-    measured = {
-        "squarem_block": (launches["kernel"]["squarem_block"], sq_err,
-                          sq_ms, sq_plain),
-        "segment_sum": (launches["csr"]["segment_sum"], ss_err, ss_ms,
-                        ss_plain),
-        "window_hash": (build_launches["window_hash"], wh_err, wh_ms,
-                        wh_plain),
-    }
+    main_launches = {"squarem_block": launches["kernel"]["squarem_block"],
+                     "segment_sum": launches["csr"]["segment_sum"],
+                     "em_step": launches["csr"]["em_step"],
+                     "window_hash": build_launches["window_hash"]}
     print(json.dumps({"kernels": [
-        dict(KERNELS[k], launches=n, max_abs_err=e, ms=ms, plain_ms=p)
-        for k, (n, e, ms, p) in measured.items()]}))
-    print(json.dumps({"phase_seconds": seconds, "scale_build": scale}))
+        dict(KERNELS[k], launches=main_launches[k],
+             max_abs_err=measured[k]["err"], ms=measured[k]["ms"],
+             host_ms=measured[k]["host_ms"],
+             plain_ms=measured[k]["plain_ms"],
+             bound_ms=measured[k]["bound_ms"],
+             bound_by=measured[k]["bound_by"],
+             library_ms=measured[k]["library_ms"])
+        for k in KERNELS]}))
+    print(json.dumps({"phase_seconds": seconds, "csr_blocks": csr_blocks,
+                      "scale_build": scale}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

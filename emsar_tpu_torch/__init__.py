@@ -18,13 +18,21 @@ counterpart is easy to find:
   (``csrc/segment_sum.cu``)
 * ``kernels.window_hash`` — the SE build's hash pass
   (``csrc/window_hash.cu``)
+* ``kernels.measure``     — device and host times and roofline bounds of
+  the kernels (``chip_smoke.py``, ``bench``)
+* ``bench.segment_sum_ab`` — the CSR segment sums against another
+  checkout's, on the card
 * ``model.quantify``      — per-sample orchestration
 * ``cli.emsar``           — the ``emsar`` quantifier (``-I``; ``-x`` for SE)
 * ``cli.emsar_build``     — the ``emsar-build`` SE index builder
 
-The JAX-free host stages (``.rsh`` I/O, C++ ingest, module decomposition,
-the f64 polish, writers) are imported from ``emsar_tpu`` unchanged.  This
-package imports ``torch`` and never ``jax``.
+The host stages are copies of the JAX package's modules at the same
+relative paths, changed only in their imports: ``config``, ``sim``,
+``utils.timing``, ``io`` (FASTA, ``.rsh``, bowtie, SAM, BAM, writers),
+``ingest`` (the collapser and the C++ ingest and f64 polish of
+``csrc/ingest.cc`` and ``csrc/solver.cc``, built with g++ at first use into
+``_build/``), ``model.modules``, ``index.pack`` and ``cli.common``.  This
+package imports ``torch``, never ``jax`` and nothing of ``emsar_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -28,26 +28,22 @@ from typing import List
 
 import torch
 
-from emsar_tpu.cli.common import die
-from emsar_tpu.config import MAX_N_ALNFILES, QuantConfig, StrandType
-from emsar_tpu.ingest import native as native_mod
-from emsar_tpu.config import BuildConfig
-from emsar_tpu.ingest.collapse import (PosBias, ReadCollapser,
-                                       group_alignments)
-from emsar_tpu.io import bowtie
-from emsar_tpu.io.bam import read_bam_records
-from emsar_tpu.io.fasta import read_fasta
-from emsar_tpu.io.outputs import (write_fpkm, write_fraglength_dist,
-                                  write_posbias, write_segments)
-from emsar_tpu.io.rsh import RshIndex
-from emsar_tpu.io.sam import (probe_readlength_range_sam_bam,
-                              read_sam_records, stream_alignments_pe,
-                              stream_alignments_se)
-from emsar_tpu.utils.timing import phase
-
+from ..config import BuildConfig, MAX_N_ALNFILES, QuantConfig, StrandType
 from ..device import resolve_device
 from ..index.build import build_se_index
+from ..ingest import native as native_mod
+from ..ingest.collapse import PosBias, ReadCollapser, group_alignments
+from ..io import bowtie
+from ..io.bam import read_bam_records
+from ..io.fasta import read_fasta
+from ..io.outputs import (write_fpkm, write_fraglength_dist, write_posbias,
+                          write_segments)
+from ..io.rsh import RshIndex
+from ..io.sam import (probe_readlength_range_sam_bam, read_sam_records,
+                      stream_alignments_pe, stream_alignments_se)
 from ..model.quantify import index_modules, quantify_sample
+from ..utils.timing import phase
+from .common import die
 
 SHORT = "vqPs:b:p:h:t:F:f:n:e:r:d:gm:MHBSW:w:k:i:l:TRI:x:"
 LONG = ["rsh=", "fasta=", "print_segments", "print_sfa", "print_rsh", "BAM",

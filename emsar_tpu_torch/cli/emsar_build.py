@@ -17,12 +17,11 @@ import getopt
 import os
 import sys
 
-from emsar_tpu.cli.common import die
-from emsar_tpu.config import BuildConfig, StrandType
-from emsar_tpu.io.fasta import read_fasta
-from emsar_tpu.utils.timing import phase
-
+from ..config import BuildConfig, StrandType
 from ..index.build import build_se_index
+from ..io.fasta import read_fasta
+from ..utils.timing import phase
+from .common import die
 from .emsar import NOT_PORTED
 
 SHORT = "vqPs:b:p:h:t:F:f:m:W:w:Tk:"

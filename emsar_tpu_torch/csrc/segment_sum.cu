@@ -2,33 +2,54 @@
 //
 //   out[r, g] = sum_{e in [offsets[g], offsets[g+1])} w[e] * x[r, idx[e]]
 //
-// The two segment sums of every CSR EM step: s = sum over a segment's
-// edges of mult * theta[tid] (edges grouped by cid), and num = sum over a
-// transcript's edges of mult * (R / s)[cid] (edges grouped by tid).  It
+// with an optional epilogue that turns the sum s into one half of the CSR
+// EM step of model/solver.py::_em_iter:
+//
+//   mode 0 (plain):  out[r, g] = s
+//   mode 1 (ratio):  out[r, g] = s > 0 ? a[g] / s : 0        (a = reads)
+//   mode 2 (update): out[r, g] = (b[r, g] * s) * a[g]        (b = theta,
+//                                                             a = inv_denom)
+//
+// so one EM step is two launches: by cid in mode 1 (the segment
+// intensities s, turned into the read ratio R / s), then by tid in mode 2
+// (the numerator sum of mult * ratio, times theta and 1 / denom).  It
 // replaces the two `jax.ops.segment_sum` calls of
-// emsar_tpu/model/solver.py::_em_solve (XLA ops, not a Pallas kernel),
-// whose torch counterpart `index_add_` sums with float atomics on CUDA in
-// an order that changes from launch to launch.
+// emsar_tpu/model/solver.py::_em_solve (XLA ops, not a Pallas kernel) and
+// the elementwise work between and after them.
 //
-// Why no atomics: one thread owns one (row, segment) output and adds its
-// edges one after another in edge order, so the summation order is fixed
-// by the CSR layout alone.  Two launches on the same input give the same
-// bits, and the order equals that of the sequential CPU `index_add_` over
-// the same edge order (products and sums are rounded separately, no FMA
-// contraction), so the plain version on the CPU gives the same bits too.
+// Order and bits.  Each product is rounded (mul_rn), then the products of
+// a segment are added to a running sum one after another in edge order
+// (add_rn), starting from 0; no FMA contraction, no atomics.  That is the
+// order of the sequential CPU `index_add_` over the same edges, so the
+// kernel gives the plain version's bits on the CPU, and the same bits on
+// every launch.  The epilogues use IEEE division and two separately
+// rounded products in torch's order, so they give torch's bits too.
 //
-// What bounds it on the H100: bytes, not arithmetic.  Each edge costs one
-// multiply-add against a random 4- or 8-byte gather of x (theta or the
-// read ratio) plus a streaming read of idx (8 B) and w; the gathers hit L2
-// (the x rows of a real problem are a few MB, under the 50 MB L2).  Load
-// balance follows the segment sizes: a segment with many edges keeps its
-// thread longer; EMSAR's segments hold a handful of transcripts and a
-// transcript a few hundred segments at most, so one thread per output is
-// kept over a warp-per-segment tree, whose fixed reduction shape would
-// change the order relative to the CPU.
+// What bounds it on the H100: bytes.  One f64 launch by cid on the smoke
+// workload's CSR problem (27,619 segments, 89,744 edges, x of 12,090)
+// moves w and idx once (12 B an edge with int32 indices), x once, offsets
+// and out once: ~1.6 MB, ~0.5 us at 3.35 TB/s.  In practice the floor is
+// the launch latency (a few us), so the design cuts the latency of each
+// launch and the launches themselves:
 //
-// Layout: x [R, N] contiguous; w [E]; idx [E] and offsets [G + 1] int64;
-// out [R, G].  float or double.
+// * A group of K lanes (K = 4, 8, 16 or 32, a template parameter the
+//   wrapper picks from the mean edges per segment) owns one output.  The
+//   lanes load K consecutive idx / w coalesced and have all K gathers of x
+//   in flight at once, where one thread per output waited on one
+//   dependent gather per edge.
+// * The group then folds its K products in edge order: K dependent add_rn
+//   on values broadcast with __shfl_sync (all lanes keep the same running
+//   sum, which carries over to the next chunk of K edges).  Register adds
+//   cost cycles where serial gathers cost memory latency, and the order is
+//   that of the sequential loop.  A group's shuffles name only its own
+//   lanes, so groups of one warp may run different numbers of chunks.
+// * The grid covers R x G groups: K times the threads of one thread per
+//   output, several blocks on every SM.
+// * idx is int32 (the wrapper checks the range once per problem).
+// * The EM epilogues save the six elementwise launches of each EM step.
+//
+// Layout: x [R, N] contiguous; w [E]; idx [E] int32; offsets [G + 1]
+// int64; a [G]; b and out [R, G].  float or double.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,54 +68,123 @@ __device__ __forceinline__ float add_rn(float a, float b) {
 __device__ __forceinline__ double add_rn(double a, double b) {
   return __dadd_rn(a, b);
 }
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
 
-template <typename F>
-__global__ void segment_sum_kernel(const F* __restrict__ x,
-                                   const F* __restrict__ w,
-                                   const int64_t* __restrict__ idx,
-                                   const int64_t* __restrict__ offsets,
-                                   F* __restrict__ out, long long R,
-                                   long long G, long long N) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= R * G) return;
-  const long long r = t / G;
-  const long long g = t - r * G;
+constexpr int kThreads = 256;
+
+template <typename F, int K, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    segment_sum_kernel(const F* __restrict__ x, const F* __restrict__ w,
+                       const int32_t* __restrict__ idx,
+                       const int64_t* __restrict__ offsets,
+                       const F* __restrict__ a, const F* __restrict__ b,
+                       F* __restrict__ out, long long R, long long G,
+                       long long N) {
+  static_assert(K == 4 || K == 8 || K == 16 || K == 32, "lanes per group");
+  const long long grp =
+      (blockIdx.x * (long long)kThreads + threadIdx.x) / K;
+  // K divides the warp, so a group's lanes leave together
+  if (grp >= R * G) return;
+  const int lane = threadIdx.x & (K - 1);
+  const unsigned mask =
+      K == 32 ? 0xffffffffu
+              : ((1u << K) - 1u) << ((threadIdx.x & 31) & ~(K - 1));
+  const long long r = grp / G;
+  const long long g = grp - r * G;
   const F* xr = x + r * N;
-  const long long e1 = offsets[g + 1];
+  const long long e1 = __ldg(offsets + g + 1);
   F acc = F(0);
-  for (long long e = offsets[g]; e < e1; ++e)
-    acc = add_rn(acc, mul_rn(w[e], __ldg(xr + idx[e])));
-  out[t] = acc;
+  for (long long base = __ldg(offsets + g); base < e1; base += K) {
+    const long long e = base + lane;
+    F p = F(0);
+    if (e < e1) p = mul_rn(__ldg(w + e), __ldg(xr + __ldg(idx + e)));
+    const long long left = e1 - base;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const F v = __shfl_sync(mask, p, j, K);
+      if (j < left) acc = add_rn(acc, v);
+    }
+  }
+  if (lane != 0) return;
+  if (MODE == 0) {
+    out[grp] = acc;
+  } else if (MODE == 1) {
+    out[grp] = acc > F(0) ? div_rn(__ldg(a + g), acc) : F(0);
+  } else {
+    out[grp] = mul_rn(mul_rn(__ldg(b + grp), acc), __ldg(a + g));
+  }
+}
+
+template <typename F, int K>
+int launch_k(const void* x, const void* w, const void* idx,
+             const void* offsets, const void* a, const void* b, void* out,
+             long long R, long long G, long long N, int mode,
+             cudaStream_t stream) {
+  const long long threads = R * G * K;
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned int>(blocks));
+#define EMSAR_LAUNCH(M)                                                    \
+  segment_sum_kernel<F, K, M><<<grid, kThreads, 0, stream>>>(             \
+      static_cast<const F*>(x), static_cast<const F*>(w),                  \
+      static_cast<const int32_t*>(idx),                                    \
+      static_cast<const int64_t*>(offsets), static_cast<const F*>(a),      \
+      static_cast<const F*>(b), static_cast<F*>(out), R, G, N)
+  switch (mode) {
+    case 0: EMSAR_LAUNCH(0); break;
+    case 1: EMSAR_LAUNCH(1); break;
+    case 2: EMSAR_LAUNCH(2); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef EMSAR_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename F>
 int launch(const void* x, const void* w, const void* idx, const void* offsets,
-           void* out, long long R, long long G, long long N, void* stream) {
-  const long long n = R * G;
-  if (n <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  segment_sum_kernel<F><<<(unsigned int)blocks, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const F*>(x), static_cast<const F*>(w),
-      static_cast<const int64_t*>(idx), static_cast<const int64_t*>(offsets),
-      static_cast<F*>(out), R, G, N);
-  return static_cast<int>(cudaGetLastError());
+           const void* a, const void* b, void* out, long long R, long long G,
+           long long N, int lanes, int mode, void* stream_ptr) {
+  if (R * G <= 0) return 0;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  switch (lanes) {
+    case 4:
+      return launch_k<F, 4>(x, w, idx, offsets, a, b, out, R, G, N, mode,
+                            stream);
+    case 8:
+      return launch_k<F, 8>(x, w, idx, offsets, a, b, out, R, G, N, mode,
+                            stream);
+    case 16:
+      return launch_k<F, 16>(x, w, idx, offsets, a, b, out, R, G, N, mode,
+                             stream);
+    case 32:
+      return launch_k<F, 32>(x, w, idx, offsets, a, b, out, R, G, N, mode,
+                             stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" int emsar_segment_sum_f32(const void* x, const void* w,
                                      const void* idx, const void* offsets,
-                                     void* out, long long R, long long G,
-                                     long long N, void* stream) {
-  return launch<float>(x, w, idx, offsets, out, R, G, N, stream);
+                                     const void* a, const void* b, void* out,
+                                     long long R, long long G, long long N,
+                                     int lanes, int mode, void* stream) {
+  return launch<float>(x, w, idx, offsets, a, b, out, R, G, N, lanes, mode,
+                       stream);
 }
 
 extern "C" int emsar_segment_sum_f64(const void* x, const void* w,
                                      const void* idx, const void* offsets,
-                                     void* out, long long R, long long G,
-                                     long long N, void* stream) {
-  return launch<double>(x, w, idx, offsets, out, R, G, N, stream);
+                                     const void* a, const void* b, void* out,
+                                     long long R, long long G, long long N,
+                                     int lanes, int mode, void* stream) {
+  return launch<double>(x, w, idx, offsets, a, b, out, R, G, N, lanes, mode,
+                        stream);
 }

@@ -35,11 +35,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from emsar_tpu.config import BuildConfig
-from emsar_tpu.index import pack
-from emsar_tpu.io.fasta import Transcriptome
-from emsar_tpu.io.rsh import RshIndex
-from emsar_tpu.utils.timing import phase
+from ..config import BuildConfig
+from ..io.fasta import Transcriptome
+from ..io.rsh import RshIndex
+from ..utils.timing import phase
+from . import pack
 
 _SIG_M1 = np.random.default_rng(0xC0FFEE).integers(
     1, 1 << 63, size=4096, dtype=np.uint64) | np.uint64(1)

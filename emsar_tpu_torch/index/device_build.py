@@ -46,12 +46,11 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from emsar_tpu.config import BuildConfig
-from emsar_tpu.io.fasta import Transcriptome
-from emsar_tpu.io.rsh import RshIndex
-from emsar_tpu.utils.timing import phase
-
+from ..config import BuildConfig
+from ..io.fasta import Transcriptome
+from ..io.rsh import RshIndex
 from ..kernels.window_hash import MAX_WORDS, WORD_BASES, mul32, window_hash
+from ..utils.timing import phase
 
 _MASK = 0xFFFFFFFF
 # multiset-hash lanes of a tid (emsar_tpu/index/device_build.py _LANE_MUL,

@@ -1,25 +1,35 @@
-"""Deterministic CSR segment sums: hand-written CUDA kernel and its plain
-version.
+"""Deterministic CSR segment sums and the CSR EM step: hand-written CUDA
+kernel and its plain versions.
 
 ``segment_sum(x, w, idx, offsets)`` returns ``out [R, G]`` with
 ``out[r, g] = sum of w[e] * x[r, idx[e]]`` over the edges ``e`` of segment
 ``g``; edges are grouped by segment, segment ``g`` holding the edges
-``offsets[g]:offsets[g + 1]`` (``G = len(offsets) - 1``).  It carries both segment sums
-of the CSR EM step (``model/solver.py``), in place of the
-``jax.ops.segment_sum`` calls of ``emsar_tpu/model/solver.py::_em_solve``.
-The CUDA source is ``csrc/segment_sum.cu`` (one thread per output, edges
-summed in CSR order, no atomics; what bounds it is written there).
+``offsets[g]:offsets[g + 1]`` (``G = len(offsets) - 1``).  ``em_step``
+computes one EM step of the CSR solver (``model/solver.py::_em_iter``)
+from two such sums, by cid and by tid, with the elementwise work in their
+epilogues.  Together they replace the ``jax.ops.segment_sum`` calls of
+``emsar_tpu/model/solver.py::_em_solve``.  The CUDA source is
+``csrc/segment_sum.cu`` (a group of lanes per output, products folded in
+edge order, no atomics; what bounds it is written there).
 
-On a CPU tensor the wrapper computes ``segment_sum_ref``, the plain
-``index_add_`` form, which adds edges sequentially in edge order on the
-CPU.  On a CUDA tensor it launches the kernel or raises; it never falls
-back (``index_add_`` on CUDA sums with float atomics, in an order that
-changes between launches).  ``LAUNCHES`` counts kernel launches.
+``prepare`` checks an edge grouping once (device, dtype, contiguity,
+offsets, index range), stores ``idx`` as int32 and picks the lanes per
+output; ``sum_groups`` and ``em_step`` then launch with no checks per
+call.  The public ``segment_sum`` prepares on every call.
+
+On CPU tensors the wrappers compute the plain versions (``segment_sum_ref``:
+``index_add_``, which adds edges sequentially in edge order on the CPU;
+``em_step_ref``: the torch body of the EM step).  On CUDA tensors they
+launch the kernel or raise; they never fall back (``index_add_`` on CUDA
+sums with float atomics, in an order that changes between launches).  The
+kernel gives the CPU plain versions' bits.  ``LAUNCHES`` counts plain-sum
+launches, ``EM_LAUNCHES`` the launches of ``em_step`` (two per step).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -28,6 +38,67 @@ from . import _build
 
 SOURCE = "segment_sum.cu"
 LAUNCHES = 0
+EM_LAUNCHES = 0
+LANES = (4, 8, 16, 32)
+_PLAIN, _RATIO, _UPDATE = 0, 1, 2
+
+
+@dataclasses.dataclass
+class EdgeGroups:
+    """Edges grouped by one endpoint, checked for the kernel: the CSR
+    ``offsets`` of the groups, the other endpoint ``idx`` (int32, in
+    ``[0, n_x)``) and the weight ``mult``, both in grouped order, and the
+    kernel's ``lanes`` per output."""
+
+    offsets: torch.Tensor  # int64 [G + 1]
+    idx: torch.Tensor  # int32 [E]
+    mult: torch.Tensor  # [E]
+    n_x: int
+    lanes: int
+
+    @property
+    def n_groups(self) -> int:
+        return self.offsets.shape[0] - 1
+
+
+def lanes_for(n_edges: int, n_groups: int) -> int:
+    """Lanes per output: the least of LANES at or above the mean edges per
+    group (so most groups finish in one chunk), at most a warp."""
+    mean = n_edges / max(n_groups, 1)
+    return next((k for k in LANES if k >= mean), LANES[-1])
+
+
+def prepare(offsets: torch.Tensor, idx: torch.Tensor, mult: torch.Tensor,
+            n_x: int) -> EdgeGroups:
+    """Check one edge grouping and convert it for the kernel: offsets
+    int64 [G + 1] from 0 to E, non-decreasing; idx int32 or int64 [E] in
+    ``[0, n_x)``; mult float32 or float64 [E]; all contiguous on one
+    device.  Raises ValueError on anything else."""
+    dev = mult.device
+    if mult.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"segment_sum: unsupported dtype {mult.dtype}")
+    E = mult.shape[0]
+    for name, t, dtypes, n in (("mult", mult, (mult.dtype,), E),
+                               ("idx", idx, (torch.int32, torch.int64), E),
+                               ("offsets", offsets, (torch.int64,), None)):
+        if t.device != dev or t.dtype not in dtypes:
+            raise ValueError(f"segment_sum: {name} is {t.dtype} on "
+                             f"{t.device}, want {dtypes} on {dev}")
+        if t.dim() != 1 or not t.is_contiguous() or (
+                n is not None and t.shape[0] != n):
+            raise ValueError(f"segment_sum: {name} must be a contiguous 1-d "
+                             f"tensor of {n or 'G + 1'} entries, got "
+                             f"{tuple(t.shape)}")
+    if offsets.shape[0] < 1 or int(offsets[0]) != 0 or int(
+            offsets[-1]) != E or bool((torch.diff(offsets) < 0).any()):
+        raise ValueError("segment_sum: offsets must rise from 0 to E")
+    if not 0 <= n_x < 2**31:
+        raise ValueError(f"segment_sum: {n_x} entries of x do not fit int32")
+    if E and (int(idx.min()) < 0 or int(idx.max()) >= n_x):
+        raise ValueError(f"segment_sum: idx outside [0, {n_x})")
+    G = offsets.shape[0] - 1
+    return EdgeGroups(offsets=offsets, idx=idx.to(torch.int32), mult=mult,
+                      n_x=n_x, lanes=lanes_for(E, G))
 
 
 def segment_sum_ref(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
@@ -40,13 +111,26 @@ def segment_sum_ref(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
     return x.new_zeros((x.shape[0], G)).index_add_(1, seg, w * x[:, idx])
 
 
+def em_step_ref(theta: torch.Tensor, by_cid: EdgeGroups, by_tid: EdgeGroups,
+                reads: torch.Tensor, inv_denom: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of one CSR EM step from theta [R, ntid]:
+    s = segment sums of mult * theta[:, tid] by cid, ratio = R / s where
+    s > 0 (else 0), num = segment sums of mult * ratio[:, cid] by tid,
+    theta * num * inv_denom."""
+    s = segment_sum_ref(theta, by_cid.mult, by_cid.idx, by_cid.offsets)
+    pos = s > 0
+    ratio = torch.where(pos, reads / torch.where(pos, s, 1.0), 0.0)
+    num = segment_sum_ref(ratio, by_tid.mult, by_tid.idx, by_tid.offsets)
+    return theta * num * inv_denom
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     for fn in (lib.emsar_segment_sum_f32, lib.emsar_segment_sum_f64):
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -55,46 +139,68 @@ def build() -> None:
     _lib()
 
 
-def segment_sum(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
-                offsets: torch.Tensor) -> torch.Tensor:
-    """Segment sums of ``w * x[:, idx]``: x [R, N] float32 or float64, w
-    [E] of x's dtype, idx [E] and offsets [G + 1] int64."""
-    global LAUNCHES
-    if x.device.type == "cpu":
-        return segment_sum_ref(x, w, idx, offsets)
-    if x.device.type != "cuda":
-        raise ValueError(f"segment_sum: unsupported device {x.device}")
-    if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"segment_sum: x must be a contiguous [R, N] "
-                         f"tensor, got {tuple(x.shape)}")
-    E = idx.shape[0]
-    for name, t, dtype, n in (("w", w, x.dtype, E), ("idx", idx, torch.int64,
-                                                     E),
-                              ("offsets", offsets, torch.int64, None)):
-        if t.device != x.device or t.dtype != dtype:
-            raise ValueError(f"segment_sum: {name} is {t.dtype} on "
-                             f"{t.device}, want {dtype} on {x.device}")
-        if t.dim() != 1 or not t.is_contiguous() or (
-                n is not None and t.shape[0] != n):
-            raise ValueError(f"segment_sum: {name} must be a contiguous 1-d "
-                             f"tensor of {n or 'G + 1'} entries, got "
-                             f"{tuple(t.shape)}")
-    if x.dtype == torch.float32:
-        fn = _lib().emsar_segment_sum_f32
-    elif x.dtype == torch.float64:
-        fn = _lib().emsar_segment_sum_f64
-    else:
-        raise ValueError(f"segment_sum: unsupported dtype {x.dtype}")
-    R, N = x.shape
-    G = offsets.shape[0] - 1
+def _launch(x: torch.Tensor, g: EdgeGroups, mode: int, a=None, b=None
+            ) -> torch.Tensor:
+    """One launch over ``g`` with x [R, n_x] contiguous on g's device in
+    g's dtype (not checked); ``a`` [G] and ``b`` [R, G] feed the EM
+    epilogues."""
+    fn = (_lib().emsar_segment_sum_f64 if x.dtype == torch.float64 else
+          _lib().emsar_segment_sum_f32)
+    R = x.shape[0]
+    G = g.n_groups
     out = torch.empty((R, G), dtype=x.dtype, device=x.device)
-    if R * G == 0:
-        return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), w.data_ptr(), idx.data_ptr(), offsets.data_ptr(),
-            out.data_ptr(), R, G, N, stream)
+    rc = fn(x.data_ptr(), g.mult.data_ptr(), g.idx.data_ptr(),
+            g.offsets.data_ptr(), None if a is None else a.data_ptr(),
+            None if b is None else b.data_ptr(), out.data_ptr(), R, G, g.n_x,
+            g.lanes, mode, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_sum: kernel launch failed with CUDA "
                            f"error {rc}")
+    return out
+
+
+def sum_groups(x: torch.Tensor, g: EdgeGroups) -> torch.Tensor:
+    """Segment sums of ``g.mult * x[:, g.idx]`` over a prepared grouping;
+    x [R, g.n_x] contiguous, in g's dtype and on g's device (not checked
+    on the card: this is the solver's per-step call)."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return segment_sum_ref(x, g.mult, g.idx, g.offsets)
+    if x.device.type != "cuda":
+        raise ValueError(f"segment_sum: unsupported device {x.device}")
+    out = _launch(x, g, _PLAIN)
     LAUNCHES += 1
     return out
+
+
+def em_step(theta: torch.Tensor, by_cid: EdgeGroups, by_tid: EdgeGroups,
+            reads: torch.Tensor, inv_denom: torch.Tensor) -> torch.Tensor:
+    """One CSR EM step (``em_step_ref``) in two launches on the card: by
+    cid with the read ratio as epilogue, by tid with the update.  theta
+    [R, ntid] contiguous; reads [C] and inv_denom [ntid] in theta's dtype
+    on its device (not checked on the card)."""
+    global EM_LAUNCHES
+    if theta.device.type == "cpu":
+        return em_step_ref(theta, by_cid, by_tid, reads, inv_denom)
+    if theta.device.type != "cuda":
+        raise ValueError(f"em_step: unsupported device {theta.device}")
+    ratio = _launch(theta, by_cid, _RATIO, a=reads)
+    out = _launch(ratio, by_tid, _UPDATE, a=inv_denom, b=theta)
+    EM_LAUNCHES += 2
+    return out
+
+
+def segment_sum(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                offsets: torch.Tensor) -> torch.Tensor:
+    """Segment sums of ``w * x[:, idx]``: x [R, N] float32 or float64, w
+    [E] of x's dtype, idx [E] int32 or int64 in [0, N), offsets [G + 1]
+    int64.  Checks every argument (``prepare``) on every call."""
+    if x.device != w.device or x.dtype != w.dtype:
+        raise ValueError(f"segment_sum: x is {x.dtype} on {x.device}, w "
+                         f"{w.dtype} on {w.device}")
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"segment_sum: x must be a contiguous [R, N] "
+                         f"tensor, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return segment_sum_ref(x, w, idx, offsets)
+    return sum_groups(x, prepare(offsets, idx, w, x.shape[1]))

@@ -26,9 +26,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from emsar_tpu.model.modules import ModuleDecomposition, SegmentGraph
-
 from ..kernels.squarem import squarem_block
+from .modules import ModuleDecomposition, SegmentGraph
 from .solver import gain_of, torch_dtype
 
 # (max segments, max transcripts) per class; larger modules -> CSR

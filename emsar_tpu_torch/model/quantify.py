@@ -17,13 +17,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from emsar_tpu.config import QuantConfig
-from emsar_tpu.ingest.collapse import SampleCounts
-from emsar_tpu.io.rsh import RshIndex
-from emsar_tpu.model.modules import (ModuleDecomposition, SegmentGraph,
-                                     build_segment_graph, decompose_modules)
-from emsar_tpu.utils.timing import phase
-
+from ..config import QuantConfig
+from ..ingest.collapse import SampleCounts
+from ..io.rsh import RshIndex
+from ..utils.timing import phase
+from .modules import (ModuleDecomposition, SegmentGraph, build_segment_graph,
+                      decompose_modules)
 from .solver import (SolverProblem, build_problem, polish_host_f64, solve,
                      solve_restart_rounds)
 
@@ -149,7 +148,7 @@ def quantify_sample(index: RshIndex, counts: SampleCounts, cfg: QuantConfig,
             fpkm = fpkm.astype(np.float64)
         if dtype == np.float32 or cfg.solver_mode == "auto":
             # close the float32 convergence floor / dense-CSR seams with a
-            # short host f64 SQUAREM polish (C++, shared with emsar_tpu)
+            # short host f64 SQUAREM polish (C++, csrc/solver.cc)
             fpkm = polish_host_f64(problem, fpkm,
                                    epsilon=max(cfg.epsilon, 1e-9),
                                    max_cycles=200)

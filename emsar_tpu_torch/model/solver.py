@@ -9,10 +9,12 @@ EM fixed-point updates on the identical objective:
     theta_t <- theta_t * (sum_c m_ct R_c / s_c) / (sum_c m_ct E_c)
 
 accelerated by stabilized SQUAREM cycles, over ALL modules jointly as one
-global (cid, tid, multiplicity) edge list.  Both segment sums of an EM
-step go through ``kernels.segment_sum`` over the edges grouped by cid
-(CSR) and by tid (CSC): a fixed summation order, so a solve gives the same
-bits on every run (``index_add_`` on CUDA sums with float atomics).
+global (cid, tid, multiplicity) edge list.  Every segment sum goes through
+``kernels.segment_sum`` over the edges grouped by cid (CSR) and by tid
+(CSC): an EM step is ``em_step`` (two launches on the card), an intensity
+``sum_groups``.  The summation order is fixed, so a solve gives the same
+bits on every run (``index_add_`` on CUDA sums with float atomics), and
+the card gives the CPU's bits.
 
 The loop runs on the host one block of ``block_iters`` cycles at a time and
 syncs once per block to test convergence (JAX's ``lax.while_loop`` keeps it
@@ -29,9 +31,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from emsar_tpu.model.modules import ModuleDecomposition, SegmentGraph
-
-from ..kernels.segment_sum import segment_sum
+from ..kernels.segment_sum import EdgeGroups, em_step, prepare, sum_groups
+from .modules import ModuleDecomposition, SegmentGraph
 
 
 @dataclasses.dataclass
@@ -50,17 +51,6 @@ class SolverProblem:
     eumaps: np.ndarray  # float [C_active]
     reads: np.ndarray  # float [C_active]
     denom: np.ndarray  # float [ntid]
-
-
-@dataclasses.dataclass
-class EdgeGroups:
-    """The edges grouped by one endpoint, for ``kernels.segment_sum``:
-    the CSR ``offsets`` of the groups, the other endpoint ``idx`` and the
-    multiplicity ``mult``, both in grouped order."""
-
-    offsets: torch.Tensor  # int64 [n_seg + 1]
-    idx: torch.Tensor  # int64 [E]
-    mult: torch.Tensor  # [E]
 
 
 @dataclasses.dataclass
@@ -111,8 +101,9 @@ def build_problem(graph: SegmentGraph, modules: ModuleDecomposition,
 
 def problem_to_device(problem: SolverProblem, device: torch.device,
                       dtype: torch.dtype) -> DeviceProblem:
-    """Move a SolverProblem to ``device`` in ``dtype`` (indices int64),
-    with the edges grouped by cid and by tid.  Both groupings are stable
+    """Move a SolverProblem to ``device`` in ``dtype``, with the edges
+    grouped by cid and by tid (``kernels.segment_sum.EdgeGroups``, checked
+    here once for every launch of the solve).  Both groupings are stable
     sorts of the edge list, so each segment keeps the edges' own order
     (``build_problem`` emits edges sorted by (cid, tid): the cid grouping
     is then the identity)."""
@@ -126,26 +117,26 @@ def problem_to_device(problem: SolverProblem, device: torch.device,
     def i(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(device)
 
-    def groups(seg, other, n_seg):
+    def groups(seg, other, n_seg, n_other):
         order = np.argsort(seg, kind="stable")
         offsets = np.zeros(n_seg + 1, dtype=np.int64)
         np.cumsum(np.bincount(seg, minlength=n_seg), out=offsets[1:])
-        return EdgeGroups(offsets=i(offsets),
-                          idx=i(other[order]), mult=f(mult[order]))
+        return prepare(i(offsets), i(other[order]), f(mult[order]), n_other)
 
     n_seg = len(problem.eumaps)
+    ntid = problem.n_transcripts
     denom = f(problem.denom)
     pos = denom > 0
     inv_denom = torch.where(pos, 1.0 / torch.where(pos, denom, 1.0), 0.0)
     return DeviceProblem(
-        n_segments=n_seg, by_cid=groups(cid, tid, n_seg),
-        by_tid=groups(tid, cid, problem.n_transcripts),
+        n_segments=n_seg, by_cid=groups(cid, tid, n_seg, ntid),
+        by_tid=groups(tid, cid, ntid, n_seg),
         eumaps=f(problem.eumaps), reads=f(problem.reads),
         inv_denom=inv_denom)
 
 
 def _segment_sum(g: EdgeGroups, x: torch.Tensor) -> torch.Tensor:
-    return segment_sum(x.contiguous(), g.mult, g.idx, g.offsets)
+    return sum_groups(x.contiguous(), g)
 
 
 def _intensities(p: DeviceProblem, theta: torch.Tensor) -> torch.Tensor:
@@ -154,11 +145,10 @@ def _intensities(p: DeviceProblem, theta: torch.Tensor) -> torch.Tensor:
 
 
 def _em_iter(p: DeviceProblem, theta: torch.Tensor) -> torch.Tensor:
-    s = _intensities(p, theta)
-    pos = s > 0
-    ratio = torch.where(pos, p.reads / torch.where(pos, s, 1.0), 0.0)
-    num = _segment_sum(p.by_tid, ratio)
-    return theta * num * p.inv_denom
+    """One EM step (``kernels.segment_sum.em_step``; on the CPU its plain
+    torch body)."""
+    return em_step(theta.contiguous(), p.by_cid, p.by_tid, p.reads,
+                   p.inv_denom)
 
 
 def gain_of(reads: torch.Tensor, eumaps: torch.Tensor, s_old: torch.Tensor,
@@ -248,11 +238,11 @@ def polish_host_f64(problem: SolverProblem, theta: np.ndarray,
 
     Closes the float32 convergence floor and the dense/CSR seams; starts at
     the device solution so only a handful of cycles run.  Runs in the C++
-    extension (csrc/solver.cc, shared with the JAX package) when available;
+    library (csrc/solver.cc, a copy of the JAX package's) when available;
     ``native=False`` forces the NumPy path."""
     if native is not False:
         try:
-            from emsar_tpu.ingest import native as native_mod
+            from ..ingest import native as native_mod
             th = np.ascontiguousarray(theta, dtype=np.float64).copy()
             denom = problem.denom.astype(np.float64)
             inv_denom = np.where(denom > 0, 1.0 /
@@ -355,6 +345,15 @@ def solve_restart_rounds(problem: SolverProblem, n_rounds: int,
     return theta
 
 
+def read_attribution_start(problem: SolverProblem) -> np.ndarray:
+    """The solve's default start (float64 [ntid]): every segment's reads
+    granted fully to each member transcript (upper-bound scale)."""
+    num0 = np.zeros(problem.n_transcripts, dtype=np.float64)
+    np.add.at(num0, problem.edge_tid,
+              problem.edge_mult * problem.reads[problem.edge_cid])
+    return num0 / np.where(problem.denom > 0, problem.denom, 1.0)
+
+
 def solve(problem: SolverProblem, device: torch.device,
           epsilon: float = 1e-9, max_iters: int = 200000,
           block_iters: int = 8, dtype=None,
@@ -371,12 +370,7 @@ def solve(problem: SolverProblem, device: torch.device,
         # float32 cannot resolve likelihood gains below its noise floor
         epsilon = max(epsilon, 1e-5)
     if theta0 is None:
-        # read-attribution start: every segment's reads granted fully to
-        # each member transcript (upper-bound scale)
-        num0 = np.zeros(ntid, dtype=np.float64)
-        np.add.at(num0, problem.edge_tid,
-                  problem.edge_mult * problem.reads[problem.edge_cid])
-        theta0 = num0 / np.where(problem.denom > 0, problem.denom, 1.0)
+        theta0 = read_attribution_start(problem)
     theta0 = np.where(problem.denom > 0, theta0, 0.0).astype(dtype)
 
     tdt = torch_dtype(dtype)

@@ -1,4 +1,5 @@
-"""The port imports and runs without JAX, and resolves its device loudly."""
+"""The port imports and runs without JAX and without the JAX package, and
+resolves its device loudly."""
 
 import os
 import subprocess
@@ -16,31 +17,39 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 torch.set_num_threads(1)
 
 _NO_JAX = textwrap.dedent("""
+    import os
     import sys
-    sys.modules["jax"] = None  # any "import jax" now raises ImportError
+    import tempfile
+    # any "import jax" or "import emsar_tpu..." now raises ImportError
+    sys.modules["jax"] = None
+    sys.modules["emsar_tpu"] = None
     import numpy as np
     import emsar_tpu_torch
-    import emsar_tpu_torch.cli.emsar
-    import emsar_tpu_torch.cli.emsar_build
+    import emsar_tpu_torch.bench.segment_sum_ab
+    import emsar_tpu_torch.cli.emsar as cli
+    import emsar_tpu_torch.cli.emsar_build as build_cli
     import emsar_tpu_torch.index.device_build
+    import emsar_tpu_torch.kernels.measure
     import emsar_tpu_torch.kernels.segment_sum
     import emsar_tpu_torch.kernels.squarem
     import emsar_tpu_torch.kernels.window_hash
     import emsar_tpu_torch.model.quantify as quant
-    from emsar_tpu.config import BuildConfig, QuantConfig
-    from emsar_tpu.ingest.collapse import SampleCounts
-    from emsar_tpu.io.fasta import build_transcriptome
-    from emsar_tpu.sim import gene_family_transcriptome
+    from emsar_tpu_torch.config import BuildConfig, QuantConfig
     from emsar_tpu_torch.device import resolve_device
     from emsar_tpu_torch.index.build import build_se_index
+    from emsar_tpu_torch.ingest.collapse import SampleCounts
+    from emsar_tpu_torch.io.fasta import build_transcriptome, revcomp_bytes
+    from emsar_tpu_torch.sim import (fragments_to_reads,
+                                     gene_family_transcriptome,
+                                     simulate_fragments)
 
     rng = np.random.default_rng(1)
     names, seqs, _ = gene_family_transcriptome(rng, 6, n_exons=4,
                                                min_exon=40, max_exon=90)
+    tx = build_transcriptome(names, seqs)
     # the device backend (the default) on the CPU: the kernels' plain
     # versions
-    idx = build_se_index(build_transcriptome(names, seqs), 20, 20,
-                         BuildConfig(verbose=0))
+    idx = build_se_index(tx, 20, 20, BuildConfig(verbose=0))
     counts = SampleCounts(
         single_counts=rng.poisson(idx.single_euma[:, 0] * 2.0),
         multi_counts=rng.poisson(idx.multi_euma[:, 0] * 2.0),
@@ -55,8 +64,40 @@ _NO_JAX = textwrap.dedent("""
     res = quant.quantify_sample(
         idx, counts, QuantConfig(verbose=0, solver_mode="csr"), dev)
     assert np.isfinite(res.loglik) and np.isfinite(res.fpkm).all()
-    assert sys.modules["jax"] is None
-    assert not [m for m in sys.modules if m.startswith("jax.")]
+
+    # the CLIs end to end: the SE build, then -I on a bowtie file (native
+    # ingest, its own C++ library) and -x with -m 1 on the same file
+    d = tempfile.mkdtemp()
+    fa = os.path.join(d, "t.fa")
+    with open(fa, "w") as fh:
+        for n, s in zip(names, seqs):
+            fh.write(f">{n}\\n{s.decode()}\\n")
+    assert build_cli.main(["-q", fa, "20", d, "idx"]) == 0
+    _, r1, _ = fragments_to_reads(tx, simulate_fragments(tx, 20, 300, rng),
+                                  20, 20, pe=False)
+    aln = os.path.join(d, "a.bowtieout")
+    with open(aln, "w") as fh:
+        for i, read in enumerate(r1):
+            for strand, q in (("+", read), ("-", revcomp_bytes(read))):
+                for n, s in zip(names, seqs):
+                    p = s.find(q)
+                    while p >= 0:
+                        fh.write(f"r{i}\\t{strand}\\t{n}\\t{p}\\t"
+                                 f"{q.decode()}\\tIIII\\t0\\t\\n")
+                        p = s.find(q, p + 1)
+    for flags in (["-I", os.path.join(d, "idx.rsh")],
+                  ["-m", "1", "-x", fa]):
+        out = os.path.join(d, flags[-2])
+        assert cli.main(["-q"] + flags + [out, "s", aln]) == 0
+        with open(os.path.join(out, "s.0.fpkm")) as fh:
+            rows = fh.read().splitlines()
+        assert len(rows) == len(names) + 1
+    assert os.path.exists(os.path.join(d, "-x", "s.posbias"))
+    from emsar_tpu_torch.ingest import native
+    assert native.available()
+    assert sys.modules["jax"] is None and sys.modules["emsar_tpu"] is None
+    assert not [m for m in sys.modules
+                if m.startswith(("jax.", "emsar_tpu."))]
     print("OK")
 """)
 

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card.  These need an NVIDIA GPU with nvcc and skip elsewhere (a CUDA
-kernel has no interpret mode).  This file imports no JAX, so it also runs
-where JAX is absent:
+kernel has no interpret mode).  This file imports neither JAX nor
+``emsar_tpu``, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -10,14 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from emsar_tpu.io.fasta import build_transcriptome
-from emsar_tpu.sim import gene_family_transcriptome
 from emsar_tpu_torch.index.device_build import DeviceRef
+from emsar_tpu_torch.io.fasta import build_transcriptome
 from emsar_tpu_torch.kernels import segment_sum as ssum
 from emsar_tpu_torch.kernels import squarem, window_hash
 from emsar_tpu_torch.kernels.check import (block_agreement, block_tol,
                                            random_modules)
+from emsar_tpu_torch.model import solver
 from emsar_tpu_torch.model.dense import SIZE_CLASSES
+from emsar_tpu_torch.sim import gene_family_transcriptome
 
 pytestmark = pytest.mark.cuda
 
@@ -80,20 +81,35 @@ def test_window_hash_kernel_bit_equal(cuda, rl, unstranded):
         assert torch.equal(g, w)
 
 
-def _csr(rng, n_seg, n_x, E):
-    seg = np.sort(rng.integers(0, n_seg, E))
+def _csr(rng, n_seg, n_x, E, long_seg=0):
+    """Edges grouped by segment: uniform segments (some empty), idx
+    unsorted within a segment, ``long_seg`` more edges in one segment."""
+    seg = np.sort(np.concatenate([rng.integers(0, n_seg, E),
+                                  np.full(long_seg, n_seg // 2)]))
     off = np.zeros(n_seg + 1, dtype=np.int64)
     np.cumsum(np.bincount(seg, minlength=n_seg), out=off[1:])
-    return rng.integers(0, n_x, E), off
+    return rng.integers(0, n_x, len(seg)), off
 
 
+# (segments, entries of x, edges, edges of one long segment): mean edges
+# per segment 0.4, 8, 10 and 25 give lanes 4, 8, 16 and 32
+CSR_CASES = {"sparse": (5000, 3000, 2000, 0), "long": (1000, 800, 5000, 3000),
+             "k16": (5000, 3000, 50000, 0), "k32": (1000, 800, 25000, 0)}
+
+
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("case", sorted(CSR_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-def test_segment_sum_kernel_matches_plain(cuda, dtype):
+def test_segment_sum_kernel_matches_plain(cuda, dtype, case, R):
+    """The kernel gives the bits of the plain version on the CPU (the
+    sequential ``index_add_``), on every launch."""
+    n_seg, n_x, E, long_seg = CSR_CASES[case]
     rng = np.random.default_rng(9)
-    idx, off = _csr(rng, 5000, 3000, 60000)
-    x = torch.as_tensor(rng.uniform(0, 10, (3, 3000))).to(cuda, dtype)
-    w = torch.as_tensor(rng.integers(1, 3, 60000) * 1.0).to(cuda, dtype)
+    idx, off = _csr(rng, n_seg, n_x, E, long_seg)
+    E = len(idx)
+    x = torch.as_tensor(rng.uniform(0, 10, (R, n_x))).to(cuda, dtype)
+    w = torch.as_tensor(rng.integers(1, 3, E) * 1.0).to(cuda, dtype)
     t = [torch.as_tensor(a).to(cuda) for a in (idx, off)]
     before = ssum.LAUNCHES
     a = ssum.segment_sum(x, w, *t)
@@ -101,6 +117,39 @@ def test_segment_sum_kernel_matches_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert ssum.LAUNCHES == before + 2
     assert torch.equal(a, b)  # no atomics: the same bits every launch
-    want = ssum.segment_sum_ref(x, w, *t)
-    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
-    torch.testing.assert_close(a, want, rtol=tol, atol=0)
+    assert torch.equal(a.cpu(), ssum.segment_sum_ref(
+        x.cpu(), w.cpu(), *(u.cpu() for u in t)))
+
+
+def _random_problem(rng, n_seg, ntid, E):
+    key = np.unique(rng.integers(0, n_seg, E) * ntid
+                    + rng.integers(0, ntid, E))
+    denom = rng.uniform(0.5, 3, ntid)
+    denom[rng.random(ntid) < 0.05] = 0.0
+    return solver.SolverProblem(
+        n_transcripts=ntid, edge_cid=(key // ntid).astype(np.int32),
+        edge_tid=(key % ntid).astype(np.int32),
+        edge_mult=rng.integers(1, 3, len(key)).astype(np.float64),
+        eumaps=rng.uniform(0.1, 2, n_seg), reads=rng.poisson(3, n_seg) * 1.0,
+        denom=denom)
+
+
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_em_step_matches_cpu_em_iter(cuda, dtype, R):
+    """em_step on the card gives the bits of the CPU ``_em_iter``, also
+    with zero thetas (segments of zero intensity) and read-less
+    segments."""
+    rng = np.random.default_rng(R)
+    problem = _random_problem(rng, 3000, 1200, 12000)
+    theta = rng.uniform(0, 10, (R, problem.n_transcripts))
+    theta[:, rng.random(problem.n_transcripts) < 0.2] = 0.0
+    p_gpu = solver.problem_to_device(problem, cuda, dtype)
+    p_cpu = solver.problem_to_device(problem, torch.device("cpu"), dtype)
+    th = torch.as_tensor(theta).to(dtype)
+    before = ssum.EM_LAUNCHES
+    got = solver._em_iter(p_gpu, th.to(cuda))
+    torch.cuda.synchronize()
+    assert ssum.EM_LAUNCHES == before + 2
+    assert torch.equal(got.cpu(), solver._em_iter(p_cpu, th))
