@@ -9,7 +9,9 @@ exit, no result line):
 
 1. torch version, the card's name and power limit (nvidia-smi).
 2. Build the three hand-written CUDA kernels from csrc/ (one nvcc per
-   source, all started together; sm_90a); ptxas registers and spills.
+   source, all started together; sm_90a); per kernel instance ptxas'
+   registers, stack, spills and static shared memory (the SQUAREM block
+   classes' dynamic shared memory is written in its source).
 3. SQUAREM kernel against its plain PyTorch version on the card: every
    size class x {float32, float64}, on padded batches of a real
    gene-family index and on random modules; max error and times.
@@ -43,7 +45,8 @@ exit, no result line):
    count > 0), and ``emsar-torch --solver_pallas -x smoke.fa`` must agree
    with the -I kernel run (logL rel 1e-12, .fraglength_effect equal).
 8. The build at scale: the 42,000-gene transcriptome of
-   tools/make_scale_fixture.py (~168k transcripts, ~338 Mbp), SE l76
+   tools/make_scale_fixture.py (``emsar_tpu_torch.bench.
+   scale_transcriptome``; ~168k transcripts, ~338 Mbp), SE l76
    through ``emsar-build-torch``: wall time, phases, peak device memory,
    n_multi; the .rsh must load back.  Then the window-hash kernel against
    its plain version on all ~337M windows at l76, unstranded and stranded
@@ -79,9 +82,6 @@ READLEN = 50
 N_READS = 1_000_000
 SEED = 1234
 N_ITERS = 8
-SCALE_GENES = 42000
-SCALE_SEED = 20260820
-SCALE_READLEN = 76
 # the CSR run's logL (from its .fpkm) and the CSR solve's block count on the
 # smoke fixture: fixed by the deterministic segment sums, whose order any
 # redesign keeps bit for bit
@@ -485,9 +485,50 @@ def phase_main_path_shapes(x, dev):
     return tot
 
 
-def phase_build_kernels() -> None:
+def demangle(names: list) -> list:
+    """``names`` demangled without their parameter lists by the CUDA
+    toolkit's cu++filt, else binutils' c++filt; as they are where neither
+    runs."""
+    import shutil
+
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for tool in (os.path.join(cuda, "bin", "cu++filt"), "c++filt"):
+        exe = shutil.which(tool)
+        if not exe or not names:
+            continue
+        proc = subprocess.run([exe, "-p", *names], capture_output=True,
+                              text=True)
+        out = proc.stdout.splitlines()
+        if proc.returncode == 0 and len(out) == len(names):
+            return [n.replace("(anonymous namespace)::", "") for n in out]
+    return list(names)
+
+
+def ptxas_report(text: str) -> list:
+    """Per kernel instance in a ``-Xptxas -v`` log: its name, registers,
+    stack frame, spill stores and loads, and static shared memory
+    (bytes)."""
+    import re
+
+    def num(pattern, block):
+        g = re.search(pattern, block)
+        return int(g.group(1)) if g else 0
+    blocks = text.split("Compiling entry function")[1:]
+    names = demangle([block.split("'")[1] for block in blocks])
+    return [{"kernel": name,
+             "registers": num(r"Used (\d+) registers", block),
+             "stack_bytes": num(r"(\d+) bytes stack frame", block),
+             "spill_store_bytes": num(r"(\d+) bytes spill stores", block),
+             "spill_load_bytes": num(r"(\d+) bytes spill loads", block),
+             "static_smem_bytes": num(r"(\d+) bytes smem", block)}
+            for name, block in zip(names, blocks)]
+
+
+def phase_build_kernels() -> dict:
     """Build every kernel of the port, one nvcc per source, all started
-    together; log each build's time and ptxas' registers and spills."""
+    together; log each build's time, and per kernel instance ptxas'
+    registers, stack, spills and static shared memory.  Returns {source's
+    kernel: ptxas report}."""
     from emsar_tpu_torch.kernels import _build
 
     def timed(mod):
@@ -501,13 +542,19 @@ def phase_build_kernels() -> None:
         secs = dict(zip(mods, pool.map(timed, mods.values())))
     log(f"kernel builds: {time.perf_counter() - t0:.1f} s in all, "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    reports = {}
     for name, mod in mods.items():
         log_path = _build.library_path(mod.SOURCE) + ".log"
         if os.path.exists(log_path):
             with open(log_path) as fh:
-                for ln in fh.read().splitlines():
-                    if "registers" in ln or "spill" in ln or "smem" in ln:
-                        log(f"ptxas {name}: {ln.strip()}")
+                reports[name] = ptxas_report(fh.read())
+            for r in reports[name]:
+                log(f"ptxas {name}: {r['kernel']}: {r['registers']} "
+                    f"registers, {r['stack_bytes']} B stack, "
+                    f"{r['spill_store_bytes']}/{r['spill_load_bytes']} B "
+                    f"spill stores/loads, {r['static_smem_bytes']} B static "
+                    f"shared memory")
+    return reports
 
 
 def random_csr(rng, n_seg: int, n_x: int, n_edges: int, dev, dtype,
@@ -682,9 +729,10 @@ def phase_window_hash_check(fa: str, dev):
     """Window-hash kernel against its plain version on the smoke
     transcriptome at l50, unstranded and stranded: bit-equal.  Returns
     what it measured of the unstranded pass, the build's own.  The bound
-    counts the codes, the windows' tids and the four output lanes once;
-    the hash's integer operations are not counted (no published integer
-    rate outside the tensor cores)."""
+    counts once the codes the windows read (the forward half, and the rc
+    half when unstranded), their tids and the four output lanes
+    (``window_hash.bytes_moved``); the hash's integer operations are not
+    counted (no published integer rate outside the tensor cores)."""
     import torch
 
     from emsar_tpu_torch.index.device_build import DeviceRef
@@ -709,7 +757,7 @@ def phase_window_hash_check(fa: str, dev):
                                  host_per_call_ms=host)
         p_ms = measure.device_ms(lambda: wh.window_hash_ref(*args), n=3)
         bound, by = measure.bound_ms(
-            measure.nbytes(ref.codes, tidf[:n], *got), 0)
+            wh.bytes_moved(ref.borderpos, READLEN, unstranded), 0)
         n_valid = int((got[3] >= 0).sum())
         log(f"window_hash l{READLEN} {'ns' if unstranded else 'ss'}: "
             f"{n} windows, {n_valid} valid, max lane/tid diff {diff}; "
@@ -905,7 +953,7 @@ def check_window_hash_scale(ref, tidf, rl: int, chunk: int = 1 << 25):
         k_ms = measure.device_ms(lambda: wh.window_hash(*args), n=5)
         got = wh.window_hash(*args)
         bound, by = measure.bound_ms(
-            measure.nbytes(ref.codes, tidf[:n], *got), 0)
+            wh.bytes_moved(ref.borderpos, rl, unstranded), 0)
         n_bad, p_ms = 0, 0.0
         for a in range(0, n, chunk):
             b = min(a + chunk, n)
@@ -995,32 +1043,30 @@ def check_rsh_counts(index, lanes, max_repeat: int) -> float:
     return secs
 
 
-def phase_scale_build(dev, out_root: str, n_genes: int = SCALE_GENES):
+def phase_scale_build(dev, out_root: str):
     """The SE l76 build of tools/make_scale_fixture.py's transcriptome on
     the card through ``emsar-build-torch``, then the window-hash kernel
     against its plain version on all of its windows and the .rsh against
     window classes counted with ``torch.unique``.  Returns a dict of what
     it measured."""
-    import numpy as np
     import torch
 
     from emsar_tpu_torch.config import BuildConfig
     from emsar_tpu_torch.io.fasta import read_fasta
     from emsar_tpu_torch.io.rsh import RshIndex
-    from emsar_tpu_torch.sim import gene_family_transcriptome
+    from emsar_tpu_torch.bench import (SCALE_GENES, SCALE_READLEN,
+                                       scale_transcriptome)
     from emsar_tpu_torch.utils.timing import phase_times, reset_phases
     from emsar_tpu_torch.cli import emsar_build
     from emsar_tpu_torch.index.device_build import DeviceRef
 
     t0 = time.perf_counter()
-    names, seqs, _ = gene_family_transcriptome(
-        np.random.default_rng(SCALE_SEED), n_genes, min_isoforms=2,
-        max_isoforms=6, n_exons=10, min_exon=120, max_exon=500)
+    names, seqs = scale_transcriptome()
     fa = os.path.join(out_root, "scale.fa")
     write_fasta(fa, names, seqs)
     n_bp = sum(len(s_) for s_ in seqs)
     del names, seqs
-    log(f"scale fixture: {n_genes} genes, {n_bp} bp, written in "
+    log(f"scale fixture: {SCALE_GENES} genes, {n_bp} bp, written in "
         f"{time.perf_counter() - t0:.1f} s")
 
     out = os.path.join(out_root, "scale")
@@ -1088,7 +1134,7 @@ def main() -> int:
     dev = resolve_device()
     t_start = time.perf_counter()
 
-    phase_build_kernels()
+    ptxas = phase_build_kernels()
 
     t0 = time.perf_counter()
     worst = phase_kernel_check(dev)
@@ -1126,7 +1172,7 @@ def main() -> int:
              library_ms=measured[k]["library_ms"])
         for k in KERNELS]}))
     print(json.dumps({"phase_seconds": seconds, "csr_blocks": csr_blocks,
-                      "scale_build": scale}))
+                      "scale_build": scale, "ptxas": ptxas}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

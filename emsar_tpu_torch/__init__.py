@@ -22,6 +22,8 @@ counterpart is easy to find:
   the kernels (``chip_smoke.py``, ``bench``)
 * ``bench.segment_sum_ab`` — the CSR segment sums against another
   checkout's, on the card
+* ``bench.kernel_ab``     — ``window_hash`` and ``squarem_block`` against
+  another checkout's, on the card
 * ``model.quantify``      — per-sample orchestration
 * ``cli.emsar``           — the ``emsar`` quantifier (``-I``; ``-x`` for SE)
 * ``cli.emsar_build``     — the ``emsar-build`` SE index builder

@@ -29,49 +29,21 @@ to ``--out``.
 from __future__ import annotations
 
 import argparse
-import importlib
-import importlib.util
-import json
 import os
 import statistics
-import sys
 import time
 
 import numpy as np
 import torch
 
-from ..config import QuantConfig
-from ..ingest import native
-from ..io.rsh import RshIndex
+from . import ORDER, load_parent, smoke_sample, write_result
 from ..kernels import measure
-from ..model import quantify, solver
-
-ORDER = ("parent", "change", "change", "parent")
-
-
-def load_parent(root: str):
-    """The parent checkout's ``emsar_tpu_torch`` as ``parent_port``:
-    (its kernels.segment_sum, its model.solver)."""
-    pkg = os.path.join(root, "emsar_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "parent_port", os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["parent_port"] = mod
-    spec.loader.exec_module(mod)
-    return (importlib.import_module("parent_port.kernels.segment_sum"),
-            importlib.import_module("parent_port.model.solver"))
+from ..model import solver
 
 
 def csr_problem(rsh: str, aln: str):
     """The fixture's whole CSR problem (--solver_mode csr)."""
-    index = RshIndex.load(rsh)
-    cfg = QuantConfig(verbose=0, min_fraglength=index.min_fraglength,
-                      max_fraglength=index.max_fraglength)
-    counts = native.NativeCollapser(index).collapse_file(
-        aln, "bowtie", False, 0, cfg.max_repeat, cfg.min_fraglength,
-        cfg.max_fraglength)
-    x = quantify.prepare_sample(index, counts, cfg)
+    x = smoke_sample(rsh, aln)
     return solver.build_problem(x.graph, x.modules, x.eumaps, x.read_count)
 
 
@@ -103,7 +75,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("segment_sum_ab: needs a CUDA device")
     dev = torch.device("cuda")
-    pss, psolver = load_parent(args.parent)
+    pss, psolver = load_parent(args.parent, "kernels.segment_sum",
+                               "model.solver")
     problem = csr_problem(args.rsh, args.aln)
     p = {"parent": psolver.problem_to_device(problem, dev, torch.float64),
          "change": solver.problem_to_device(problem, dev, torch.float64)}
@@ -160,11 +133,7 @@ def main(argv=None) -> int:
            "transcripts": problem.n_transcripts,
            "lanes": {label: getattr(p["change"], label).lanes
                      for label in xs}}
-    text = json.dumps(out)
-    print(text)
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "w") as fh:
-        fh.write(text + "\n")
+    write_result(out, args.out)
     return 0
 
 

@@ -4,9 +4,12 @@
 padded module of a dense size class and returns the new theta.  It
 replaces the Pallas TPU kernel ``emsar_tpu/model/dense.py::_pallas_block``
 (kernel body ``kernel5``); the CUDA source is ``csrc/squarem_block.cu``,
-built for ``sm_90a`` at first use (``kernels/_build.py``), one thread block
-per module with theta held in shared memory across all cycles.  What
-bounds it on the H100 is written in the source.
+built for ``sm_90a`` at first use (``kernels/_build.py``).  The classes
+(32, 8) and (64, 16) run one warp per module with M and theta in
+registers; (128, 32) one block per module with M staged in shared memory;
+larger classes one block per module reading M from L1/L2.  Theta stays on
+the SM across all cycles.  What bounds each class on the H100 is written
+in the source.
 
 On a CPU tensor the wrapper computes ``squarem_block_ref``, the plain
 PyTorch version written like ``kernel5`` (elementwise product and sum).

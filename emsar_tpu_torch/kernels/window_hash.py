@@ -9,8 +9,8 @@ and its transcript id from ``tidf``; a window holding a non-ACGT code gets
 all-ones lanes and tid -1.  It replaces
 ``emsar_tpu/index/device_build.py::_se_hash_slab`` with ``_p16_range``,
 ``_bad_win``, ``_slab_words_packed`` and ``_hash3_cols``; the CUDA source is
-``csrc/window_hash.cu`` (one thread per window; what bounds it is written
-there).
+``csrc/window_hash.cu`` (a block per tile of 2048 windows, which it stages
+in shared memory as 2-bit-packed words; what bounds it is written there).
 
 On a CPU tensor the wrapper computes ``window_hash_ref``, the plain PyTorch
 version: the same arithmetic in int64 masked to 32 bits (torch has no
@@ -101,6 +101,15 @@ def window_hash_ref(codes: torch.Tensor, tidf: torch.Tensor, borderpos: int,
         lanes.append(torch.where(valid, to_int32_bits(acc), -1))
     tid = torch.where(valid, tidf[:n], -1).to(torch.int32)
     return lanes[0], lanes[1], lanes[2], tid
+
+
+def bytes_moved(borderpos: int, rl: int, unstranded: bool) -> int:
+    """Bytes the function must move, each once: the forward codes
+    [0, borderpos) that its windows read, the rc stretch of as many bytes
+    when unstranded (a stranded run reads no rc code), the n windows'
+    tids, and the four int32 outputs."""
+    n = borderpos - rl + 1
+    return (2 if unstranded else 1) * borderpos + 4 * n + 16 * n
 
 
 @functools.lru_cache(maxsize=None)

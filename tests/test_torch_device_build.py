@@ -16,7 +16,8 @@ from emsar_tpu.io.fasta import build_transcriptome
 from emsar_tpu.sim import gene_family_transcriptome
 from emsar_tpu_torch.index import build as tbuild
 from emsar_tpu_torch.index import device_build as tdb
-from emsar_tpu_torch.kernels.window_hash import MULT, window_hash
+from emsar_tpu_torch.kernels import window_hash as kwh
+from emsar_tpu_torch.kernels.window_hash import MULT, _words, window_hash
 from tests.util import random_transcriptome
 
 CPU = torch.device("cpu")
@@ -39,7 +40,7 @@ def test_multipliers_are_the_jax_packages():
 
 
 @pytest.mark.parametrize("strand", ["ns", "ssf"])
-@pytest.mark.parametrize("rl", [15, 16, 20, 33])
+@pytest.mark.parametrize("rl", [15, 16, 20, 32, 33, 64])
 def test_window_hash_matches_jax(rl, strand):
     """Lanes and tids of every forward window, bit for bit, through a JAX
     DeviceRef and one hash slab over the whole forward half."""
@@ -64,6 +65,88 @@ def test_window_hash_matches_jax(rl, strand):
     for w, g in zip(want, got):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), w)
+
+
+def _packed(codes: np.ndarray, mis: int):
+    """What csrc/window_hash.cu stages: the codes from ``mis`` positions
+    before base 0 (the 16-byte alignment), 16 to a big-endian 2-bit word,
+    and the count of non-ACGT codes before each word."""
+    pad = np.concatenate([np.full(mis, 4, np.uint8), codes,
+                          np.full(32, 4, np.uint8)])
+    nw = len(pad) // 16
+    by = pad[:16 * nw].reshape(nw, 16).astype(np.uint64)
+    shifts = 2 * np.arange(15, -1, -1, dtype=np.uint64)
+    words = ((by & 3) << shifts).sum(axis=1)
+    bad = by >= 4
+    pre = np.concatenate([[0], np.cumsum(bad.sum(axis=1))])[:nw]
+    return words, bad, pre
+
+
+def _funnel_word(words, pos, nb):
+    """The nb-base word at each position: the upper 32 bits of packed word
+    pos // 16 and the next, shifted left by 2 (pos % 16) bits (CUDA's
+    __funnelshift_l), then shifted down for a partial word."""
+    q, s = pos >> 4, (pos & 15).astype(np.uint64)
+    both = (words[q] << np.uint64(32)) | words[q + 1]
+    w = (both << (np.uint64(2) * s)) >> np.uint64(32)
+    return w >> np.uint64(2 * (16 - nb)) if nb < 16 else w
+
+
+@pytest.mark.parametrize("mis", [0, 5])
+@pytest.mark.parametrize("rl", [1, 16, 17, 32, 64, 76])
+def test_funnel_shift_words_match_plain_words(rl, mis):
+    """The window hash kernel's words and validity: a window's fw and rc
+    words taken by funnel shifts from 2-bit-packed words equal the plain
+    version's ``_words``, and the prefix count of non-ACGT codes at the
+    window's ends gives its validity."""
+    tx = _tx(5, n_frac=0.02)
+    codes = tdb.DeviceRef(tx, CPU).codes
+    bp, sl = int(tx.borderpos), int(tx.seqlength)
+    n = bp - rl + 1
+    words, bad, pre = _packed(codes.numpy(), mis)
+    c3 = codes.to(torch.int64) & 3
+    i = np.arange(n)
+    fw = _words(c3, 0, n, rl, flip=False)
+    rc = _words(c3, sl - rl, n, rl, flip=True)
+    for w in range(len(fw)):
+        nb = min(16, rl - 16 * w)
+        np.testing.assert_array_equal(
+            _funnel_word(words, mis + i + 16 * w, nb), fw[w].numpy())
+        np.testing.assert_array_equal(
+            _funnel_word(words, mis + sl - i - rl + 16 * w, nb), rc[w].numpy())
+
+    def count(x):
+        return pre[x >> 4] + (bad[x >> 4] & (np.arange(16) < (x & 15)[:, None])
+                              ).sum(axis=1)
+
+    valid = count(mis + i + rl) == count(mis + i)
+    lanes = window_hash(codes, tdb.DeviceRef(tx, CPU).tid_forward(n), bp, sl,
+                        rl, True)
+    np.testing.assert_array_equal(valid, lanes[3].numpy() >= 0)
+    assert valid.any() and not valid.all()
+
+
+@pytest.mark.parametrize("unstranded", [True, False])
+def test_bytes_moved_counts_the_codes_read(unstranded):
+    """The bound's code bytes are the codes the windows read: scrambling
+    every other code leaves the output as it was."""
+    tx = _tx(6, n_frac=0.02)
+    ref = tdb.DeviceRef(tx, CPU)
+    bp, sl, rl = int(tx.borderpos), int(tx.seqlength), 20
+    n = bp - rl + 1
+    read = np.zeros(sl + 1, bool)
+    read[:bp] = True
+    if unstranded:
+        read[sl - bp:sl] = True
+    assert kwh.bytes_moved(bp, rl, unstranded) == read.sum() + 20 * n
+    codes = ref.codes.clone()
+    rng = np.random.default_rng(6)
+    codes[torch.as_tensor(~read)] = torch.as_tensor(
+        rng.integers(0, 5, int((~read).sum()), dtype=np.uint8))
+    tidf = ref.tid_forward(n)
+    for g, w in zip(window_hash(codes, tidf, bp, sl, rl, unstranded),
+                    window_hash(ref.codes, tidf, bp, sl, rl, unstranded)):
+        assert torch.equal(g, w)
 
 
 def test_tid_forward_matches_transcript_of():

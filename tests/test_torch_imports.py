@@ -25,6 +25,7 @@ _NO_JAX = textwrap.dedent("""
     sys.modules["emsar_tpu"] = None
     import numpy as np
     import emsar_tpu_torch
+    import emsar_tpu_torch.bench.kernel_ab
     import emsar_tpu_torch.bench.segment_sum_ab
     import emsar_tpu_torch.cli.emsar as cli
     import emsar_tpu_torch.cli.emsar_build as build_cli

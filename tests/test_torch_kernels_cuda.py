@@ -30,22 +30,29 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("B", [64, 7, 1])
 @pytest.mark.parametrize("n_iters", [1, 8], ids=["cycle", "block"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("C,T", SIZE_CLASSES,
                          ids=[f"{c}x{t}" for c, t in SIZE_CLASSES])
-def test_squarem_kernel_matches_plain(cuda, C, T, dtype, n_iters):
-    rng = np.random.default_rng(C + T)
+def test_squarem_kernel_matches_plain(cuda, C, T, dtype, n_iters, B):
+    """Every class and dtype; B = 7 leaves the last block of the one-warp
+    classes (four modules per block) ragged, and B = 1 and 7 carry inert
+    pad rows (E = R = 0, no membership) as the padded classes do."""
+    rng = np.random.default_rng(C + T + B)
     args = [torch.as_tensor(a).to(cuda, dtype)
-            for a in random_modules(rng, 64, C, T)]
+            for a in random_modules(rng, B, C, T)]
+    if B < 64:
+        for a in args[:3]:
+            a[:, C - 5:] = 0
     before = squarem.LAUNCHES
     got = squarem.squarem_block(*args, n_iters)
     torch.cuda.synchronize()
     assert squarem.LAUNCHES == before + 1
     want = squarem.squarem_block_ref(*args, n_iters)
     err, _, n = block_agreement(got, want, *args, n_iters)
-    assert n >= 32
+    assert n >= max(1, B // 2)
     assert err <= block_tol(dtype, n_iters), err
 
 
@@ -61,13 +68,32 @@ def test_squarem_kernel_rejects_mixed_inputs(cuda):
                                                   args[1:]], 8)
 
 
-@pytest.mark.parametrize("unstranded", [True, False], ids=["ns", "ss"])
-@pytest.mark.parametrize("rl", [15, 16, 20, 33, 76])
-def test_window_hash_kernel_bit_equal(cuda, rl, unstranded):
-    rng = np.random.default_rng(rl)
-    names, seqs, _ = gene_family_transcriptome(rng, 40)
+# window starts per thread block of csrc/window_hash.cu (kTile)
+TILE = 2048
+
+
+def _hash_ref(rng, n_genes, cuda, tile_edge_n=False):
+    """A gene-family transcriptome on the card with an N in transcript 3,
+    a transcript shorter than most read lengths, one of 3,000 random bases
+    that shares 1,100 of them with another (windows up to rl = 1024), and,
+    with ``tile_edge_n``, N bases on both sides of the first tile edge."""
+    names, seqs, _ = gene_family_transcriptome(rng, n_genes)
     seqs[3] = seqs[3][:50] + b"N" + seqs[3][51:]
-    ref = DeviceRef(build_transcriptome(names, seqs), cuda)
+    a, b = (bytes(rng.choice(list(b"ACGT"), 3000).tolist()) for _ in "ab")
+    names += ["short", "long_a", "long_b"]
+    seqs += [b"ACGTTGCAAC", a, b[:1500] + a[100:1200] + b[2600:]]
+    if tile_edge_n:
+        start = 0
+        for k, s in enumerate(seqs):
+            if start < TILE <= start + len(s) - 2:
+                p = TILE - start - 1
+                seqs[k] = s[:p] + b"NN" + s[p + 2:]
+                break
+            start += len(s) + 1
+    return DeviceRef(build_transcriptome(names, seqs), cuda)
+
+
+def _window_hash_bit_equal(ref, rl, unstranded):
     n = ref.borderpos - rl + 1
     args = (ref.codes, ref.tid_forward(n), ref.borderpos, ref.seqlength, rl,
             unstranded)
@@ -79,6 +105,27 @@ def test_window_hash_kernel_bit_equal(cuda, rl, unstranded):
     assert (got[3] >= 0).any() and (got[3] < 0).any()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    return n
+
+
+@pytest.mark.parametrize("unstranded", [True, False], ids=["ns", "ss"])
+@pytest.mark.parametrize("rl", [1, 15, 16, 17, 20, 32, 33, 64, 76, 1024])
+def test_window_hash_kernel_bit_equal(cuda, rl, unstranded):
+    """Many tiles, the last one ragged, N bases across a tile edge."""
+    ref = _hash_ref(np.random.default_rng(rl), 40, cuda, tile_edge_n=True)
+    n = _window_hash_bit_equal(ref, rl, unstranded)
+    assert n > 4 * TILE and n % TILE != 0
+
+
+@pytest.mark.parametrize("unstranded", [True, False], ids=["ns", "ss"])
+@pytest.mark.parametrize("rl", [16, 76])
+def test_window_hash_kernel_one_short_tile(cuda, rl, unstranded):
+    """Fewer windows than one tile."""
+    names = ["a", "b", "c"]
+    seqs = [b"ACGTTGCAAC", b"ACGTTGCAACGTTGCAACGTNGCAACGTT" * 8,
+            b"GGCATTACGA" * 30]
+    ref = DeviceRef(build_transcriptome(names, seqs), cuda)
+    assert _window_hash_bit_equal(ref, rl, unstranded) < TILE
 
 
 def _csr(rng, n_seg, n_x, E, long_seg=0):
