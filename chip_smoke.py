@@ -55,6 +55,29 @@ exit, no result line):
    builder (``torch.unique`` over the kernel's 96-bit identities): per
    transcript its single counts and its windows in multi records, and the
    class-size histogram, all equal.
+9. The PE candidate kernel: ``pe_candidates`` against its plain version,
+   bit for bit, on random tables (members past the tables' ends too) and
+   on the tables of a 100-gene PE smoke transcriptome at l101 (ns and
+   ssfr, d0 0 and 189, nfl 1, 11 and 400), timed, with its bound.
+10. The PE build on the card: ``emsar-build-torch --PE`` at l101
+   F290-300, ns and ssfr, on the PE smoke transcriptome, and F1-400 ns on
+   its first 5 genes: each .rsh byte-equal to the port's NumPy PE
+   builder's (pe_candidates and window_hash launched).
+11. The PE ``-x`` path: bench.py's PE shape (1000 genes, l101, F290-300,
+   500,000 fragments, ssfr) as exact-match alignments in a BAM written by
+   ``emsar_tpu_torch.bench.pe_fixture``; ``emsar-torch --PE -B -s ssfr
+   -f 290 -F 300 -R -x``, then ``-I`` on the written .rsh: logL rel 1e-9,
+   gene iReadcount 1e-3, gene TPM rel 1e-3, .fraglength_effect byte-equal.
+   Then pe_candidates at that build's own shapes (times and bound of the
+   kernels line).
+12. The PE build at scale: the 337 Mbp transcriptome of phase 8, PE l101
+   F290-300 through ``emsar-build-torch --PE``, ssfr and then ns (both
+   halves: ~675 M mate1 windows): wall time, phases, chunks, peak device
+   memory.  Then, chunk by chunk, pe_candidates
+   against its plain version on every candidate, and the .rsh against
+   candidate groups counted with ``torch.unique``: per fragment length,
+   the size-1 groups, the kept groups and their members equal
+   Σ single_euma, Σ multi_euma and Σ multi_euma x signature size.
 
 Times on the card (``kernels/measure.py``): ``ms`` is device time per
 call, CUDA events around calls queued back to back behind a sleep kernel;
@@ -100,14 +123,23 @@ KERNELS = {
     "window_hash": {"name": "window_hash", "route": "cuda",
                     "source": "emsar_tpu_torch/csrc/window_hash.cu",
                     "replaces": "emsar_tpu/index/device_build.py:1477"},
+    "pe_candidates": {"name": "pe_candidates", "route": "cuda",
+                      "source": "emsar_tpu_torch/csrc/pe_candidates.cu",
+                      "replaces": "emsar_tpu/index/device_build.py:1010"},
 }
+# the PE build checks: a gene-family transcriptome the port's NumPy PE
+# builder takes ~15 s (ns) and ~9 s (ssfr) for at l101 F290-300 on one
+# CPU core, and its first genes for the wide range, ~25 s (ns)
+PE_SMOKE_GENES = 100
+PE_WIDE_GENES = 5
 
 
 def kernel_modules():
     """{kernel source's name: its wrapper module} (each has build)."""
-    from emsar_tpu_torch.kernels import segment_sum, squarem, window_hash
+    from emsar_tpu_torch.kernels import (pe_candidates, segment_sum, squarem,
+                                         window_hash)
     return {"squarem_block": squarem, "segment_sum": segment_sum,
-            "window_hash": window_hash}
+            "window_hash": window_hash, "pe_candidates": pe_candidates}
 
 
 def launch_counters():
@@ -116,7 +148,8 @@ def launch_counters():
     return {"squarem_block": (mods["squarem_block"], "LAUNCHES"),
             "segment_sum": (mods["segment_sum"], "LAUNCHES"),
             "em_step": (mods["segment_sum"], "EM_LAUNCHES"),
-            "window_hash": (mods["window_hash"], "LAUNCHES")}
+            "window_hash": (mods["window_hash"], "LAUNCHES"),
+            "pe_candidates": (mods["pe_candidates"], "LAUNCHES")}
 
 
 def reset_launches() -> None:
@@ -1107,13 +1140,435 @@ def phase_scale_build(dev, out_root: str):
     check_s = check_rsh_counts(index, lanes, BuildConfig().max_repeat)
     del lanes
     torch.cuda.empty_cache()
-    os.remove(fa)
     return {"wall_s": wall, "peak_bytes": peak, "n_multi": index.n_multi,
             "phases_s": groups, "bp": n_bp,
             "window_hash_ms": wh_times[True][0],
             "window_hash_plain_ms": wh_times[True][1],
             "window_hash_ss_ms": list(wh_times[False]),
             "rsh_check_s": check_s}
+
+
+def pe_smoke_fixture():
+    """(names, seqs, smoke FASTA, wide FASTA) of the PE build checks: a
+    PE_SMOKE_GENES-gene family transcriptome, and its first PE_WIDE_GENES
+    genes for the wide fragment range (written under CACHE)."""
+    import numpy as np
+
+    from emsar_tpu_torch.bench.pe_fixture import PE_SEED
+    from emsar_tpu_torch.sim import gene_family_transcriptome
+
+    os.makedirs(CACHE, exist_ok=True)
+    names, seqs, genes = gene_family_transcriptome(
+        np.random.default_rng(PE_SEED + 1), PE_SMOKE_GENES)
+    fa = os.path.join(CACHE, "pe_smoke.fa")
+    fa_wide = os.path.join(CACHE, "pe_wide.fa")
+    write_fasta(fa, names, seqs)
+    k = sum(int(g[1:]) < PE_WIDE_GENES for g in genes)
+    write_fasta(fa_wide, names[:k], seqs[:k])
+    return fa, fa_wide
+
+
+def random_pe_tables(rng, S: int, rl: int, n_members: int, dev):
+    """Random PE tables of a sequence of S + 1 positions (ranks, 10% of
+    them invalid, their flip, tids, separators every ~300 positions) and
+    n_members members anywhere in [0, S], past the rank and tid tables'
+    ends too; a quarter of the members carry the rank R[p], the rest
+    random ranks.  As pe_candidates' arguments (mpos, mrank, R, RF, t32,
+    nsep)."""
+    import numpy as np
+    import torch
+
+    from emsar_tpu_torch.kernels.pe_candidates import BIG_RANK
+    n_rank = S - rl + 1
+    R = rng.integers(0, 1 << 29, n_rank)
+    R[rng.random(n_rank) < 0.1] = BIG_RANK
+    t32 = np.sort(rng.integers(0, 1 << 23, n_rank))
+    sep = np.unique(np.concatenate([rng.integers(0, S, S // 300), [S]]))
+    nsep = sep[np.searchsorted(sep, np.arange(S + 1))]
+    mpos = rng.integers(0, S + 1, n_members)
+    mrank = rng.integers(0, 1 << 29, n_members)
+    own = (rng.random(n_members) < 0.25) & (mpos < n_rank)
+    mrank[own] = np.minimum(R[mpos[own]], (1 << 29) - 1)
+    return tuple(torch.as_tensor(a.astype(np.int32)).to(dev)
+                 for a in (mpos, mrank, R, R[::-1].copy(), t32, nsep))
+
+
+def check_pe_candidates(args, label: str, n_time: int = 20) -> dict:
+    """pe_candidates against its plain version on the card: the same bits
+    (tolerance 0).  Times the kernel (device and host ms) and the plain
+    version; the bound is ``pe_candidates.bytes_moved``.  Returns what it
+    measured."""
+    import torch
+
+    from emsar_tpu_torch.kernels import measure
+    from emsar_tpu_torch.kernels import pe_candidates as kpe
+    mpos, nfl, unstranded = args[0], args[7], args[11]
+    got = kpe.pe_candidates(*args)
+    torch.cuda.synchronize()
+    want = kpe.pe_candidates_ref(*args)
+    n_bad = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+    n_valid = int((want[0] != kpe.INVALID_KEY).sum())
+    del got, want
+    host = measure.host_ms(lambda: kpe.pe_candidates(*args), n=n_time)
+    k_ms = measure.device_ms(lambda: kpe.pe_candidates(*args), n=n_time,
+                             host_per_call_ms=host)
+    p_ms = measure.device_ms(lambda: kpe.pe_candidates_ref(*args), n=2)
+    n_bytes = kpe.bytes_moved(mpos, nfl, unstranded)
+    bound, by = measure.bound_ms(n_bytes, 0)
+    log(f"pe_candidates {label}: {mpos.shape[0]} members x {nfl}, "
+        f"{n_valid} valid, {n_bad} keys or payloads differ from the plain "
+        f"version; kernel {k_ms:.4f} ms on the card, {host:.4f} ms host per "
+        f"call; plain {p_ms:.4f} ms; bound {bound:.4f} ms ({by}, "
+        f"{n_bytes} B), share {bound / k_ms:.1%}")
+    if n_bad or n_valid == 0:
+        raise AssertionError(f"pe_candidates {label}: {n_bad} differ from "
+                             f"the plain version ({n_valid} valid)")
+    return {"err": float(n_bad), "ms": k_ms, "host_ms": host,
+            "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def pe_tables(fa: str, rl: int, unstranded: bool, dev):
+    """The PE build's tables of a FASTA on the card: (ref, t32, nsep, R,
+    RF or None, rank-sorted positions, their ranks)."""
+    from emsar_tpu_torch.index.device_build import DeviceRef
+    from emsar_tpu_torch.index.device_build_pe import rank_pass
+    from emsar_tpu_torch.io.fasta import read_fasta
+    ref = DeviceRef(read_fasta(fa, "E"), dev)
+    t32, nsep = ref.t32(rl), ref.nsep()
+    R, spos, srank = rank_pass(ref, t32, rl, unstranded, 0)
+    return (ref, t32, nsep, R, R.flip(0).contiguous() if unstranded
+            else None, spos, srank)
+
+
+def phase_pe_kernel_check(fa: str, dev) -> None:
+    """pe_candidates against its plain version on random tables and on the
+    PE smoke transcriptome's tables at l101: ns and ssfr, d0 0 and 189,
+    nfl 1, 11 and 400; bit-equal, with times and bounds."""
+    import numpy as np
+    import torch
+    rl = 101
+    for unstranded in (True, False):
+        tab = pe_tables(fa, rl, unstranded, dev)
+        ref, t32, nsep, R, RF, spos, srank = tab
+        rnd = random_pe_tables(np.random.default_rng(int(unstranded)),
+                               1 << 22, rl, 1 << 16, dev)
+        for d0, nfl in itertools.product((0, 189), (1, 11, 400)):
+            strand = "ns" if unstranded else "ssfr"
+            check_pe_candidates(
+                (spos, srank, R, RF, t32, nsep, d0, nfl, rl, ref.borderpos,
+                 ref.seqlength, unstranded), f"smoke {strand} d0 {d0}", 5)
+            mpos, mrank, Rr, RFr, tr, nr = rnd
+            check_pe_candidates(
+                (mpos, mrank, Rr, RFr if unstranded else None, tr, nr, d0,
+                 nfl, rl, (1 << 21), 1 << 22, unstranded),
+                f"random {strand} d0 {d0}", 5)
+        del tab, ref, t32, nsep, R, RF, spos, srank, rnd
+        torch.cuda.empty_cache()
+
+
+def phase_pe_build_smoke(fa: str, fa_wide: str, out_root: str) -> None:
+    """``emsar-build-torch --PE`` on the card against the port's NumPy PE
+    builder: l101 F290-300 ns and ssfr on the PE smoke transcriptome, and
+    F1-400 ns on its first genes; every .rsh byte-equal."""
+    from emsar_tpu_torch.config import BuildConfig, StrandType
+    from emsar_tpu_torch.index.build import build_pe_index
+    from emsar_tpu_torch.io.fasta import read_fasta
+    from emsar_tpu_torch.utils.timing import phase_times, reset_phases
+    from emsar_tpu_torch.cli import emsar_build
+
+    out = os.path.join(out_root, "pe_build")
+    for strand, fmin, fmax, fasta in (("ns", 290, 300, fa),
+                                      ("ssfr", 290, 300, fa),
+                                      ("ns", 1, 400, fa_wide)):
+        name = f"{os.path.basename(fasta)[:-3]}_{strand}_F{fmin}-{fmax}"
+        cfg = BuildConfig(pe=True, strand=StrandType.parse(strand, True),
+                          min_fraglength=fmin, max_fraglength=fmax,
+                          verbose=0)
+        t0 = time.perf_counter()
+        want = os.path.join(out, name + ".numpy.rsh")
+        os.makedirs(out, exist_ok=True)
+        build_pe_index(read_fasta(fasta, "E"), 101, cfg,
+                       backend="numpy").write_text(want)
+        t_np = time.perf_counter() - t0
+        reset_phases()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = emsar_build.main(["-q", "--PE", "-s", strand, "-f", str(fmin),
+                               "-F", str(fmax), fasta, "101", out, name])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if rc != 0:
+            raise AssertionError(f"emsar-build-torch --PE {name} exited {rc}")
+        with open(want, "rb") as a, open(os.path.join(out, name + ".rsh"),
+                                         "rb") as b:
+            same = a.read() == b.read()
+        log(f"PE build {name} on the card: {wall:.2f} s (NumPy builder "
+            f"{t_np:.1f} s), launches {launches}, .rsh byte-equal to the "
+            f"NumPy builder's {same}; phases "
+            + ", ".join(f"{k} {v:.3f}" for k, v in phase_times().items()))
+        if not same:
+            raise AssertionError(f"the card-built {name}.rsh differs from "
+                                 f"the NumPy builder's")
+        if launches["pe_candidates"] <= 0 or launches["window_hash"] <= 0:
+            raise AssertionError(f"the PE build {name} skipped a kernel")
+
+
+def _pe_loglik(rsh: str, bam: str, fpkm_cols):
+    """logL of an .fpkm's FPKM column on the PE sample of ``bam``."""
+    from emsar_tpu_torch.bench.pe_fixture import PE_FMAX, PE_FMIN
+    from emsar_tpu_torch.config import QuantConfig
+    from emsar_tpu_torch.ingest import native as native_mod
+    from emsar_tpu_torch.io.rsh import RshIndex
+    from emsar_tpu_torch.model.quantify import _host_loglik, prepare_sample
+    from emsar_tpu_torch.model.solver import build_problem
+
+    index = RshIndex.load(rsh)
+    cfg = QuantConfig(verbose=0, pe=True, min_fraglength=PE_FMIN,
+                      max_fraglength=PE_FMAX)
+    counts = native_mod.NativeCollapser(index).collapse_file(
+        bam, "bam", True, ord("+"), cfg.max_repeat, PE_FMIN, PE_FMAX,
+        [index.readlength])
+    x = prepare_sample(index, counts, cfg)
+    problem = build_problem(x.graph, x.modules, x.eumaps, x.read_count)
+    return _host_loglik(problem, fpkm_cols), counts.total_read_count
+
+
+def phase_pe_fasta_path(out_root: str):
+    """bench.py's PE shape through the port's CLI: ``emsar-torch --PE -B
+    -s ssfr -f 290 -F 300 -R -x benchpe.fa`` on 500,000 fragments' exact
+    alignments (a BAM the port writes), then ``emsar-torch -I`` on the
+    written .rsh: logL rel 1e-9, gene iReadcount 1e-3, gene TPM rel 1e-3
+    of max(TPM, 1), .fraglength_effect byte-equal.  Returns (the -x run's
+    launches, its phase seconds, the FASTA)."""
+    import numpy as np
+
+    from emsar_tpu_torch.bench.pe_fixture import (
+        PE_FMAX, PE_FMIN, PE_GENES, PE_PAIRS, PE_READLEN, PE_SEED,
+        pe_alignments, write_pe_bam)
+    from emsar_tpu_torch.io.fasta import build_transcriptome
+    from emsar_tpu_torch.sim import gene_family_transcriptome
+    from emsar_tpu_torch.utils.timing import phase_times, reset_phases
+    from emsar_tpu_torch.cli import emsar as cli
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(PE_SEED)
+    names, seqs, _ = gene_family_transcriptome(rng, PE_GENES)
+    fa = os.path.join(CACHE, "benchpe.fa")
+    bam = os.path.join(CACHE, "benchpe.bam")
+    write_fasta(fa, names, seqs)
+    tx = build_transcriptome(names, seqs)
+    n_rec = write_pe_bam(bam, names, [len(s_) for s_ in seqs],
+                         *pe_alignments(tx, PE_READLEN, PE_FMIN, PE_FMAX,
+                                        PE_PAIRS, rng), PE_READLEN)
+    log(f"PE fixture: {PE_GENES} genes, {tx.n_transcripts} transcripts, "
+        f"{tx.borderpos} bp, {PE_PAIRS} fragments as {n_rec} BAM records in "
+        f"{time.perf_counter() - t0:.1f} s")
+    flags = ["-q", "--PE", "-B", "-s", "ssfr", "-f", str(PE_FMIN), "-F",
+             str(PE_FMAX)]
+    outs = {k: os.path.join(out_root, k) for k in ("pe_x", "pe_I")}
+    reset_phases()
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(flags + ["-R", "-x", fa, outs["pe_x"], "s", bam])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    seconds = dict(phase_times(), total=wall)
+    if rc != 0:
+        raise AssertionError(f"emsar-torch --PE -x exited {rc}")
+    rsh = os.path.join(outs["pe_x"], "s.rsh")
+    reset_phases()
+    t0 = time.perf_counter()
+    rc = cli.main(flags + ["-I", rsh, outs["pe_I"], "s", bam])
+    wall_i = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"emsar-torch --PE -I exited {rc}")
+    res = {}
+    for k, out in outs.items():
+        names_k, cols = _parse_fpkm(os.path.join(out, "s.0.fpkm"))
+        if not np.isfinite(cols).all() or names_k != names:
+            raise AssertionError(f"{k}: unexpected .fpkm")
+        ll, n_reads = _pe_loglik(rsh, bam, cols[:, 0])
+        with open(os.path.join(out, "s.0.fraglength_effect"), "rb") as fh:
+            res[k] = (ll, _gene_sum(names, cols[:, 3]),
+                      _gene_sum(names, cols[:, 5]), fh.read())
+    (ll_x, irc_x, tpm_x, fl_x), (ll_i, irc_i, tpm_i, fl_i) = \
+        res["pe_x"], res["pe_I"]
+    rel = abs(ll_x - ll_i) / abs(ll_i)
+    d_irc = float(np.abs(irc_x - irc_i).max())
+    d_tpm = float((np.abs(tpm_x - tpm_i) / np.maximum(tpm_i, 1.0)).max())
+    fpkm_same = all(open(os.path.join(o, "s.0.fpkm"), "rb").read()
+                    == open(os.path.join(outs["pe_I"], "s.0.fpkm"),
+                            "rb").read() for o in outs.values())
+    log(f"PE -x run: {wall:.2f} s, launches {launches}, {n_reads} fragments "
+        f"counted; -I run {wall_i:.2f} s; logL {ll_x!r} vs {ll_i!r} (rel "
+        f"diff {rel:.3e}, tol 1e-9), gene iReadcount max abs diff "
+        f"{d_irc:.3e} (tol 1e-3), gene TPM max rel diff {d_tpm:.3e} (tol "
+        f"1e-3), .fraglength_effect equal {fl_x == fl_i}, .fpkm "
+        f"byte-identical {fpkm_same}; phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    if rel > 1e-9 or d_irc > 1e-3 or d_tpm > 1e-3 or fl_x != fl_i:
+        raise AssertionError("the PE -x run disagrees with the -I run")
+    if n_reads < PE_PAIRS // 2:
+        raise AssertionError(f"the PE sample counted {n_reads} fragments")
+    for kernel in ("window_hash", "pe_candidates"):
+        if launches[kernel] <= 0:
+            raise AssertionError(f"the PE -x run never launched {kernel}")
+    return launches, seconds, fa
+
+
+def measure_pe_main_path(fa: str, dev) -> dict:
+    """pe_candidates at the PE -x run's own shapes (its chunks of the
+    ssfr l101 F290-300 build): bit-equal to the plain version; times and
+    bounds summed over the chunks, host ms per call their mean."""
+    from emsar_tpu_torch.bench.pe_fixture import (PE_FMAX, PE_FMIN,
+                                                  PE_READLEN)
+    from emsar_tpu_torch.index.device_build_pe import chunk_budget, plan_chunks
+    rl, nfl = PE_READLEN, PE_FMAX - PE_FMIN + 1
+    ref, t32, nsep, R, RF, spos, srank = pe_tables(fa, rl, False, dev)
+    bounds = plan_chunks(srank, nfl, chunk_budget(dev, ref.seqlength + 1))
+    tot = {"err": 0.0, "ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "library_ms": None, "bound_by": "bytes"}
+    for lo, hi in bounds:
+        m = check_pe_candidates(
+            (spos[lo:hi], srank[lo:hi], R, None, t32, nsep,
+             PE_FMIN - rl, nfl, rl, ref.borderpos, ref.seqlength, False),
+            "main path (PE -x build, ssfr l101 F290-300)")
+        for k in ("ms", "plain_ms", "bound_ms"):
+            tot[k] += m[k]
+        tot["host_ms"] += m["host_ms"] / len(bounds)
+        tot["err"] = max(tot["err"], m["err"])
+    return tot
+
+
+def check_pe_scale_counts(fa: str, index, dev, unstranded: bool) -> dict:
+    """A scale PE .rsh (l101 F290-300) against candidate groups
+    counted apart from the builder: per chunk of whole mate1 clusters,
+    pe_candidates against its plain version on every candidate, then
+    ``torch.unique`` over the valid keys (mate1 rank, mate2 rank) with
+    each group's fragment lengths.  Per fragment length, the size-1 groups
+    must number Σ single_euma, the kept groups (1 < size < max_repeat, one
+    fragment length) Σ multi_euma, and their members Σ multi_euma x
+    signature size.  Raises on a difference; returns what it measured."""
+    import numpy as np
+    import torch
+
+    from emsar_tpu_torch.config import BuildConfig
+    from emsar_tpu_torch.index.device_build_pe import chunk_budget, plan_chunks
+    from emsar_tpu_torch.kernels import measure
+    from emsar_tpu_torch.kernels import pe_candidates as kpe
+
+    t0 = time.perf_counter()
+    rl, fmin, fmax = 101, 290, 300
+    nfl, d0 = fmax - fmin + 1, fmin - rl
+    max_repeat = BuildConfig().max_repeat
+    ref, t32, nsep, R, RF, spos, srank = pe_tables(fa, rl, unstranded, dev)
+    bp, sl = ref.borderpos, ref.seqlength
+    del ref
+    torch.cuda.empty_cache()
+    bounds = plan_chunks(srank, nfl, min(chunk_budget(dev, sl + 1), 1 << 28))
+    got = {k: torch.zeros(nfl, dtype=torch.int64, device=dev)
+           for k in ("single", "groups", "members")}
+    n_bad, k_ms, p_ms, n_cand, n_bytes = 0, 0.0, 0.0, 0, 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for lo, hi in bounds:
+        args = (spos[lo:hi], srank[lo:hi], R, RF, t32, nsep, d0, nfl, rl,
+                bp, sl, unstranded)
+        n_bytes += kpe.bytes_moved(args[0], nfl, unstranded)
+        ev[0].record()
+        keys, pay = kpe.pe_candidates(*args)
+        ev[1].record()
+        want = kpe.pe_candidates_ref(*args)
+        ev[2].record()
+        ev[2].synchronize()
+        k_ms += ev[0].elapsed_time(ev[1])
+        p_ms += ev[1].elapsed_time(ev[2])
+        n_bad += int((keys != want[0]).sum() + (pay != want[1]).sum())
+        n_cand += keys.shape[0]
+        del want
+        valid = keys != kpe.INVALID_KEY
+        kv = keys[valid]
+        dd = (pay[valid] & 0x1FF).to(torch.int64)
+        del keys, pay, valid
+        _, inv, cnt = torch.unique(kv, return_inverse=True,
+                                   return_counts=True)
+        del kv
+        G = cnt.shape[0]
+        dmin = torch.full((G,), nfl, dtype=torch.int64, device=dev)
+        dmin.scatter_reduce_(0, inv, dd, "amin")
+        dmax = torch.zeros(G, dtype=torch.int64, device=dev)
+        dmax.scatter_reduce_(0, inv, dd, "amax")
+        del inv, dd
+        kept = (cnt > 1) & (cnt < max_repeat) & (dmin == dmax)
+        got["single"] += torch.bincount(dmin[cnt == 1], minlength=nfl)
+        got["groups"] += torch.bincount(dmin[kept], minlength=nfl)
+        got["members"].index_add_(0, dmin[kept], cnt[kept])
+        del cnt, dmin, dmax, kept
+    del R, RF, t32, nsep, spos, srank
+    torch.cuda.empty_cache()
+    sizes = np.diff(index.sig_offsets)
+    want = {"single": np.asarray(index.single_euma).sum(axis=0),
+            "groups": np.asarray(index.multi_euma).sum(axis=0),
+            "members": (np.asarray(index.multi_euma)
+                        * sizes[:, None]).sum(axis=0)}
+    checks = {k: np.array_equal(got[k].cpu().numpy(), want[k])
+              for k in want}
+    secs = time.perf_counter() - t0
+    bound, _ = measure.bound_ms(n_bytes, 0)
+    log(f"scale PE {'ns' if unstranded else 'ssfr'} .rsh against "
+        f"torch.unique candidate groups: {n_cand} "
+        f"candidates in {len(bounds)} chunks, {n_bad} keys or payloads "
+        f"differ from the plain version (kernel {k_ms:.3f} ms, plain "
+        f"{p_ms:.3f} ms in all, one launch a chunk; bound {bound:.3f} ms, "
+        f"bytes); per fragment length "
+        + ", ".join(f"{k} equal {v}" for k, v in checks.items())
+        + f" (size-1 groups {int(want['single'].sum())}, kept groups "
+        f"{int(want['groups'].sum())}); {secs:.1f} s")
+    if n_bad or not all(checks.values()):
+        raise AssertionError(f"the scale PE check failed: {n_bad} differ, "
+                             f"{checks}")
+    return {"check_s": secs, "candidates": n_cand, "kernel_ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound}
+
+
+def phase_scale_pe_build(dev, out_root: str, fa: str, strand: str) -> dict:
+    """The PE l101 F290-300 build of the scale transcriptome on the card
+    through ``emsar-build-torch --PE -s strand``: wall time, phases,
+    chunks, peak device memory; then ``check_pe_scale_counts``.  Returns
+    what it measured."""
+    import torch
+
+    from emsar_tpu_torch.io.rsh import RshIndex
+    from emsar_tpu_torch.utils.timing import phase_times, reset_phases
+    from emsar_tpu_torch.cli import emsar_build
+
+    out = os.path.join(out_root, "scale_pe")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_phases()
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = emsar_build.main(["-q", "--PE", "-s", strand, "-f", "290", "-F",
+                           "300", fa, "101", out, "scalepe"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"scale PE build exited {rc}")
+    phases = {k: round(v, 3) for k, v in phase_times().items()}
+    n_chunks = launches["pe_candidates"]  # one launch a chunk
+    index = RshIndex.load(os.path.join(out, "scalepe.rsh"))
+    log(f"scale build PE l101 F290-300 {strand}: {wall:.2f} s wall, peak "
+        f"device memory {peak / 2**30:.2f} GiB, {n_chunks} chunks, n_multi "
+        f"{index.n_multi}, launches {launches}; phases "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+    if n_chunks <= 0 or index.n_multi <= 0:
+        raise AssertionError("the scale PE build did not run as expected")
+    torch.cuda.empty_cache()
+    check = check_pe_scale_counts(fa, index, dev, strand == "ns")
+    return {"wall_s": wall, "peak_bytes": peak, "chunks": n_chunks,
+            "n_multi": index.n_multi,
+            "phases_s": phases, **check}
 
 
 def main() -> int:
@@ -1155,13 +1610,28 @@ def main() -> int:
     csr_blocks = phase_csr_profile(problem, dev)
     build_launches = phase_build_smoke(fa, rsh, out_root)
     phase_fasta_path(fa, aln, out_root, sample)
+
+    t0 = time.perf_counter()
+    pe_fa, pe_fa_wide = pe_smoke_fixture()
+    phase_pe_kernel_check(pe_fa, dev)
+    log(f"PE kernel check: {time.perf_counter() - t0:.1f} s")
+    phase_pe_build_smoke(pe_fa, pe_fa_wide, out_root)
+    pe_launches, pe_seconds, bench_pe_fa = phase_pe_fasta_path(out_root)
+    measured["pe_candidates"] = measure_pe_main_path(bench_pe_fa, dev)
+    seconds["pe_x"] = pe_seconds
+
     scale = phase_scale_build(dev, out_root)
+    scale_fa = os.path.join(out_root, "scale.fa")
+    scale_pe = {strand: phase_scale_pe_build(dev, out_root, scale_fa, strand)
+                for strand in ("ssfr", "ns")}
+    os.remove(scale_fa)
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     main_launches = {"squarem_block": launches["kernel"]["squarem_block"],
                      "segment_sum": launches["csr"]["segment_sum"],
                      "em_step": launches["csr"]["em_step"],
-                     "window_hash": build_launches["window_hash"]}
+                     "window_hash": build_launches["window_hash"],
+                     "pe_candidates": pe_launches["pe_candidates"]}
     print(json.dumps({"kernels": [
         dict(KERNELS[k], launches=main_launches[k],
              max_abs_err=measured[k]["err"], ms=measured[k]["ms"],
@@ -1172,7 +1642,8 @@ def main() -> int:
              library_ms=measured[k]["library_ms"])
         for k in KERNELS]}))
     print(json.dumps({"phase_seconds": seconds, "csr_blocks": csr_blocks,
-                      "scale_build": scale, "ptxas": ptxas}))
+                      "scale_build": scale, "scale_pe_build": scale_pe,
+                      "ptxas": ptxas}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

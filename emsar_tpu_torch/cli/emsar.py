@@ -9,12 +9,13 @@ quantifier (src/emsar_main.c):
     bowtie ... | emsar-torch <options> -I rshfile outdir outprefix
 
 The device comes from ``EMSAR_TORCH_DEVICE`` (default ``cuda``).  ``-x``
-builds the SE index on it (``index.build.build_se_index``), with the
-read-length range learned from the alignment file; ``-R`` writes that
-index and ``-m 1`` the positional-bias table.  ``--solver_pallas`` selects
-the hand-written CUDA SQUAREM kernel for the dense module batches.  ``-x``
-with ``--PE``, ``--batch_samples`` and ``--dist_merge_shards`` are not
-ported yet and exit with an error.
+builds the index on it (``index.build.build_se_index`` over the SE
+read-length range learned from the whole alignment file, or
+``build_pe_index`` with ``--PE`` for the read length of its first
+alignment); ``-R`` writes that index and ``-m 1`` the positional-bias
+table.  ``--solver_pallas`` selects the hand-written CUDA SQUAREM kernel
+for the dense module batches.  ``--batch_samples`` and
+``--dist_merge_shards`` are not ported yet and exit with an error.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 
 from ..config import BuildConfig, MAX_N_ALNFILES, QuantConfig, StrandType
 from ..device import resolve_device
-from ..index.build import build_se_index
+from ..index.build import build_pe_index, build_se_index
 from ..ingest import native as native_mod
 from ..ingest.collapse import PosBias, ReadCollapser, group_alignments
 from ..io import bowtie
@@ -39,7 +40,8 @@ from ..io.fasta import read_fasta
 from ..io.outputs import (write_fpkm, write_fraglength_dist, write_posbias,
                           write_segments)
 from ..io.rsh import RshIndex
-from ..io.sam import (probe_readlength_range_sam_bam, read_sam_records,
+from ..io.sam import (probe_readlength_range_sam_bam,
+                      probe_readlength_sam_bam, read_sam_records,
                       stream_alignments_pe, stream_alignments_se)
 from ..model.quantify import index_modules, quantify_sample
 from ..utils.timing import phase
@@ -71,8 +73,7 @@ def usage(prog: str) -> None:
           "hand-written CUDA SQUAREM kernel")
     print("\tdevice: $EMSAR_TORCH_DEVICE (default cuda; 'cpu' runs the "
           "kernel's plain PyTorch version)")
-    print(f"\t-x with --PE, --batch_samples, --dist_merge_shards: "
-          f"{NOT_PORTED}")
+    print(f"\t--batch_samples, --dist_merge_shards: {NOT_PORTED}")
 
 
 def _sam_bam_records(path: str, fmt: str):
@@ -214,9 +215,6 @@ def main(argv=None) -> int:
         if len(alnfiles) > MAX_N_ALNFILES:
             die(f"error: too many alignment files (max {MAX_N_ALNFILES})")
 
-    if cfg.pe and not rshfile:
-        die(f"error: the paired-end index build (-x with --PE) is "
-            f"{NOT_PORTED}; build the rsh index first and use -I.")
     os.makedirs(outdir, exist_ok=True)
     device = resolve_device()
     return run_quantifier(cfg, rshfile, outdir, outprefix, alnfiles, device,
@@ -259,19 +257,27 @@ def _echo_params(cfg: QuantConfig, fastafile: str, rshfile: str,
 
 def _build_index(cfg: QuantConfig, fastafile: str, outdir: str,
                  outprefix: str, alnfile: str, device: torch.device):
-    """``-x``: read the FASTA, learn the SE read-length range by scanning
-    the alignment file (reference src/emsar_main.c:307-316) and build the
-    index.  Returns (transcriptome, index)."""
+    """``-x``: read the FASTA, learn the read length (PE: from the first
+    alignment; SE: the range, by scanning the alignment file; reference
+    src/emsar_main.c:307-316) and build the index.  Returns (transcriptome,
+    index)."""
     with phase("reading fasta file", cfg.verbose):
         tx = read_fasta(fastafile, cfg.header_fmt)
     with phase("probing read length", cfg.verbose):
-        if not alnfile:
+        if cfg.pe:
+            if cfg.aln_format == "bowtie":
+                rl_lo = rl_hi = bowtie.probe_readlength(
+                    alnfile if alnfile else sys.stdin)
+            else:
+                rl_lo = rl_hi = probe_readlength_sam_bam(
+                    _sam_bam_records(alnfile, cfg.aln_format))
+        elif not alnfile:
             # the reference has the same limitation (SURVEY quirk (b))
             die("error: single-end -x requires a file (not stdin): the "
                 "read-length range is learned by scanning the whole "
                 "alignment file. Build an rsh index first and use -I for "
                 "streaming.")
-        if cfg.aln_format == "bowtie":
+        elif cfg.aln_format == "bowtie":
             rl_lo, rl_hi = bowtie.probe_readlength_range(alnfile)
         else:
             rl_lo, rl_hi = probe_readlength_range_sam_bam(
@@ -285,8 +291,12 @@ def _build_index(cfg: QuantConfig, fastafile: str, outdir: str,
     sfa_path = os.path.join(outdir, outprefix + ".sfa") \
         if cfg.print_sfa else None
     with phase("building rsh index", cfg.verbose):
-        index = build_se_index(tx, rl_lo, rl_hi, bcfg, sfa_path=sfa_path,
-                               device=device)
+        if cfg.pe:
+            index = build_pe_index(tx, rl_lo, bcfg, sfa_path=sfa_path,
+                                   device=device)
+        else:
+            index = build_se_index(tx, rl_lo, rl_hi, bcfg,
+                                   sfa_path=sfa_path, device=device)
     return tx, index
 
 

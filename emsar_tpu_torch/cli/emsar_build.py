@@ -1,14 +1,18 @@
-"""emsar-build CLI (PyTorch port): construct an SE rsh index from a
+"""emsar-build CLI (PyTorch port): construct an rsh index from a
 transcriptome FASTA.
 
-The port of ``emsar_tpu/cli/emsar_build.py``'s SE path, flag-compatible
-with the reference builder (src/emsar_build_main.c):
+The port of ``emsar_tpu/cli/emsar_build.py``, flag-compatible with the
+reference builder (src/emsar_build_main.c):
 
     emsar-build-torch <options> fastafile readlength(range) outdir outprefix
+    emsar-build-torch --PE -f minfrag -F maxfrag <options> fastafile
+        readlength outdir outprefix
 
-The index is built on the device named by ``EMSAR_TORCH_DEVICE`` (default
-``cuda``); ``EMSAR_TORCH_BUILD_BACKEND=numpy`` builds on the host instead.
-``--PE`` is not ported yet and exits with an error.
+The index (SE over a read-length range, PE for one read length) is built
+on the device named by ``EMSAR_TORCH_DEVICE`` (default ``cuda``);
+``EMSAR_TORCH_BUILD_BACKEND=numpy`` builds on the host instead.  The JAX
+package's process-sharded PE build (several processes, each writing a
+partial index) is not ported.
 """
 
 from __future__ import annotations
@@ -18,11 +22,10 @@ import os
 import sys
 
 from ..config import BuildConfig, StrandType
-from ..index.build import build_se_index
+from ..index.build import build_pe_index, build_se_index
 from ..io.fasta import read_fasta
 from ..utils.timing import phase
 from .common import die
-from .emsar import NOT_PORTED
 
 SHORT = "vqPs:b:p:h:t:F:f:m:W:w:Tk:"
 LONG = ["print_sfa", "PE", "strand_type=", "bias_model=",
@@ -36,9 +39,10 @@ def usage(prog: str) -> None:
           f"outprefix")
     print("\t(see the reference emsar-build for the full option list; "
           "flags are compatible)")
+    print("\t--PE: a paired-end index for one read length and the "
+          "fragment lengths -f..-F")
     print("\tdevice: $EMSAR_TORCH_DEVICE (default cuda); "
           "$EMSAR_TORCH_BUILD_BACKEND=numpy builds on the host")
-    print(f"\t--PE: {NOT_PORTED}")
 
 
 def main(argv=None) -> int:
@@ -128,8 +132,6 @@ def main(argv=None) -> int:
     if len(args) < 4:
         usage("emsar-build-torch")
         return 0
-    if cfg.pe:
-        die(f"error: the paired-end index build (--PE) is {NOT_PORTED}.")
     fastafile, readlength_str, outdir, outprefix = args[:4]
     os.makedirs(outdir, exist_ok=True)
 
@@ -138,12 +140,15 @@ def main(argv=None) -> int:
 
     sfa_path = os.path.join(outdir, outprefix + ".sfa") if cfg.print_sfa \
         else None
-    if "-" in readlength_str:
-        lo_s, hi_s = readlength_str.split("-", 1)
-        lo, hi = int(lo_s), int(hi_s)
+    if cfg.pe:
+        idx = build_pe_index(tx, int(readlength_str), cfg, sfa_path=sfa_path)
     else:
-        lo = hi = int(readlength_str)
-    idx = build_se_index(tx, lo, hi, cfg, sfa_path=sfa_path)
+        if "-" in readlength_str:
+            lo_s, hi_s = readlength_str.split("-", 1)
+            lo, hi = int(lo_s), int(hi_s)
+        else:
+            lo = hi = int(readlength_str)
+        idx = build_se_index(tx, lo, hi, cfg, sfa_path=sfa_path)
 
     rsh_path = os.path.join(outdir, outprefix + ".rsh")
     with phase("writing rsh file", cfg.verbose):

@@ -1,19 +1,20 @@
-"""SE rsh index construction: the backend dispatcher and the host NumPy
-builder, without JAX.
+"""rsh index construction: the backend dispatchers and the host NumPy
+builders, without JAX.
 
-``build_se_index(..., backend="auto")`` builds on the torch device
-(``index/device_build.py``, the port of the JAX package's device-resident
-builder); ``EMSAR_TORCH_BUILD_BACKEND=numpy`` or ``backend="numpy"``
-selects the host builder below, and so does ``-T``/``--print_sfa`` (the
-device builder never materializes the sfa).  Nothing else falls back: a
-device build that fails raises.
+``build_se_index`` and ``build_pe_index`` (``backend="auto"``) build on the
+torch device (``index/device_build.py`` and ``index/device_build_pe.py``,
+the ports of the JAX package's device-resident builders);
+``EMSAR_TORCH_BUILD_BACKEND=numpy`` or ``backend="numpy"`` selects the
+host builders below, and so does ``-T``/``--print_sfa`` (the device
+builders never materialize the sfa).  Nothing else falls back: a device
+build that fails raises.
 
-The NumPy builder is a copy of the NumPy backend of
+The NumPy builders are copies of the NumPy backends of
 ``emsar_tpu/index/build.py`` (and the NumPy branch of
 ``emsar_tpu/index/kernels.py::se_group``): that module imports
-``jax.numpy`` when it loads.  Both backends write the same bytes as
-``emsar_tpu.index.build.build_se_index`` (``tests/test_torch_index_build.py``,
-``tests/test_torch_device_build.py``).
+``jax.numpy`` when it loads.  Every backend writes the same bytes as
+``emsar_tpu.index.build`` (``tests/test_torch_index_build.py``,
+``tests/test_torch_device_build.py``, ``tests/test_torch_pe_build.py``).
 
 SE semantics (reference preprocess_SE + construct_rshbucket_2,
 src/emsar_functions.c:3243-3290, 1758-1819): for each read length, every
@@ -24,7 +25,16 @@ contributes EUMA[sig, readlength] += 1 where sig is the sorted multiset of
 the run's transcripts (L == 1 -> single-transcript segment; L >= MAX_REPEAT
 dropped).
 
-The PE build is not ported yet.
+PE semantics (reference preprocess_PE + process_mate1_cluster_by_mate_3 +
+construct_rshbucket_PE_3, src/emsar_functions.c:3294-3348, 2823-2934,
+1902-1974): mate1 windows (both halves when unstranded) are grouped into
+clusters of identical sequence; per cluster, every (position, d)
+candidate with d in [Fmin-rl, Fmax-rl] yields a mate2 window at p+d
+within the same transcript; unstranded candidates are kept only in
+canonical pair orientation; candidates are grouped by (cluster, mate2
+sequence); groups spanning several d are dropped, size-1 groups are
+single-transcript segments, the others signatures at fragment length
+d + readlength.
 """
 
 from __future__ import annotations
@@ -274,19 +284,26 @@ def resolve_backend(backend: str = "auto") -> str:
     return backend
 
 
+def _host_for_sfa(backend: str, sfa_path: Optional[str],
+                  cfg: BuildConfig) -> str:
+    """-T/--print_sfa takes the host builder: the device builders never
+    materialize the sfa."""
+    if backend == "device" and sfa_path is not None:
+        if cfg.verbose > 0:
+            print("[emsar-build] falling back to the 'numpy' backend: "
+                  "-T/--print_sfa requested (the device builder never "
+                  "materializes the sfa)", file=sys.stderr, flush=True)
+        return "numpy"
+    return backend
+
+
 def build_se_index(tx: Transcriptome, readlength_min: int,
                    readlength_max: int, cfg: BuildConfig,
                    backend: str = "auto", sfa_path: Optional[str] = None,
                    device=None) -> RshIndex:
     """Build an SE rsh index for a read-length range, on the torch device
     (``device``, else ``$EMSAR_TORCH_DEVICE``) or on the host."""
-    backend = resolve_backend(backend)
-    if backend == "device" and sfa_path is not None:
-        if cfg.verbose > 0:
-            print("[emsar-build] falling back to the 'numpy' backend: "
-                  "-T/--print_sfa requested (the device builder never "
-                  "materializes the sfa)", file=sys.stderr, flush=True)
-        backend = "numpy"
+    backend = _host_for_sfa(resolve_backend(backend), sfa_path, cfg)
     if backend == "device":
         from ..device import resolve_device
         from .device_build import build_se_index_device
@@ -356,3 +373,185 @@ def _write_sfa(path: str, positions: np.ndarray) -> None:
     with open(path, "w", buffering=1 << 20) as fh:
         for i, p in enumerate(positions):
             fh.write(f"{i}\t{p}\n")
+
+
+# --------------------------------------------------------------------------
+# PE build
+# --------------------------------------------------------------------------
+
+
+def build_pe_index(tx: Transcriptome, readlength: int, cfg: BuildConfig,
+                   backend: str = "auto", sfa_path: Optional[str] = None,
+                   shard=None, device=None) -> RshIndex:
+    """Build a PE rsh index for one read length and a fragment-length
+    range, on the torch device (``device``, else ``$EMSAR_TORCH_DEVICE``)
+    or on the host.
+
+    ``shard=(i, n)``: this process builds every n-th chunk of mate1
+    clusters (device backend only); merge the partials with
+    ``RshIndex.merge``."""
+    backend = _host_for_sfa(resolve_backend(backend), sfa_path, cfg)
+    if backend == "device":
+        from ..device import resolve_device
+        from .device_build_pe import build_pe_index_device
+        return build_pe_index_device(tx, readlength, cfg,
+                                     resolve_device(device), shard=shard)
+    if shard is not None:
+        raise ValueError("a sharded PE build (shard=) needs the device "
+                         "backend")
+    fl_min = max(cfg.min_fraglength, readlength)
+    fl_max = max(cfg.max_fraglength, fl_min)
+    nfl = fl_max - fl_min + 1
+    acc = SignatureAccumulator(tx.n_transcripts, nfl)
+
+    p16 = pack.pack16(tx.codes)
+    bad = pack.bad_prefix(tx.codes)
+    stranded = cfg.strand.stranded
+    rl = readlength
+
+    with phase("PE: mate1 windows", cfg.verbose):
+        fwpos = np.arange(0, tx.borderpos - rl + 1, dtype=np.int64)
+        fwpos = fwpos[pack.valid_windows(bad, fwpos, rl)]
+        m1pos = fwpos if stranded else \
+            np.concatenate([fwpos, tx.seqlength - fwpos - rl])
+
+    with phase("PE: mate1 clustering", cfg.verbose):
+        prefix_bases = 0 if m1pos.size <= cfg.chunk_positions else 8
+        if prefix_bases:
+            m1pos, bounds = _radix_buckets(p16, m1pos, rl, prefix_bases)
+        else:
+            bounds = np.array([0, m1pos.size], dtype=np.int64)
+        pos_chunks, cl_chunks = [], []
+        next_cluster = 0
+        for lo, hi in _chunks(bounds, cfg.chunk_positions):
+            if hi <= lo:
+                continue
+            # group by the mate1 window itself (no canonicalization)
+            spos, rid, _ = se_group(p16, m1pos[lo:hi].astype(np.int32),
+                                    tx.seqlength, rl, True)
+            pos_chunks.append(spos)
+            cl_chunks.append(rid.astype(np.int64) + next_cluster)
+            next_cluster += int(rid[-1]) + 1
+        m1_sorted = np.concatenate(pos_chunks) if pos_chunks else \
+            np.zeros(0, np.int64)
+        m1_cluster = np.concatenate(cl_chunks) if cl_chunks else \
+            np.zeros(0, np.int64)
+        if sfa_path:
+            _write_sfa(sfa_path, m1_sorted)
+
+    with phase("PE: mate2 expansion", cfg.verbose):
+        _pe_expand(acc, tx, p16, bad, m1_sorted, m1_cluster, rl, fl_min,
+                   fl_max, stranded, cfg)
+
+    sig_offsets, sig_tids, multi_euma = acc.finalize()
+    return RshIndex(names=list(tx.names), readlength=readlength,
+                    min_fraglength=fl_min, max_fraglength=fl_max,
+                    single_euma=acc.single, sig_offsets=sig_offsets,
+                    sig_tids=sig_tids, multi_euma=multi_euma)
+
+
+def _pe_expand(acc, tx: Transcriptome, p16, bad, m1pos, m1cluster, rl,
+               fl_min, fl_max, stranded, cfg: BuildConfig):
+    """Blocks of whole mate1 clusters, ``cfg.pe_chunk_candidates``
+    candidates at most (a larger cluster is a block of its own)."""
+    nfl = fl_max - fl_min + 1
+    d0 = fl_min - rl  # >= 0 by clamping
+    n = m1pos.shape[0]
+    if n == 0:
+        return
+    budget = max(cfg.pe_chunk_candidates // max(nfl, 1), 1)
+    cluster_starts = np.concatenate(
+        [[0], np.flatnonzero(m1cluster[1:] != m1cluster[:-1]) + 1, [n]])
+    bstart = 0
+    while bstart < len(cluster_starts) - 1:
+        bend = bstart + 1
+        while (bend < len(cluster_starts) - 1 and
+               cluster_starts[bend + 1] - cluster_starts[bstart] <= budget):
+            bend += 1
+        lo, hi = int(cluster_starts[bstart]), int(cluster_starts[bend])
+        _pe_block_np(acc, tx, p16, bad, m1pos[lo:hi], m1cluster[lo:hi], d0,
+                     nfl, rl, fl_min, stranded, cfg.max_repeat)
+        bstart = bend
+
+
+def _accumulate_pe_runs(acc, d_sorted, tid_sorted, run_id, rl, fl_min,
+                        max_repeat):
+    """Sorted PE candidate runs into the accumulator: size-1 runs are
+    singles, runs of 1 < size < max_repeat at one d are signatures, runs
+    over several d are dropped (src/emsar_functions.c:1926)."""
+    lengths = run_lengths(run_id)
+    first_mask = np.concatenate([[True], run_id[1:] != run_id[:-1]])
+    run_first = np.zeros(len(lengths), dtype=np.int64)
+    run_first[run_id[first_mask]] = np.flatnonzero(first_mask)
+    fl_of_run = d_sorted[run_first] + rl - fl_min
+
+    singles = lengths == 1
+    if singles.any():
+        smask = singles[run_id]
+        acc.add_single(tid_sorted[smask], fl_of_run[run_id[smask]])
+    d_min = np.full(len(lengths), np.iinfo(np.int64).max)
+    d_max = np.full(len(lengths), np.iinfo(np.int64).min)
+    np.minimum.at(d_min, run_id, d_sorted)
+    np.maximum.at(d_max, run_id, d_sorted)
+    multi = (lengths > 1) & (lengths < max_repeat) & (d_min == d_max)
+    if multi.any():
+        sig_flat, sig_sizes, kept = _sorted_run_signatures(run_id, tid_sorted,
+                                                           multi)
+        acc.add_multi_batch(sig_flat, sig_sizes, fl_of_run[kept])
+
+
+def _pe_block_np(acc, tx: Transcriptome, p16, bad, pos, cluster, d0, nfl,
+                 rl, fl_min, stranded, max_repeat):
+    """The candidates of one block of whole mate1 clusters."""
+    B = pos.shape[0]
+    ds = d0 + np.arange(nfl, dtype=np.int64)
+    cand = pos[:, None] + ds[None, :]
+    in_range = cand <= tx.seqlength - rl
+    cand_c = np.minimum(cand, tx.seqlength - rl)
+    valid = in_range & (pack.valid_windows(bad, cand_c.ravel(), rl)
+                        .reshape(B, nfl))
+    tid1 = tx.transcript_of(pos, rl)
+    tid2 = tx.transcript_of(cand_c.ravel(), rl).reshape(B, nfl)
+    same_half = ~((pos[:, None] < tx.borderpos) & (cand_c > tx.borderpos))
+    valid &= (tid2 == tid1[:, None]) & same_half
+
+    if not stranded:
+        flat = cand_c.ravel()
+        keep = np.zeros(B * nfl, dtype=bool)
+        vmask = valid.ravel()
+        if vmask.any():
+            p_rep = np.repeat(pos, nfl)[vmask]
+            c_sel = flat[vmask]
+            k_m1 = pack.window_words_np(p16, p_rep, rl)
+            k_m1f = pack.window_words_np(p16, tx.seqlength - c_sel - rl, rl)
+            cmp = pack.lexcmp_words_np(k_m1, k_m1f)
+            tie = cmp == 0
+            if tie.any():
+                k_m2 = pack.window_words_np(p16, c_sel[tie], rl)
+                k_m2f = pack.window_words_np(
+                    p16, tx.seqlength - p_rep[tie] - rl, rl)
+                cmp = cmp.copy()
+                cmp[tie] = pack.lexcmp_words_np(k_m2, k_m2f)
+            fwhalf = p_rep < tx.borderpos
+            keep[np.flatnonzero(vmask)] = np.where(fwhalf, cmp <= 0, cmp < 0)
+        valid = keep.reshape(B, nfl)
+
+    vmask = valid.ravel()
+    if not vmask.any():
+        return
+    m2sel = cand_c.ravel()[vmask]
+    cl_sel = np.repeat(cluster, nfl)[vmask].astype(np.int64)
+    d_sel = np.repeat(ds[None, :], B, axis=0).ravel()[vmask]
+    tid_sel = np.repeat(tid1, nfl)[vmask]
+
+    m2w = pack.window_words_np(p16, m2sel, rl)
+    cl_lo = (cl_sel - cl_sel.min()).astype(np.uint32)
+    words = np.concatenate([cl_lo[:, None], m2w], axis=1)
+    order = np.lexsort(tuple(words[:, w]
+                             for w in range(words.shape[1] - 1, -1, -1)))
+    sw = words[order]
+    diff = np.any(sw[1:] != sw[:-1], axis=1)
+    run_id = np.concatenate([np.zeros(1, np.int64),
+                             np.cumsum(diff.astype(np.int64))])
+    _accumulate_pe_runs(acc, d_sel[order], tid_sel[order], run_id, rl,
+                        fl_min, max_repeat)

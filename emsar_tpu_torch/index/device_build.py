@@ -80,6 +80,28 @@ class DeviceRef:
         marks[self.cuml[self.cuml < n]] = 1
         return torch.cumsum(marks, 0, dtype=torch.int32) - 1
 
+    def t32(self, rl: int) -> torch.Tensor:
+        """int32 [seqlength - rl + 1]: the tid of every window start of
+        either half (reference sf_i, src/emsar_functions.c:2619-2627): the
+        forward tids below n1 = borderpos - rl + 1, and at k >= n1 the tid
+        of the flipped start seqlength - rl - k (``_t32_kernel``)."""
+        n1 = self.borderpos - rl + 1
+        tidf = self.tid_forward(self.borderpos + 1)
+        return torch.cat([tidf[:n1], tidf[:self.seqlength - rl - n1 + 1]
+                          .flip(0)])
+
+    def nsep(self) -> torch.Tensor:
+        """int32 [seqlength + 1]: for every position, the first '@' or '$'
+        at or after it (``_nsep_kernel``).  The separators follow from
+        cuml: '@' or the central '$' at cuml[t + 1] - 1 in the forward
+        half, their mirrors seqlength - cuml[t + 1] in the rc half, and the
+        final '$'; every position takes the next one by a repeat."""
+        fw = self.cuml[1:] - 1
+        rc = self.seqlength - self.cuml[1:-1].flip(0)
+        sep = torch.cat([fw, rc, fw.new_tensor([self.seqlength])])
+        gaps = torch.diff(sep, prepend=sep.new_tensor([-1]))
+        return torch.repeat_interleave(sep.to(torch.int32), gaps)
+
 
 def _sync(device: torch.device) -> None:
     """Finish the device's queued work, so a phase timer holds it."""

@@ -21,6 +21,7 @@ struct dim3 {
 inline thread_local dim3 threadIdx;
 inline thread_local dim3 blockIdx;
 inline dim3 blockDim;
+inline dim3 gridDim;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline int cudaGetLastError() { return cudaSuccess; }
@@ -94,6 +95,7 @@ T __shfl_up_sync(unsigned, T v, int d) {
 inline void emu_launch(long long grid, int block, size_t smem,
                        std::function<void()> body) {
   blockDim.x = block;
+  gridDim.x = (unsigned)grid;
   std::vector<unsigned char> dyn(smem + 16);
   emu_dyn_smem = dyn.data() + (16 - ((uintptr_t)dyn.data() & 15)) % 16;
   for (long long b = 0; b < grid; ++b) {

@@ -165,15 +165,13 @@ NOT_PORTED = "not yet ported to emsar_tpu_torch"
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--PE", "-x", "t.fa"], NOT_PORTED),
     (["-m", "1", "-I"], "requires -x fastafile (not -I)"),
     (["-M", "--batch_samples", "-I"], NOT_PORTED),
     (["-M", "--dist_merge_shards", "-I"], NOT_PORTED)],
-    ids=["fasta", "posbias", "batch_samples", "dist_merge_shards"])
+    ids=["posbias", "batch_samples", "dist_merge_shards"])
 def test_unported_flags_exit(fixture, tmp_path, flags, message, capsys):
-    """What is not ported exits with an error: the PE build behind -x,
-    batched and sharded multisample runs; -m 1 needs -x, as in the JAX
-    package."""
+    """What is not ported exits with an error: batched and sharded
+    multisample runs; -m 1 needs -x, as in the JAX package."""
     rsh, aln = fixture
     with pytest.raises(SystemExit) as exc:
         torch_cli.main(flags + [rsh, str(tmp_path), "s", aln])

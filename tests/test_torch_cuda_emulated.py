@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from emsar_tpu_torch.index.device_build import DeviceRef
+from emsar_tpu_torch.index.device_build_pe import rank_pass
 from emsar_tpu_torch.io.fasta import build_transcriptome
-from emsar_tpu_torch.kernels import _build, squarem, window_hash
+from emsar_tpu_torch.kernels import _build, pe_candidates, squarem, window_hash
 from emsar_tpu_torch.kernels.check import (block_agreement, block_tol,
                                            random_modules)
 from emsar_tpu_torch.model.dense import SIZE_CLASSES
@@ -56,7 +57,7 @@ def _emulated_source(text: str) -> str:
 def emulated(tmp_path_factory):
     """{source: its library built for the CPU emulation}."""
     libs = {}
-    for source in (window_hash.SOURCE, squarem.SOURCE):
+    for source in (window_hash.SOURCE, squarem.SOURCE, pe_candidates.SOURCE):
         with open(os.path.join(_build.CSRC_DIR, source)) as fh:
             text = _emulated_source(fh.read())
         cc = tmp_path_factory.mktemp("emu") / (source + ".cc")
@@ -152,3 +153,53 @@ def test_squarem_source_matches_plain(emulated, C, T, dtype, n_iters):
     err, _, n = block_agreement(out, want, *args, n_iters)
     assert n >= 1 and torch.isfinite(out).all()
     assert err <= block_tol(dtype, n_iters), err
+
+
+def pe_chunk(rng, rl, unstranded, n_members):
+    """A chunk of a gene-family transcriptome's PE build on the CPU: its
+    tables and ``n_members`` rank-sorted members, with the last window
+    start and the last position (past the tid table) appended."""
+    names, seqs, _ = gene_family_transcriptome(rng, 4, n_exons=5,
+                                               min_exon=40, max_exon=120)
+    seqs[1] = seqs[1][:30] + b"N" + seqs[1][31:]
+    ref = DeviceRef(build_transcriptome(names, seqs), torch.device("cpu"))
+    t32, nsep = ref.t32(rl), ref.nsep()
+    R, spos, srank = rank_pass(ref, t32, rl, unstranded, 0)
+    lo = int(rng.integers(0, spos.shape[0] - n_members))
+    extra = torch.tensor([ref.seqlength - rl, ref.seqlength],
+                         dtype=torch.int32)
+    mpos = torch.cat([spos[lo:lo + n_members], extra])
+    mrank = torch.cat([srank[lo:lo + n_members],
+                       torch.tensor([3, 4], dtype=torch.int32)])
+    return (mpos, mrank, R, R.flip(0).contiguous() if unstranded else None,
+            t32, nsep, ref)
+
+
+@pytest.mark.parametrize("nfl", [1, 11, 400])
+@pytest.mark.parametrize("d0", [0, 37])
+@pytest.mark.parametrize("unstranded", [True, False], ids=["ns", "ssfr"])
+def test_pe_candidates_source_matches_plain(emulated, unstranded, d0, nfl):
+    """Keys and payloads bit for bit, for members of both halves, a
+    member whose mate2 windows run past the sequence and one past the tid
+    table."""
+    rl = 20
+    mpos, mrank, R, RF, t32, nsep, ref = pe_chunk(
+        np.random.default_rng(nfl + d0), rl, unstranded,
+        60 if nfl == 400 else 300)
+    M = mpos.shape[0]
+    keys = torch.full((M * nfl,), 7, dtype=torch.int64)
+    pay = torch.full((M * nfl,), 7, dtype=torch.int32)
+    fn = emulated[pe_candidates.SOURCE].emsar_pe_candidates
+    fn.restype = ctypes.c_int
+    fn.argtypes = pe_candidates.ARGTYPES
+    assert fn(mpos.data_ptr(), mrank.data_ptr(), M, R.data_ptr(),
+              RF.data_ptr() if RF is not None else None, R.shape[0],
+              t32.data_ptr(), t32.shape[0], nsep.data_ptr(), nsep.shape[0],
+              d0, nfl, rl, ref.borderpos, ref.seqlength, int(unstranded),
+              keys.data_ptr(), pay.data_ptr(), None) == 0
+    want = pe_candidates.pe_candidates_ref(mpos, mrank, R, RF, t32, nsep,
+                                           d0, nfl, rl, ref.borderpos,
+                                           ref.seqlength, unstranded)
+    valid = want[0] != pe_candidates.INVALID_KEY
+    assert valid.any() and not valid.all()
+    assert torch.equal(keys, want[0]) and torch.equal(pay, want[1])

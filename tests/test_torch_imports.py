@@ -30,6 +30,8 @@ _NO_JAX = textwrap.dedent("""
     import emsar_tpu_torch.cli.emsar as cli
     import emsar_tpu_torch.cli.emsar_build as build_cli
     import emsar_tpu_torch.index.device_build
+    import emsar_tpu_torch.index.device_build_pe
+    import emsar_tpu_torch.kernels.pe_candidates
     import emsar_tpu_torch.kernels.measure
     import emsar_tpu_torch.kernels.segment_sum
     import emsar_tpu_torch.kernels.squarem
@@ -94,6 +96,27 @@ _NO_JAX = textwrap.dedent("""
             rows = fh.read().splitlines()
         assert len(rows) == len(names) + 1
     assert os.path.exists(os.path.join(d, "-x", "s.posbias"))
+
+    # the PE build, then -x --PE on PE bowtie pairs of 60-base fragments
+    assert build_cli.main(["-q", "--PE", "-f", "40", "-F", "70", fa, "20",
+                           d, "pe"]) == 0
+    pos = simulate_fragments(tx, 60, 200, rng, strand_specific=True)
+    _, r1, r2 = fragments_to_reads(tx, pos, 20, 60, pe=True)
+    tids = tx.transcript_of(pos, 20)
+    pe_aln = os.path.join(d, "pe.bowtieout")
+    with open(pe_aln, "w") as fh:
+        for i, (t, p) in enumerate(zip(tids, pos - tx.cuml[tids])):
+            fh.write(f"r{i}/1\\t+\\t{names[t]}\\t{p}\\t{r1[i].decode()}\\t"
+                     f"IIII\\t0\\t\\nr{i}/2\\t-\\t{names[t]}\\t{p + 40}\\t"
+                     f"{revcomp_bytes(r2[i]).decode()}\\tIIII\\t0\\t\\n")
+    out = os.path.join(d, "pe_x")
+    assert cli.main(["-q", "--PE", "-f", "40", "-F", "70", "-R", "-x", fa,
+                     out, "s", pe_aln]) == 0
+    with open(os.path.join(out, "s.rsh"), "rb") as a, \\
+            open(os.path.join(d, "pe.rsh"), "rb") as b:
+        assert a.read() == b.read()
+    with open(os.path.join(out, "s.0.fpkm")) as fh:
+        assert len(fh.read().splitlines()) == len(names) + 1
     from emsar_tpu_torch.ingest import native
     assert native.available()
     assert sys.modules["jax"] is None and sys.modules["emsar_tpu"] is None

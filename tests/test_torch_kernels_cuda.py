@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from emsar_tpu_torch.index.device_build import DeviceRef
+from emsar_tpu_torch.index.device_build_pe import rank_pass
 from emsar_tpu_torch.io.fasta import build_transcriptome
+from emsar_tpu_torch.kernels import pe_candidates as kpe
 from emsar_tpu_torch.kernels import segment_sum as ssum
 from emsar_tpu_torch.kernels import squarem, window_hash
 from emsar_tpu_torch.kernels.check import (block_agreement, block_tol,
@@ -200,3 +202,35 @@ def test_em_step_matches_cpu_em_iter(cuda, dtype, R):
     torch.cuda.synchronize()
     assert ssum.EM_LAUNCHES == before + 2
     assert torch.equal(got.cpu(), solver._em_iter(p_cpu, th))
+
+
+@pytest.mark.parametrize("nfl", [1, 11, 400])
+@pytest.mark.parametrize("d0", [0, 189])
+@pytest.mark.parametrize("unstranded", [True, False], ids=["ns", "ssfr"])
+def test_pe_candidates_kernel_bit_equal(cuda, unstranded, d0, nfl):
+    """Keys and payloads of every member of a gene-family PE build at
+    l101 (both halves when unstranded), plus the last window start and the
+    last position (past the tid table), equal the plain version's."""
+    rl = 101
+    names, seqs, _ = gene_family_transcriptome(
+        np.random.default_rng(nfl + d0), 20)
+    seqs[3] = seqs[3][:50] + b"N" + seqs[3][51:]
+    ref = DeviceRef(build_transcriptome(names, seqs), cuda)
+    t32, nsep = ref.t32(rl), ref.nsep()
+    R, spos, srank = rank_pass(ref, t32, rl, unstranded, 0)
+    RF = R.flip(0).contiguous() if unstranded else None
+    mpos = torch.cat([spos, torch.tensor(
+        [ref.seqlength - rl, ref.seqlength], dtype=torch.int32,
+        device=cuda)])
+    mrank = torch.cat([srank, torch.tensor([0, 1], dtype=torch.int32,
+                                           device=cuda)])
+    args = (mpos, mrank, R, RF, t32, nsep, d0, nfl, rl, ref.borderpos,
+            ref.seqlength, unstranded)
+    before = kpe.LAUNCHES
+    got = kpe.pe_candidates(*args)
+    torch.cuda.synchronize()
+    assert kpe.LAUNCHES == before + 1
+    want = kpe.pe_candidates_ref(*args)
+    valid = want[0] != kpe.INVALID_KEY
+    assert valid.any() and not valid.all()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
