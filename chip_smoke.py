@@ -8,7 +8,7 @@ imports nothing of JAX.  Phases, each of which raises on failure (non-zero
 exit, no result line):
 
 1. torch version, the card's name and power limit (nvidia-smi).
-2. Build the three hand-written CUDA kernels from csrc/ (one nvcc per
+2. Build the four hand-written CUDA kernel sources of csrc/ (one nvcc per
    source, all started together; sm_90a); per kernel instance ptxas'
    registers, stack, spills and static shared memory (the SQUAREM block
    classes' dynamic shared memory is written in its source).
@@ -56,9 +56,10 @@ exit, no result line):
    transcript its single counts and its windows in multi records, and the
    class-size histogram, all equal.
 9. The PE candidate kernel: ``pe_candidates`` against its plain version,
-   bit for bit, on random tables (members past the tables' ends too) and
-   on the tables of a 100-gene PE smoke transcriptome at l101 (ns and
-   ssfr, d0 0 and 189, nfl 1, 11 and 400), timed, with its bound.
+   bit for bit (the written keys and payloads, their count and the
+   singleton counts), on random tables (members past the tables' ends
+   too) and on the tables of a 100-gene PE smoke transcriptome at l101
+   (ns and ssfr, d0 0 and 189, nfl 1, 11 and 400), timed, with its bound.
 10. The PE build on the card: ``emsar-build-torch --PE`` at l101
    F290-300, ns and ssfr, on the PE smoke transcriptome, and F1-400 ns on
    its first 5 genes: each .rsh byte-equal to the port's NumPy PE
@@ -68,16 +69,19 @@ exit, no result line):
    ``emsar_tpu_torch.bench.pe_fixture``; ``emsar-torch --PE -B -s ssfr
    -f 290 -F 300 -R -x``, then ``-I`` on the written .rsh: logL rel 1e-9,
    gene iReadcount 1e-3, gene TPM rel 1e-3, .fraglength_effect byte-equal.
-   Then pe_candidates at that build's own shapes (times and bound of the
-   kernels line).
+   Then pe_candidates at that build's own chunks (times and bound of the
+   kernels line), bit-equal to its plain version.
 12. The PE build at scale: the 337 Mbp transcriptome of phase 8, PE l101
    F290-300 through ``emsar-build-torch --PE``, ssfr and then ns (both
    halves: ~675 M mate1 windows): wall time, phases, chunks, peak device
-   memory.  Then, chunk by chunk, pe_candidates
-   against its plain version on every candidate, and the .rsh against
-   candidate groups counted with ``torch.unique``: per fragment length,
-   the size-1 groups, the kept groups and their members equal
-   Σ single_euma, Σ multi_euma and Σ multi_euma x signature size.
+   memory.  Then, chunk by chunk, pe_candidates against its plain
+   version (written candidates and singleton counts), the singleton
+   members' share and the valid candidates' share, and the .rsh against
+   candidate groups counted with ``torch.unique`` over the full candidate
+   grid (``pe_candidate_grid_ref``, apart from the kernel's singleton
+   route): per fragment length, the size-1 groups, the kept groups and
+   their members equal Σ single_euma, Σ multi_euma and Σ multi_euma x
+   signature size.
 
 Times on the card (``kernels/measure.py``): ``ms`` is device time per
 call, CUDA events around calls queued back to back behind a sleep kernel;
@@ -1172,9 +1176,9 @@ def random_pe_tables(rng, S: int, rl: int, n_members: int, dev):
     """Random PE tables of a sequence of S + 1 positions (ranks, 10% of
     them invalid, their flip, tids, separators every ~300 positions) and
     n_members members anywhere in [0, S], past the rank and tid tables'
-    ends too; a quarter of the members carry the rank R[p], the rest
-    random ranks.  As pe_candidates' arguments (mpos, mrank, R, RF, t32,
-    nsep)."""
+    ends too, with sorted ranks in clusters of one to a few members; a
+    quarter of the members carry the rank R[p] instead: (spos, srank, R,
+    RF, t32, nsep)."""
     import numpy as np
     import torch
 
@@ -1186,46 +1190,71 @@ def random_pe_tables(rng, S: int, rl: int, n_members: int, dev):
     sep = np.unique(np.concatenate([rng.integers(0, S, S // 300), [S]]))
     nsep = sep[np.searchsorted(sep, np.arange(S + 1))]
     mpos = rng.integers(0, S + 1, n_members)
-    mrank = rng.integers(0, 1 << 29, n_members)
+    mrank = np.sort(rng.integers(0, n_members // 2, n_members)) << 8
     own = (rng.random(n_members) < 0.25) & (mpos < n_rank)
     mrank[own] = np.minimum(R[mpos[own]], (1 << 29) - 1)
     return tuple(torch.as_tensor(a.astype(np.int32)).to(dev)
                  for a in (mpos, mrank, R, R[::-1].copy(), t32, nsep))
 
 
-def check_pe_candidates(args, label: str, n_time: int = 20) -> dict:
+def check_pe_candidates(args, label: str, n_time: int = 20,
+                        capacity=None) -> dict:
     """pe_candidates against its plain version on the card: the same bits
-    (tolerance 0).  Times the kernel (device and host ms) and the plain
-    version; the bound is ``pe_candidates.bytes_moved``.  Returns what it
-    measured."""
+    (tolerance 0) in the written keys and payloads, their count and the
+    singleton counts.  Times the kernel's launch (device and host ms) and
+    the plain version; the bound is ``pe_candidates.bytes_moved`` of this
+    call's written candidates and changed singleton entries.  Returns what
+    it measured."""
     import torch
 
     from emsar_tpu_torch.kernels import measure
     from emsar_tpu_torch.kernels import pe_candidates as kpe
-    mpos, nfl, unstranded = args[0], args[7], args[11]
-    got = kpe.pe_candidates(*args)
+    spos, srank, lo, hi, tn, nfl, unstranded = (args[0], args[1], args[2],
+                                                args[3], args[6], args[8],
+                                                args[12])
+    # past 2^24 entries (random tids up to 2^23) the index is dropped, by
+    # the kernel and by the plain version
+    n_single = min((int((tn & 0xFFFFFFFF).max()) + 1) * nfl, 1 << 24)
+    single = torch.zeros(n_single, dtype=torch.int64, device=spos.device)
+    got = kpe.pe_candidates(*args, single, capacity=capacity)
     torch.cuda.synchronize()
-    want = kpe.pe_candidates_ref(*args)
-    n_bad = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
-    n_valid = int((want[0] != kpe.INVALID_KEY).sum())
-    del got, want
-    host = measure.host_ms(lambda: kpe.pe_candidates(*args), n=n_time)
-    k_ms = measure.device_ms(lambda: kpe.pe_candidates(*args), n=n_time,
-                             host_per_call_ms=host)
-    p_ms = measure.device_ms(lambda: kpe.pe_candidates_ref(*args), n=2)
-    n_bytes = kpe.bytes_moved(mpos, nfl, unstranded)
+    want_single = torch.zeros_like(single)
+    want = kpe.pe_candidates_ref(*args, want_single, capacity=capacity)
+    n_written, n_kept = want[0].shape[0], int(want_single.sum())
+    n_entries = int(torch.count_nonzero(want_single))
+    n_bad = int((single != want_single).sum())
+    if got[0].shape[0] != n_written:
+        n_bad += 1 + abs(got[0].shape[0] - n_written)
+    else:
+        n_bad += int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+    n_sng = int(kpe.singleton_members(srank, lo, hi).sum())
+    del got, want, want_single
+
+    def kernel():
+        return kpe.launch(*args, single, capacity=capacity)
+
+    host = measure.host_ms(kernel, n=n_time)
+    k_ms = measure.device_ms(kernel, n=n_time, host_per_call_ms=host)
+    p_ms = measure.device_ms(lambda: kpe.pe_candidates_ref(*args, single),
+                             n=2)
+    n_bytes = kpe.bytes_moved(spos[lo:hi], nfl, unstranded, n_written,
+                              n_entries)
     bound, by = measure.bound_ms(n_bytes, 0)
-    log(f"pe_candidates {label}: {mpos.shape[0]} members x {nfl}, "
-        f"{n_valid} valid, {n_bad} keys or payloads differ from the plain "
-        f"version; kernel {k_ms:.4f} ms on the card, {host:.4f} ms host per "
-        f"call; plain {p_ms:.4f} ms; bound {bound:.4f} ms ({by}, "
-        f"{n_bytes} B), share {bound / k_ms:.1%}")
-    if n_bad or n_valid == 0:
+    log(f"pe_candidates {label}: {hi - lo} members ({n_sng} singleton) x "
+        f"{nfl}, {n_written} written, {n_kept} singleton slots counted "
+        f"into {n_entries} entries, "
+        f"{n_bad} keys, payloads or counts differ from the plain version; "
+        f"kernel {k_ms:.4f} ms on the card, {host:.4f} ms host per call; "
+        f"plain {p_ms:.4f} ms; bound {bound:.4f} ms ({by}, {n_bytes} B), "
+        f"share {bound / k_ms:.1%}")
+    if n_bad or n_written + n_kept == 0:
         raise AssertionError(f"pe_candidates {label}: {n_bad} differ from "
-                             f"the plain version ({n_valid} valid)")
+                             f"the plain version ({n_written} written, "
+                             f"{n_kept} counted)")
     return {"err": float(n_bad), "ms": k_ms, "host_ms": host,
             "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
+            "library_ms": None, "written": n_written, "kept": n_kept,
+            "entries": n_entries}
 
 
 def pe_tables(fa: str, rl: int, unstranded: bool, dev):
@@ -1247,23 +1276,30 @@ def phase_pe_kernel_check(fa: str, dev) -> None:
     nfl 1, 11 and 400; bit-equal, with times and bounds."""
     import numpy as np
     import torch
+
+    from emsar_tpu_torch.kernels.pe_candidates import pack_tables
     rl = 101
     for unstranded in (True, False):
         tab = pe_tables(fa, rl, unstranded, dev)
         ref, t32, nsep, R, RF, spos, srank = tab
-        rnd = random_pe_tables(np.random.default_rng(int(unstranded)),
-                               1 << 22, rl, 1 << 16, dev)
+        tn = pack_tables(t32, nsep)
+        mpos, mrank, Rr, RFr, tr, nr = random_pe_tables(
+            np.random.default_rng(int(unstranded)), 1 << 22, rl, 1 << 16,
+            dev)
+        tnr = pack_tables(tr, nr)
         for d0, nfl in itertools.product((0, 189), (1, 11, 400)):
             strand = "ns" if unstranded else "ssfr"
             check_pe_candidates(
-                (spos, srank, R, RF, t32, nsep, d0, nfl, rl, ref.borderpos,
-                 ref.seqlength, unstranded), f"smoke {strand} d0 {d0}", 5)
-            mpos, mrank, Rr, RFr, tr, nr = rnd
+                (spos, srank, 0, spos.shape[0], R, RF, tn, d0, nfl, rl,
+                 ref.borderpos, ref.seqlength, unstranded),
+                f"smoke {strand} d0 {d0}", 5)
             check_pe_candidates(
-                (mpos, mrank, Rr, RFr if unstranded else None, tr, nr, d0,
-                 nfl, rl, (1 << 21), 1 << 22, unstranded),
+                (mpos, mrank, 1, mpos.shape[0] - 1, Rr,
+                 RFr if unstranded else None, tnr, d0, nfl, rl, (1 << 21),
+                 1 << 22, unstranded),
                 f"random {strand} d0 {d0}", 5)
-        del tab, ref, t32, nsep, R, RF, spos, srank, rnd
+        del tab, ref, t32, nsep, tn, R, RF, spos, srank
+        del mpos, mrank, Rr, RFr, tr, nr, tnr
         torch.cuda.empty_cache()
 
 
@@ -1418,22 +1454,25 @@ def phase_pe_fasta_path(out_root: str):
 
 
 def measure_pe_main_path(fa: str, dev) -> dict:
-    """pe_candidates at the PE -x run's own shapes (its chunks of the
-    ssfr l101 F290-300 build): bit-equal to the plain version; times and
-    bounds summed over the chunks, host ms per call their mean."""
+    """pe_candidates at the PE -x run's own chunks (of the ssfr l101
+    F290-300 build, sized as the build sizes them): bit-equal to the plain
+    version; times and bounds summed over the chunks, host ms per call
+    their mean."""
     from emsar_tpu_torch.bench.pe_fixture import (PE_FMAX, PE_FMIN,
                                                   PE_READLEN)
     from emsar_tpu_torch.index.device_build_pe import chunk_budget, plan_chunks
+    from emsar_tpu_torch.kernels.pe_candidates import pack_tables
     rl, nfl = PE_READLEN, PE_FMAX - PE_FMIN + 1
     ref, t32, nsep, R, RF, spos, srank = pe_tables(fa, rl, False, dev)
+    tn = pack_tables(t32, nsep)
     bounds = plan_chunks(srank, nfl, chunk_budget(dev, ref.seqlength + 1))
     tot = {"err": 0.0, "ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
            "bound_ms": 0.0, "library_ms": None, "bound_by": "bytes"}
-    for lo, hi in bounds:
+    for lo, hi, weight in bounds:
         m = check_pe_candidates(
-            (spos[lo:hi], srank[lo:hi], R, None, t32, nsep,
-             PE_FMIN - rl, nfl, rl, ref.borderpos, ref.seqlength, False),
-            "main path (PE -x build, ssfr l101 F290-300)")
+            (spos, srank, lo, hi, R, None, tn, PE_FMIN - rl, nfl, rl,
+             ref.borderpos, ref.seqlength, False),
+            "main path (PE -x build, ssfr l101 F290-300)", capacity=weight)
         for k in ("ms", "plain_ms", "bound_ms"):
             tot[k] += m[k]
         tot["host_ms"] += m["host_ms"] / len(bounds)
@@ -1444,12 +1483,16 @@ def measure_pe_main_path(fa: str, dev) -> dict:
 def check_pe_scale_counts(fa: str, index, dev, unstranded: bool) -> dict:
     """A scale PE .rsh (l101 F290-300) against candidate groups
     counted apart from the builder: per chunk of whole mate1 clusters,
-    pe_candidates against its plain version on every candidate, then
-    ``torch.unique`` over the valid keys (mate1 rank, mate2 rank) with
+    pe_candidates against its plain version (written candidates, their
+    count, singleton counts), then ``torch.unique`` over the valid keys
+    (mate1 rank, mate2 rank) of the full candidate grid
+    (``pe_candidate_grid_ref``, every member, no singleton route) with
     each group's fragment lengths.  Per fragment length, the size-1 groups
     must number Σ single_euma, the kept groups (1 < size < max_repeat, one
     fragment length) Σ multi_euma, and their members Σ multi_euma x
-    signature size.  Raises on a difference; returns what it measured."""
+    signature size.  Also the singleton members' share of the members and
+    the valid candidates' share of the grid.  Raises on a difference;
+    returns what it measured."""
     import numpy as np
     import torch
 
@@ -1464,32 +1507,56 @@ def check_pe_scale_counts(fa: str, index, dev, unstranded: bool) -> dict:
     max_repeat = BuildConfig().max_repeat
     ref, t32, nsep, R, RF, spos, srank = pe_tables(fa, rl, unstranded, dev)
     bp, sl = ref.borderpos, ref.seqlength
+    n_single = index.n_transcripts * nfl
+    tn = kpe.pack_tables(t32, nsep)
     del ref
     torch.cuda.empty_cache()
     bounds = plan_chunks(srank, nfl, min(chunk_budget(dev, sl + 1), 1 << 28))
     got = {k: torch.zeros(nfl, dtype=torch.int64, device=dev)
            for k in ("single", "groups", "members")}
-    n_bad, k_ms, p_ms, n_cand, n_bytes = 0, 0.0, 0.0, 0, 0
+    single = torch.zeros(n_single, dtype=torch.int64, device=dev)
+    want_single = torch.zeros_like(single)
+    n = {k: 0 for k in ("bad", "members", "singleton", "grid", "valid",
+                        "written", "kept", "entries", "bytes")}
+    k_ms, p_ms = 0.0, 0.0
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    for lo, hi in bounds:
-        args = (spos[lo:hi], srank[lo:hi], R, RF, t32, nsep, d0, nfl, rl,
-                bp, sl, unstranded)
-        n_bytes += kpe.bytes_moved(args[0], nfl, unstranded)
+    for lo, hi, weight in bounds:
+        args = (spos, srank, lo, hi, R, RF, tn, d0, nfl, rl, bp, sl,
+                unstranded)
+        before = want_single.clone()
         ev[0].record()
-        keys, pay = kpe.pe_candidates(*args)
+        keys, pay, count = kpe.launch(*args, single, capacity=weight)
         ev[1].record()
-        want = kpe.pe_candidates_ref(*args)
+        want = kpe.pe_candidates_ref(*args, want_single, capacity=weight)
         ev[2].record()
         ev[2].synchronize()
         k_ms += ev[0].elapsed_time(ev[1])
         p_ms += ev[1].elapsed_time(ev[2])
-        n_bad += int((keys != want[0]).sum() + (pay != want[1]).sum())
-        n_cand += keys.shape[0]
-        del want
+        c = int(count)
+        if c != want[0].shape[0]:
+            n["bad"] += 1 + abs(c - want[0].shape[0])
+        else:
+            n["bad"] += int((keys[:c] != want[0]).sum()
+                            + (pay[:c] != want[1]).sum())
+        kept = int((want_single - before).sum())
+        entries = int(torch.count_nonzero(want_single != before))
+        n["members"] += hi - lo
+        n["singleton"] += int(kpe.singleton_members(srank, lo, hi).sum())
+        n["written"] += c
+        n["kept"] += kept
+        n["entries"] += entries
+        n["bytes"] += kpe.bytes_moved(spos[lo:hi], nfl, unstranded, c,
+                                      entries)
+        del keys, pay, count, want, before
+        keys, pay = kpe.pe_candidate_grid_ref(
+            spos[lo:hi], srank[lo:hi], R, RF, t32, nsep, d0, nfl, rl, bp, sl,
+            unstranded)
+        n["grid"] += keys.shape[0]
         valid = keys != kpe.INVALID_KEY
         kv = keys[valid]
         dd = (pay[valid] & 0x1FF).to(torch.int64)
         del keys, pay, valid
+        n["valid"] += kv.shape[0]
         _, inv, cnt = torch.unique(kv, return_inverse=True,
                                    return_counts=True)
         del kv
@@ -1504,7 +1571,8 @@ def check_pe_scale_counts(fa: str, index, dev, unstranded: bool) -> dict:
         got["groups"] += torch.bincount(dmin[kept], minlength=nfl)
         got["members"].index_add_(0, dmin[kept], cnt[kept])
         del cnt, dmin, dmax, kept
-    del R, RF, t32, nsep, spos, srank
+    n["bad"] += int((single != want_single).sum())
+    del R, RF, t32, nsep, tn, spos, srank, single, want_single
     torch.cuda.empty_cache()
     sizes = np.diff(index.sig_offsets)
     want = {"single": np.asarray(index.single_euma).sum(axis=0),
@@ -1514,21 +1582,31 @@ def check_pe_scale_counts(fa: str, index, dev, unstranded: bool) -> dict:
     checks = {k: np.array_equal(got[k].cpu().numpy(), want[k])
               for k in want}
     secs = time.perf_counter() - t0
-    bound, _ = measure.bound_ms(n_bytes, 0)
+    bound, _ = measure.bound_ms(n["bytes"], 0)
+    shares = {"singleton_members": n["singleton"] / max(n["members"], 1),
+              "valid": n["valid"] / max(n["grid"], 1),
+              "written_of_valid": n["written"] / max(n["valid"], 1)}
     log(f"scale PE {'ns' if unstranded else 'ssfr'} .rsh against "
-        f"torch.unique candidate groups: {n_cand} "
-        f"candidates in {len(bounds)} chunks, {n_bad} keys or payloads "
+        f"torch.unique candidate groups: {n['members']} members in "
+        f"{len(bounds)} chunks, singleton members "
+        f"{shares['singleton_members']:.4f} of them; {n['grid']} "
+        f"candidates in the grid, valid {shares['valid']:.4f} of them, {n['written']} written "
+        f"({shares['written_of_valid']:.4f} of the valid), {n['kept']} "
+        f"singleton slots counted into {n['entries']} entries (summed over "
+        f"the chunks); {n['bad']} keys, payloads or counts "
         f"differ from the plain version (kernel {k_ms:.3f} ms, plain "
         f"{p_ms:.3f} ms in all, one launch a chunk; bound {bound:.3f} ms, "
         f"bytes); per fragment length "
         + ", ".join(f"{k} equal {v}" for k, v in checks.items())
         + f" (size-1 groups {int(want['single'].sum())}, kept groups "
         f"{int(want['groups'].sum())}); {secs:.1f} s")
-    if n_bad or not all(checks.values()):
-        raise AssertionError(f"the scale PE check failed: {n_bad} differ, "
-                             f"{checks}")
-    return {"check_s": secs, "candidates": n_cand, "kernel_ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": bound}
+    if n["bad"] or not all(checks.values()):
+        raise AssertionError(f"the scale PE check failed: {n['bad']} "
+                             f"differ, {checks}")
+    return {"check_s": secs, "candidates": n["grid"], "kernel_ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound, "check_chunks": len(bounds),
+            "members": n["members"], "written": n["written"],
+            "singleton_slots": n["kept"], **shares}
 
 
 def phase_scale_pe_build(dev, out_root: str, fa: str, strand: str) -> dict:
@@ -1584,7 +1662,6 @@ def main() -> int:
         raise SystemExit("no CUDA device: chip_smoke.py runs on the GPU only")
     log(f"card: {card_line()}")
     os.environ["EMSAR_TORCH_DEVICE"] = "cuda"
-    os.environ.pop("EMSAR_TORCH_BUILD_BACKEND", None)
     from emsar_tpu_torch.device import resolve_device
     dev = resolve_device()
     t_start = time.perf_counter()

@@ -7,23 +7,26 @@ feed both the same inputs).  Module names mirror ``emsar_tpu`` so each
 counterpart is easy to find:
 
 * ``device``              — device resolution (``EMSAR_TORCH_DEVICE``)
-* ``index.build``         — the SE ``.rsh`` build dispatcher and the host
-  NumPy builder (``EMSAR_TORCH_BUILD_BACKEND``)
+* ``index.build``         — the SE and PE ``.rsh`` build dispatchers and
+  the host NumPy builders (``backend="numpy"``)
 * ``index.device_build``  — the SE build on the torch device
+* ``index.device_build_pe`` — the PE build on the torch device
 * ``model.solver``        — CSR SQUAREM EM over the global edge list
 * ``model.dense``         — dense batched SQUAREM over padded module classes
 * ``kernels.squarem``     — the hand-written CUDA SQUAREM block
   (``csrc/squarem_block.cu``), the port of the Pallas ``_pallas_block``
 * ``kernels.segment_sum`` — the CSR solver's deterministic segment sums
   (``csrc/segment_sum.cu``)
-* ``kernels.window_hash`` — the SE build's hash pass
+* ``kernels.window_hash`` — the builds' hash pass
   (``csrc/window_hash.cu``)
+* ``kernels.pe_candidates`` — the PE build's mate2 candidate expansion
+  with the singleton clusters resolved (``csrc/pe_candidates.cu``)
 * ``kernels.measure``     — device and host times and roofline bounds of
   the kernels (``chip_smoke.py``, ``bench``)
 * ``bench.segment_sum_ab`` — the CSR segment sums against another
   checkout's, on the card
-* ``bench.kernel_ab``     — ``window_hash`` and ``squarem_block`` against
-  another checkout's, on the card
+* ``bench.kernel_ab``     — ``window_hash``, ``squarem_block`` and
+  ``pe_candidates`` against another checkout's, on the card
 * ``model.quantify``      — per-sample orchestration
 * ``cli.emsar``           — the ``emsar`` quantifier (``-I``; ``-x`` for SE)
 * ``cli.emsar_build``     — the ``emsar-build`` SE index builder

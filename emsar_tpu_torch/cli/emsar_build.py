@@ -9,10 +9,10 @@ reference builder (src/emsar_build_main.c):
         readlength outdir outprefix
 
 The index (SE over a read-length range, PE for one read length) is built
-on the device named by ``EMSAR_TORCH_DEVICE`` (default ``cuda``);
-``EMSAR_TORCH_BUILD_BACKEND=numpy`` builds on the host instead.  The JAX
-package's process-sharded PE build (several processes, each writing a
-partial index) is not ported.
+on the device named by ``EMSAR_TORCH_DEVICE`` (default ``cuda``); ``-T``
+also writes the suffix array, which takes the host NumPy builder.  The
+JAX package's process-sharded PE build (several processes, each writing
+a partial index) is not ported.
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ def usage(prog: str) -> None:
           "flags are compatible)")
     print("\t--PE: a paired-end index for one read length and the "
           "fragment lengths -f..-F")
-    print("\tdevice: $EMSAR_TORCH_DEVICE (default cuda); "
-          "$EMSAR_TORCH_BUILD_BACKEND=numpy builds on the host")
+    print("\tdevice: $EMSAR_TORCH_DEVICE (default cuda); -T builds on "
+          "the host")
 
 
 def main(argv=None) -> int:

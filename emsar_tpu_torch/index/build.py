@@ -4,10 +4,9 @@ builders, without JAX.
 ``build_se_index`` and ``build_pe_index`` (``backend="auto"``) build on the
 torch device (``index/device_build.py`` and ``index/device_build_pe.py``,
 the ports of the JAX package's device-resident builders);
-``EMSAR_TORCH_BUILD_BACKEND=numpy`` or ``backend="numpy"`` selects the
-host builders below, and so does ``-T``/``--print_sfa`` (the device
-builders never materialize the sfa).  Nothing else falls back: a device
-build that fails raises.
+``backend="numpy"`` selects the host builders below, and so does
+``-T``/``--print_sfa`` (the device builders never materialize the sfa).
+Nothing else falls back: a device build that fails raises.
 
 The NumPy builders are copies of the NumPy backends of
 ``emsar_tpu/index/build.py`` (and the NumPy branch of
@@ -39,7 +38,6 @@ d + readlength.
 
 from __future__ import annotations
 
-import os
 import sys
 from typing import List, Optional, Tuple
 
@@ -270,14 +268,13 @@ def se_group(p16: np.ndarray, positions: np.ndarray, seqlength: int,
     return positions[order].astype(np.int64), run_id, canon[order]
 
 
-BACKEND_ENV = "EMSAR_TORCH_BUILD_BACKEND"
 BACKENDS = ("device", "numpy")
 
 
 def resolve_backend(backend: str = "auto") -> str:
-    """'auto' is ``$EMSAR_TORCH_BUILD_BACKEND`` when set, else 'device'."""
+    """'auto' is 'device'."""
     if backend == "auto":
-        backend = os.environ.get(BACKEND_ENV) or "device"
+        backend = "device"
     if backend not in BACKENDS:
         raise ValueError(f"unknown SE build backend {backend!r} "
                          f"(one of {', '.join(BACKENDS)})")

@@ -16,14 +16,19 @@ process_mate1_cluster_by_mate_3 + construct_rshbucket_PE_3
    cluster and the rank-sorted positions hold each cluster's members
    together.  Unstranded builds also take RF[p] = R[seqlength - rl - p],
    the rank of the window's reverse complement.
-2. chunks: runs of whole clusters of the rank-sorted positions, each at
-   most a candidate budget sized from the card's free memory at the start
-   of the build (a fixed budget for a sharded build, so that every process
-   plans the same chunks).
-3. per chunk, ``kernels.pe_candidates`` (CUDA) gives every (member, dd)
-   candidate its key, mate1 rank << 30 | mate2 rank (invalid candidates
-   sort last), and its payload tid << 9 | dd; one ``torch.sort`` of the
-   keys groups the reference's (mate1 sequence, mate2 sequence) runs.
+2. chunks: runs of whole clusters of the rank-sorted positions, each
+   weighing at most a candidate budget sized from the card's free memory
+   at the start of the build (a fixed budget for a sharded build, so that
+   every process plans the same chunks): a member of a multi-member
+   cluster weighs its nfl candidates, a singleton member one.
+3. per chunk, ``kernels.pe_candidates`` (CUDA) expands every (member, dd)
+   candidate: a singleton member's row is resolved in the kernel (a slot
+   whose mate2 rank is unique among the row's valid slots adds 1 to
+   ``single[tid, dd]``, the others are the multi-d drop), and only the
+   valid candidates of the other members are written, each with its key,
+   mate1 rank << 30 | mate2 rank, and its payload tid << 9 | dd; one
+   ``torch.sort`` of those keys groups the reference's (mate1 sequence,
+   mate2 sequence) runs.
 4. accumulate: a run of one adds 1 to ``single[tid, dd]``; a run of
    1 < size < max_repeat whose members share one dd is one record of its
    sorted tid multiset at dd; runs over several dd are dropped (the
@@ -36,9 +41,9 @@ order: any total order with exact equality gives the same kept-candidate
 multiset per group, so ranks need not equal the JAX package's.
 
 What the JAX module needs and this port does not: the TPU's static shapes
-and 16 GB of HBM made it keep fast singleton passes
-(``_pe_single_slabs``, ``_pe_single_chunk``, ``_dd_pack``,
-``_dd_from_stream``: a speed device for XLA's slow gathers), HBM trimming
+and 16 GB of HBM made it keep a slab singleton pass over a neighbour-gap
+table (``_pe_single_slabs``, ``_dd_pack``, ``_dd_from_stream``: a speed
+device for XLA's slow gathers), HBM trimming
 (``_pe_partition_clusters``, ``_pe_compact_multi``, ``_shrink``,
 ``_resize_table``), fixed-capacity record tables (``_caps_partitioned``,
 ``_maintain``, the ``_tab_*`` folds, claim tables, ``_extract_members``,
@@ -48,9 +53,9 @@ signature table), the rank radix partition (``_pe_bucket_rank``,
 (``_pe_stream_gen``, ``_pe_stream_stats``, ``_pe_stream_chunk``), which is
 the one-chunk case here.  torch has dynamic shapes and the H100 80 GB: one
 global rank sort holds both halves of a human-scale transcriptome
-(~675 M windows).  Of these, the singleton pass is the one worth porting
-for speed: most mate1 clusters have one member, and their candidates need
-no global sort.
+(~675 M windows).  Its row-local singleton pass (``_pe_single_chunk``)
+is kept, inside the candidate kernel: a singleton cluster's candidates
+need no global sort.
 """
 
 from __future__ import annotations
@@ -63,23 +68,28 @@ import torch
 from ..config import BuildConfig
 from ..io.fasta import Transcriptome
 from ..io.rsh import RshIndex
-from ..kernels.pe_candidates import (BIG_RANK, INVALID_KEY, MAX_CANDIDATES,
-                                     MAX_NFL, pe_candidates)
+from ..kernels.pe_candidates import (BIG_RANK, MAX_CANDIDATES, MAX_NFL,
+                                     pack_tables, pe_candidates)
 from ..kernels.window_hash import MAX_WORDS, WORD_BASES, window_hash
 from ..utils.timing import phase
 from .device_build import (DeviceRef, _canonical, _group_signatures,
                            _key64, _lex_order, _run_starts, _sync, _take)
 
-# Candidates per chunk.  None: sized at the start of a build from the
-# card's free memory (BYTES_PER_CANDIDATE each, half of it); a sharded
-# build and a CPU build take FIXED_CHUNK_CANDIDATES.
+# The candidate budget (weight) of a chunk.  None: sized at the start of a
+# build from the card's free memory (BYTES_PER_CANDIDATE each, half of
+# it); a sharded build and a CPU build take FIXED_CHUNK_CANDIDATES.
 CHUNK_CANDIDATES: Optional[int] = None
 FIXED_CHUNK_CANDIDATES = 1 << 26
-# a chunk's peak: keys and payloads (12 B) beside the sort's input
-# indices, values, indices and buffers (~40 B); then, the sorted keys and
-# payloads beside the run accumulation's temporaries (~70 B, most runs
-# being of one candidate)
-BYTES_PER_CANDIDATE = 80
+# a chunk's peak per candidate a multi-cluster member may write: the
+# candidate buffers (12 B, sized from the chunk's weight) beside the
+# sort's input indices, values, indices and buffers (~40 B); then, the
+# sorted keys and payloads beside the run accumulation's temporaries
+# (~75 B: with the singleton clusters resolved in the kernel, more of the
+# written candidates belong to runs of several, whose records take int64
+# temporaries).  A singleton member weighs one candidate: it costs its
+# 12 B of the buffers and nothing after.
+BYTES_PER_CANDIDATE = 88
+SINGLETON_WEIGHT = 1
 # pending chunk records merged into the running table past this many
 MERGE_RECORDS = 1 << 24
 MAX_TRANSCRIPTS = 1 << 23  # the tid rides in the payload above 9 bits of dd
@@ -125,10 +135,11 @@ def build_pe_index_device(tx: Transcriptome, readlength: int,
 
 def chunk_budget(device: torch.device, n_positions: int,
                  shard: Optional[Tuple[int, int]] = None) -> int:
-    """Candidates per chunk: ``CHUNK_CANDIDATES`` when set; fixed for a
+    """A chunk's candidate budget: ``CHUNK_CANDIDATES`` when set; fixed for a
     sharded build (every process plans the same chunks) and on the CPU;
     else half the card's free memory, less ~24 B for each of the build's
-    ``n_positions`` (R, RF, t32, nsep and the rank-sorted members), over
+    ``n_positions`` (R, RF, the packed t32 and nsep, and the rank-sorted
+    members), over
     ``BYTES_PER_CANDIDATE``."""
     if CHUNK_CANDIDATES is not None:
         budget = CHUNK_CANDIDATES
@@ -181,10 +192,12 @@ def rank_pass(ref: DeviceRef, t32: torch.Tensor, rl: int, unstranded: bool,
 
 
 def plan_chunks(srank: torch.Tensor, nfl: int, budget: int
-                ) -> List[Tuple[int, int]]:
-    """[lo, hi) bounds over the rank-sorted members: runs of whole
-    clusters of at most budget // nfl members.  Raises when one cluster
-    alone needs more."""
+                ) -> List[Tuple[int, int, int]]:
+    """(lo, hi, weight) over the rank-sorted members: runs [lo, hi) of
+    whole clusters weighing at most ``budget`` in all, a member of a
+    multi-member cluster nfl (its candidates), a singleton member
+    SINGLETON_WEIGHT.  A chunk's weight bounds the candidates it writes.
+    Raises when one cluster alone weighs more than the budget."""
     n = srank.shape[0]
     if n == 0:
         return []
@@ -192,34 +205,35 @@ def plan_chunks(srank: torch.Tensor, nfl: int, budget: int
     first[1:] = srank[1:] != srank[:-1]
     starts = torch.nonzero(first).squeeze(1)
     del first
-    largest = int(torch.diff(starts, append=starts.new_tensor([n])).max())
-    m_budget = budget // nfl
-    if largest > m_budget:
+    # members of each cluster, then its weight, then the running weight
+    cw = torch.diff(starts, append=starts.new_tensor([n]))
+    largest = int(cw.max())
+    if largest > 1 and largest * nfl > budget:
         raise ValueError(
             f"PE build: a mate1 cluster of {largest} members has "
             f"{largest * nfl} candidates, more than the chunk budget of "
             f"{budget}")
-    bounds, lo = [], 0
-    while lo < n:
-        hi = lo + m_budget
-        if hi < n:
-            at = torch.searchsorted(starts, starts.new_tensor([hi]),
-                                    right=True) - 1
-            hi = int(starts[at])
-        else:
-            hi = n
-        bounds.append((lo, hi))
-        lo = hi
+    cw.mul_(nfl)
+    cw.masked_fill_(cw == nfl, SINGLETON_WEIGHT)
+    cw.cumsum_(0)
+    n_clusters = starts.shape[0]
+    bounds, c0, lo, done = [], 0, 0, 0
+    while c0 < n_clusters:
+        c1 = int(torch.searchsorted(cw, cw.new_tensor([done + budget]),
+                                    right=True))
+        hi = int(starts[c1]) if c1 < n_clusters else n
+        total = int(cw[c1 - 1])
+        bounds.append((lo, hi, total - done))
+        c0, lo, done = c1, hi, total
     return bounds
 
 
 def _sort_candidates(keys: torch.Tensor, pay: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The valid candidates of a chunk sorted by key: (sorted keys, their
+    """A chunk's written candidates sorted by key: (sorted keys, their
     payloads)."""
     sk, order = torch.sort(keys)
-    n_valid = int(torch.searchsorted(sk, sk.new_tensor([INVALID_KEY])))
-    return sk[:n_valid], pay[order[:n_valid]]
+    return sk, pay[order]
 
 
 def _accumulate(sk: torch.Tensor, spay: torch.Tensor, nfl: int, ntid: int,
@@ -290,26 +304,26 @@ def _build_pe(tx, rl, fl_min, fl_max, cfg, device, shard) -> RshIndex:
     with phase("PE dev: reference upload", cfg.verbose):
         ref = DeviceRef(tx, device)
         t32 = ref.t32(rl)
-        nsep = ref.nsep()
         _sync(device)
     R, spos, srank = rank_pass(ref, t32, rl, unstranded, cfg.verbose)
-    del ref
-    RF = None
-    if unstranded:
-        with phase("PE dev: rank sort", cfg.verbose):
-            RF = R.flip(0)
-            _sync(device)
+    with phase("PE dev: tables", cfg.verbose):
+        # each position's tid and next separator in one entry, in place of
+        # the two tables
+        tn = pack_tables(t32, ref.nsep())
+        del ref, t32
+        RF = R.flip(0) if unstranded else None
+        _sync(device)
     bounds = plan_chunks(srank, nfl, budget)
     mine = (range(len(bounds)) if shard is None
             else range(shard[0], len(bounds), shard[1]))
     single = torch.zeros(ntid * nfl, dtype=torch.int64, device=device)
     table, pending, n_pending = None, [], 0
     for k in mine:
-        lo, hi = bounds[k]
+        lo, hi, weight = bounds[k]
         with phase("PE dev: candidates", cfg.verbose):
             keys, pay = pe_candidates(
-                spos[lo:hi], srank[lo:hi], R, RF, t32, nsep, d0, nfl, rl,
-                tx.borderpos, tx.seqlength, unstranded)
+                spos, srank, lo, hi, R, RF, tn, d0, nfl, rl, tx.borderpos,
+                tx.seqlength, unstranded, single, capacity=weight)
             _sync(device)
         with phase("PE dev: sort", cfg.verbose):
             sk, spay = _sort_candidates(keys, pay)
@@ -329,7 +343,7 @@ def _build_pe(tx, rl, fl_min, fl_max, cfg, device, shard) -> RshIndex:
                     pending + ([table] if table is not None else []), nfl)
                 pending, n_pending = [], 0
             _sync(device)
-    del R, RF, t32, nsep, spos, srank
+    del R, RF, tn, spos, srank
     with phase("PE dev: finalize", cfg.verbose):
         if pending:
             table = _merge_cells(

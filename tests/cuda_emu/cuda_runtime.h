@@ -1,11 +1,13 @@
 // The CUDA the port's kernels use, emulated on the CPU so that g++ can
 // build a kernel source and run it: one std::thread per CUDA thread,
 // blocks one after another, a barrier for __syncthreads and one per warp
-// for __syncwarp and the shuffles.  Block-level __shared__ variables
+// for __syncwarp, the shuffles and the ballots, atomicAdd, atomicOr and
+// atomicCAS through std::atomic_ref.  Block-level __shared__ variables
 // become statics (one block runs at a time).  tests/test_torch_cuda_
 // emulated.py rewrites each `kernel<<<grid, block, smem, stream>>>(args)`
 // into emu_launch(grid, block, smem, [&] { kernel(args); }).
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -23,11 +25,17 @@ inline thread_local dim3 blockIdx;
 inline dim3 blockDim;
 inline dim3 gridDim;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 inline int cudaGetLastError() { return cudaSuccess; }
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __shared__ static
@@ -50,6 +58,21 @@ T __ldg(const T* p) {
   return *p;
 }
 inline int __popc(uint32_t v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
+// the block's threads run concurrently: atomics are real ones
+template <class T>
+T atomicAdd(T* p, T v) {
+  return std::atomic_ref<T>(*p).fetch_add(v);
+}
+template <class T>
+T atomicOr(T* p, T v) {
+  return std::atomic_ref<T>(*p).fetch_or(v);
+}
+template <class T>
+T atomicCAS(T* p, T cmp, T v) {
+  std::atomic_ref<T>(*p).compare_exchange_strong(cmp, v);
+  return cmp;  // the old value, on success as on failure
+}
 inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t s) {
   return (uint32_t)(((((uint64_t)hi) << 32) | lo) << (s & 31) >> 32);
 }
@@ -90,6 +113,18 @@ T __shfl_up_sync(unsigned, T v, int d) {
   const int lane = threadIdx.x & 31;
   const T got = emu_shfl(v, lane < d ? lane : lane - d);
   return lane < d ? v : got;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  EmuWarp& w = (*emu_warps)[threadIdx.x >> 5];
+  w.slot[threadIdx.x & 31][0] = pred != 0;
+  w.bar->arrive_and_wait();
+  unsigned out = 0;
+  for (int l = 0; l < 32; ++l) out |= (unsigned)w.slot[l][0] << l;
+  w.bar->arrive_and_wait();
+  return out;
+}
+inline bool __all_sync(unsigned m, int pred) {
+  return __ballot_sync(m, pred) == 0xffffffffu;
 }
 
 inline void emu_launch(long long grid, int block, size_t smem,

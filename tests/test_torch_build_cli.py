@@ -30,7 +30,6 @@ READLEN = 20
 @pytest.fixture(autouse=True)
 def _cpu(monkeypatch):
     monkeypatch.setenv("EMSAR_TORCH_DEVICE", "cpu")
-    monkeypatch.delenv("EMSAR_TORCH_BUILD_BACKEND", raising=False)
 
 
 @pytest.fixture(scope="module")

@@ -155,51 +155,117 @@ def test_squarem_source_matches_plain(emulated, C, T, dtype, n_iters):
     assert err <= block_tol(dtype, n_iters), err
 
 
-def pe_chunk(rng, rl, unstranded, n_members):
+def pe_chunk(rng, rl, unstranded, n_members, kind="mixed"):
     """A chunk of a gene-family transcriptome's PE build on the CPU: its
-    tables and ``n_members`` rank-sorted members, with the last window
-    start and the last position (past the tid table) appended."""
+    tables, the rank-sorted members (``kind`` "multi" or "single": only
+    the members of multi-member or of singleton mate1 clusters) with two
+    members appended after a chunk of ``n_members`` (the last window start
+    and the last position, past the tid table; one cluster of both for
+    "multi", else two singletons), and the chunk's bounds [lo, hi), a
+    member on either side of it."""
     names, seqs, _ = gene_family_transcriptome(rng, 4, n_exons=5,
                                                min_exon=40, max_exon=120)
     seqs[1] = seqs[1][:30] + b"N" + seqs[1][31:]
+    # tandem repeats every 120 bp: the rows of the unique windows before
+    # each see one mate2 rank in several slots
+    for i in (2, 3):
+        seqs[i] = b"".join(seqs[i][k:k + 120] + b"ACG" * 8
+                           for k in range(0, len(seqs[i]), 120))
     ref = DeviceRef(build_transcriptome(names, seqs), torch.device("cpu"))
     t32, nsep = ref.t32(rl), ref.nsep()
     R, spos, srank = rank_pass(ref, t32, rl, unstranded, 0)
-    lo = int(rng.integers(0, spos.shape[0] - n_members))
+    if kind != "mixed":
+        sng = pe_candidates.singleton_members(srank, 0, srank.shape[0])
+        pick = sng if kind == "single" else ~sng
+        spos, srank = spos[pick], srank[pick]
+    n_members = min(n_members, spos.shape[0] // 3)
+    lo = int(rng.integers(1, spos.shape[0] - 2 * n_members))
+    hi = lo + n_members
+    while srank[hi] == srank[hi - 1]:  # the appended members end a cluster
+        hi += 1
     extra = torch.tensor([ref.seqlength - rl, ref.seqlength],
                          dtype=torch.int32)
-    mpos = torch.cat([spos[lo:lo + n_members], extra])
-    mrank = torch.cat([srank[lo:lo + n_members],
-                       torch.tensor([3, 4], dtype=torch.int32)])
-    return (mpos, mrank, R, R.flip(0).contiguous() if unstranded else None,
-            t32, nsep, ref)
+    xrank = torch.tensor([1 << 29, 1 << 29 if kind == "multi"
+                          else (1 << 29) + 1], dtype=torch.int32)
+    spos = torch.cat([spos[:hi], extra, spos[hi:]])
+    srank = torch.cat([srank[:hi], xrank, srank[hi:]])
+    return (spos, srank, lo, hi + 2, R,
+            R.flip(0).contiguous() if unstranded else None,
+            pe_candidates.pack_tables(t32, nsep), ref)
+
+
+def emulated_pe_candidates(lib, spos, srank, lo, hi, R, RF, tn, d0, nfl, rl,
+                           ref, unstranded, single):
+    """The emulated kernel's launch: (keys, payloads) of its count."""
+    fn = lib.emsar_pe_candidates
+    fn.restype = ctypes.c_int
+    fn.argtypes = pe_candidates.ARGTYPES
+    n_scratch = lib.emsar_pe_candidates_scratch
+    n_scratch.restype = ctypes.c_longlong
+    n_scratch.argtypes = pe_candidates.SCRATCH_ARGTYPES
+    scratch = torch.zeros(n_scratch(hi - lo, nfl), dtype=torch.int64)
+    cap = (hi - lo) * nfl
+    keys = torch.full((cap,), 7, dtype=torch.int64)
+    pay = torch.full((cap,), 7, dtype=torch.int32)
+    assert fn(spos.data_ptr(), srank.data_ptr(), spos.shape[0], lo, hi - lo,
+              R.data_ptr(), RF.data_ptr() if RF is not None else None,
+              R.shape[0], tn.data_ptr(), tn.shape[0], d0, nfl, rl,
+              ref.borderpos, ref.seqlength, int(unstranded),
+              single.data_ptr(), single.shape[0],
+              keys.data_ptr(), pay.data_ptr(), cap, scratch.data_ptr(),
+              None) == 0
+    n = int(scratch[1])
+    assert torch.all(keys[n:] == 7)
+    return keys[:n], pay[:n]
+
+
+def _check_pe_source(lib, rng, unstranded, d0, nfl, n_members, kind):
+    rl = 20
+    spos, srank, lo, hi, R, RF, tn, ref = pe_chunk(
+        rng, rl, unstranded, n_members, kind)
+    n_single = ref.tx.n_transcripts * nfl
+    start = torch.arange(n_single, dtype=torch.int64) % 5
+    single, want_single = start.clone(), start.clone()
+    keys, pay = emulated_pe_candidates(lib, spos, srank, lo, hi, R, RF, tn,
+                                       d0, nfl, rl, ref, unstranded, single)
+    want = pe_candidates.pe_candidates_ref(spos, srank, lo, hi, R, RF, tn,
+                                           d0, nfl, rl, ref.borderpos,
+                                           ref.seqlength, unstranded,
+                                           want_single)
+    assert torch.equal(keys, want[0]) and torch.equal(pay, want[1])
+    assert torch.equal(single, want_single)
+    grid = pe_candidates.pe_candidate_grid_ref(
+        spos[lo:hi], srank[lo:hi], R, RF, *pe_candidates.unpack_tables(tn),
+        d0, nfl, rl, ref.borderpos, ref.seqlength, unstranded)[0]
+    sng = pe_candidates.singleton_members(srank, lo, hi)
+    added = int((single - start).sum())
+    valid = int((grid.view(-1, nfl)[sng] != pe_candidates.INVALID_KEY).sum())
+    return keys.shape[0], added, valid - added
 
 
 @pytest.mark.parametrize("nfl", [1, 11, 400])
 @pytest.mark.parametrize("d0", [0, 37])
 @pytest.mark.parametrize("unstranded", [True, False], ids=["ns", "ssfr"])
 def test_pe_candidates_source_matches_plain(emulated, unstranded, d0, nfl):
-    """Keys and payloads bit for bit, for members of both halves, a
-    member whose mate2 windows run past the sequence and one past the tid
-    table."""
-    rl = 20
-    mpos, mrank, R, RF, t32, nsep, ref = pe_chunk(
-        np.random.default_rng(nfl + d0), rl, unstranded,
-        60 if nfl == 400 else 300)
-    M = mpos.shape[0]
-    keys = torch.full((M * nfl,), 7, dtype=torch.int64)
-    pay = torch.full((M * nfl,), 7, dtype=torch.int32)
-    fn = emulated[pe_candidates.SOURCE].emsar_pe_candidates
-    fn.restype = ctypes.c_int
-    fn.argtypes = pe_candidates.ARGTYPES
-    assert fn(mpos.data_ptr(), mrank.data_ptr(), M, R.data_ptr(),
-              RF.data_ptr() if RF is not None else None, R.shape[0],
-              t32.data_ptr(), t32.shape[0], nsep.data_ptr(), nsep.shape[0],
-              d0, nfl, rl, ref.borderpos, ref.seqlength, int(unstranded),
-              keys.data_ptr(), pay.data_ptr(), None) == 0
-    want = pe_candidates.pe_candidates_ref(mpos, mrank, R, RF, t32, nsep,
-                                           d0, nfl, rl, ref.borderpos,
-                                           ref.seqlength, unstranded)
-    valid = want[0] != pe_candidates.INVALID_KEY
-    assert valid.any() and not valid.all()
-    assert torch.equal(keys, want[0]) and torch.equal(pay, want[1])
+    """Keys, payloads, their count and the singleton counts bit for bit,
+    for members of both halves, a chunk that starts and ends between
+    members of one cluster, a member whose mate2 windows run past the
+    sequence and one past the tid table."""
+    written, added, _ = _check_pe_source(
+        emulated[pe_candidates.SOURCE], np.random.default_rng(nfl + d0),
+        unstranded, d0, nfl, 150 if nfl == 400 else 300, "mixed")
+    assert written > 0 and added > 0
+
+
+@pytest.mark.parametrize("nfl", [11, 400])
+@pytest.mark.parametrize("kind", ["multi", "single"])
+@pytest.mark.parametrize("unstranded", [True, False], ids=["ns", "ssfr"])
+def test_pe_candidates_source_chunk_kinds(emulated, unstranded, kind, nfl):
+    """A chunk with no singleton member writes every valid candidate and
+    counts none; one of singletons only writes none, and drops the slots
+    whose mate2 rank repeats in the row."""
+    written, added, dropped = _check_pe_source(
+        emulated[pe_candidates.SOURCE], np.random.default_rng(nfl + 3),
+        unstranded, 5, nfl, 40 if nfl == 400 else 200, kind)
+    assert (written > 0, added > 0, dropped > 0) == (
+        (True, False, False) if kind == "multi" else (False, True, True))

@@ -230,9 +230,7 @@ def test_backend_selection(tmp_path, monkeypatch, capsys):
         raise AssertionError("the device builder was called")
 
     monkeypatch.setattr(tdb, "build_se_index_device", no_device)
-    monkeypatch.setenv(tbuild.BACKEND_ENV, "numpy")
-    want = tbuild.build_se_index(tx, 20, 20, cfg)
-    monkeypatch.delenv(tbuild.BACKEND_ENV)
+    want = tbuild.build_se_index(tx, 20, 20, cfg, backend="numpy")
     sfa = tmp_path / "x.sfa"
     got = tbuild.build_se_index(tx, 20, 20, cfg, sfa_path=str(sfa),
                                 device="cpu")

@@ -208,29 +208,46 @@ def test_em_step_matches_cpu_em_iter(cuda, dtype, R):
 @pytest.mark.parametrize("d0", [0, 189])
 @pytest.mark.parametrize("unstranded", [True, False], ids=["ns", "ssfr"])
 def test_pe_candidates_kernel_bit_equal(cuda, unstranded, d0, nfl):
-    """Keys and payloads of every member of a gene-family PE build at
-    l101 (both halves when unstranded), plus the last window start and the
-    last position (past the tid table), equal the plain version's."""
+    """Over every member of a gene-family PE build at l101 (both halves
+    when unstranded), with the last window start and the last position
+    (past the tid table) appended as a cluster of their own: the written
+    keys and payloads, their count and the singleton counts equal the
+    plain version's, on the whole and on a chunk that cuts clusters.
+    Tandem repeats put one mate2 rank in several slots of singleton rows,
+    which are dropped."""
     rl = 101
     names, seqs, _ = gene_family_transcriptome(
         np.random.default_rng(nfl + d0), 20)
     seqs[3] = seqs[3][:50] + b"N" + seqs[3][51:]
+    for i in range(0, len(seqs), 3):
+        k = 250 + 37 * i
+        seqs[i] = seqs[i][:k] + b"ACGTTG" * 30 + seqs[i][k:]
     ref = DeviceRef(build_transcriptome(names, seqs), cuda)
     t32, nsep = ref.t32(rl), ref.nsep()
     R, spos, srank = rank_pass(ref, t32, rl, unstranded, 0)
     RF = R.flip(0).contiguous() if unstranded else None
-    mpos = torch.cat([spos, torch.tensor(
+    spos = torch.cat([spos, torch.tensor(
         [ref.seqlength - rl, ref.seqlength], dtype=torch.int32,
         device=cuda)])
-    mrank = torch.cat([srank, torch.tensor([0, 1], dtype=torch.int32,
-                                           device=cuda)])
-    args = (mpos, mrank, R, RF, t32, nsep, d0, nfl, rl, ref.borderpos,
-            ref.seqlength, unstranded)
-    before = kpe.LAUNCHES
-    got = kpe.pe_candidates(*args)
-    torch.cuda.synchronize()
-    assert kpe.LAUNCHES == before + 1
-    want = kpe.pe_candidates_ref(*args)
-    valid = want[0] != kpe.INVALID_KEY
-    assert valid.any() and not valid.all()
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    srank = torch.cat([srank, torch.tensor([1 << 29, 1 << 29],
+                                           dtype=torch.int32, device=cuda)])
+    n = spos.shape[0]
+    tn = kpe.pack_tables(t32, nsep)
+    for lo, hi in ((0, n), (n // 3 + 1, n - 5)):
+        start = torch.arange(len(names) * nfl, device=cuda) % 3
+        single, want_single = start.clone(), start.clone()
+        args = (spos, srank, lo, hi, R, RF, tn, d0, nfl, rl, ref.borderpos,
+                ref.seqlength, unstranded)
+        before = kpe.LAUNCHES
+        got = kpe.pe_candidates(*args, single)
+        torch.cuda.synchronize()
+        assert kpe.LAUNCHES == before + 1
+        want = kpe.pe_candidates_ref(*args, want_single)
+        assert want[0].shape[0] > 0 and (want_single != start).any()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(single, want_single)
+        grid = kpe.pe_candidate_grid_ref(spos[lo:hi], srank[lo:hi], R, RF,
+                                         t32, nsep, *args[7:])[0]
+        sng = kpe.singleton_members(srank, lo, hi)
+        valid = int((grid.view(-1, nfl)[sng] != kpe.INVALID_KEY).sum())
+        assert (valid > int((single - start).sum())) == (nfl > 1)

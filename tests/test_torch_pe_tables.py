@@ -1,7 +1,9 @@
 """The pieces of the port's PE index build against the JAX package's, on
-the CPU: ``DeviceRef.t32`` and ``nsep``, ``pe_candidates_ref`` against
-``_pe_cvalid`` on the same rank tables, the port's NumPy PE builder, the
-sharded build, and what the device build refuses."""
+the CPU: ``DeviceRef.t32`` and ``nsep``, the full candidate grid against
+``_pe_cvalid`` and the singleton counts against ``_pe_single_chunk`` on
+the same rank tables, the compaction of the plain version, the chunk
+plan, the port's NumPy PE builder, the sharded build, and what the device
+build refuses."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -32,8 +34,6 @@ def _seqs(seed, n=20, n_frac=0.02, min_len=30, max_len=300):
                                 n_frac=n_frac, shared_frac=0.6)
 
 
-
-
 @pytest.mark.parametrize("rl", [15, 20, 24])
 def test_t32_and_nsep_match_jax(rl):
     names, seqs = _seqs(40)
@@ -57,9 +57,9 @@ def test_t32_and_nsep_match_jax(rl):
                          ids=["d0_0", "d0_pos"])
 @pytest.mark.parametrize("strand", ["ns", "ssfr"])
 def test_candidates_match_jax_cvalid(strand, fmin, fmax):
-    """The plain version on the JAX rank pass's own tables (R, RF, t32,
-    nsep as numpy) against ``_pe_cvalid``: the same validity, mate2 ranks
-    and payloads for mate1 positions of both halves."""
+    """The full grid on the JAX rank pass's own tables (R, RF, t32, nsep
+    as numpy) against ``_pe_cvalid``: the same validity, mate2 ranks and
+    payloads for mate1 positions of both halves."""
     names, seqs = _seqs(41)
     jtx = jax_transcriptome(names, seqs)
     two = strand == "ns"
@@ -89,7 +89,7 @@ def test_candidates_match_jax_cvalid(strand, fmin, fmax):
     def t(a, n):
         return torch.as_tensor(np.asarray(a)[:n].astype(np.int32))
 
-    keys, pay = kpe.pe_candidates_ref(
+    keys, pay = kpe.pe_candidate_grid_ref(
         torch.as_tensor(mpos), torch.as_tensor(mrank), t(R_np, n_rank),
         t(RF32, n_rank) if two else None, t(T32, n_rank), t(NS, sl + 1), d0,
         nfl, rl, bp, sl, two)
@@ -106,6 +106,193 @@ def test_candidates_match_jax_cvalid(strand, fmin, fmax):
         np.asarray(tidm)[:, None], pay.shape))
     np.testing.assert_array_equal(pay & 0x1FF, np.broadcast_to(
         np.arange(nfl), pay.shape))
+
+
+@pytest.mark.parametrize("fmin,fmax", [(1, 60), (45, 70)],
+                         ids=["d0_0", "d0_pos"])
+@pytest.mark.parametrize("strand", ["ns", "ssfr"])
+def test_singleton_counts_match_jax_single_chunk(strand, fmin, fmax):
+    """The plain version's singleton counts on the JAX rank pass's own
+    tables equal ``_pe_single_chunk``'s ``dense_s`` over the singleton
+    members ``_pe_partition_clusters`` picks."""
+    names, seqs = _seqs(46)
+    jtx = jax_transcriptome(names, seqs)
+    two = strand == "ns"
+    rl = 20
+    fl_min = max(fmin, rl)
+    nfl, d0 = fmax - fl_min + 1, fl_min - rl
+    cfg = JaxBuildConfig(pe=True, strand=JaxStrandType.parse(strand, True),
+                         min_fraglength=fmin, max_fraglength=fmax, verbose=0)
+    jref = jdb.DeviceRef(jtx)
+    spos, rank, _, n_valid, R, _ = jdb._pe_rank_hashsort(jtx, jref, rl, two,
+                                                         cfg)
+    spos, rank = np.asarray(spos).copy(), np.asarray(rank).copy()
+    T32, NS = jref.t32(rl), jref.nsep
+    R_np = np.asarray(R).copy()
+    sl, bp = int(jtx.seqlength), int(jtx.borderpos)
+    n_rank = sl - rl + 1
+    ntid = jtx.n_transcripts
+    RW, RF32 = jdb._pe_prep_tables(R, Lp=jref.Lp, nv=n_rank, two=two)
+    SPs, RKs, _, _, ns, _ = jdb._pe_partition_clusters(
+        jnp.asarray(spos), jnp.asarray(rank), jnp.int32(n_valid))
+    assert 0 < int(ns) < n_valid
+    want = jdb._pe_single_chunk(
+        jnp.zeros(ntid * nfl, jnp.int32), SPs, RKs, RW, RF32, T32, NS,
+        jnp.int32(0), jnp.int32(d0), Ss=int(SPs.shape[0]), nfl=nfl,
+        unstranded=two, borderpos=bp, seqlength=sl, readlength=rl,
+        Lp=jref.Lp)
+
+    def t(a, n):
+        return torch.as_tensor(np.asarray(a)[:n].astype(np.int32))
+
+    single = torch.zeros(ntid * nfl, dtype=torch.int64)
+    kpe.pe_candidates_ref(
+        t(spos, n_valid), t(rank, n_valid), 0, int(n_valid), t(R_np, n_rank),
+        t(RF32, n_rank) if two else None,
+        kpe.pack_tables(t(T32, n_rank), t(NS, sl + 1)), d0, nfl, rl, bp, sl,
+        two, single)
+    want = np.asarray(want).astype(np.int64)
+    assert want.sum() > 0
+    np.testing.assert_array_equal(single.numpy(), want)
+
+
+@pytest.mark.parametrize("strand", ["ns", "ssfr"])
+def test_plain_version_compacts_the_grid(strand):
+    """The plain version's candidates are the full grid's valid
+    candidates of the multi-member clusters' members, member-major, and
+    its singleton counts are what the grid's singleton rows resolve to;
+    a chunk that cuts a cluster keeps the cut members out of the
+    singleton path."""
+    names, seqs = _seqs(47, n=15, n_frac=0.0)
+    tx = build_transcriptome(names, seqs)
+    rl, nfl, d0 = 18, 30, 5
+    two = strand == "ns"
+    ref = tdb.DeviceRef(tx, CPU)
+    t32, nsep = ref.t32(rl), ref.nsep()
+    R, spos, srank = tpe.rank_pass(ref, t32, rl, two, 0)
+    RF = R.flip(0).contiguous() if two else None
+    tn = kpe.pack_tables(t32, nsep)
+    t32_, nsep_ = kpe.unpack_tables(tn)
+    assert torch.equal(t32_[:t32.shape[0]], t32) and torch.equal(nsep_, nsep)
+    assert not t32_[t32.shape[0]:].any()
+    tail = (d0, nfl, rl, tx.borderpos, tx.seqlength, two)
+    n = spos.shape[0]
+    first = torch.nonzero(srank[1:] != srank[:-1]).squeeze(1) + 1
+    sizes = torch.diff(first)
+    lo = int(first[torch.nonzero(sizes > 1)[3]]) + 1  # inside a cluster
+    for a, b in ((0, n), (lo, n - 7)):
+        single = torch.zeros(tx.n_transcripts * nfl, dtype=torch.int64)
+        keys, pay = kpe.pe_candidates_ref(spos, srank, a, b, R, RF, tn, *tail,
+                                          single)
+        gk, gp = kpe.pe_candidate_grid_ref(spos[a:b], srank[a:b], R, RF, t32,
+                                           nsep, *tail)
+        gk, gp = gk.view(-1, nfl), gp.view(-1, nfl)
+        sng = kpe.singleton_members(srank, a, b)
+        whole = kpe.singleton_members(srank, 0, n)[a:b]
+        assert torch.equal(sng, whole) and 0 < int(sng.sum()) < b - a
+        valid = (gk != kpe.INVALID_KEY) & ~sng[:, None]
+        assert torch.equal(keys, gk[valid]) and torch.equal(pay, gp[valid])
+        # the singleton rows' keys are their own: a key of one candidate
+        # is a size-1 run of the global sort
+        sk, sp = gk[sng], gp[sng].to(torch.int64)
+        ok = sk != kpe.INVALID_KEY
+        _, inv, cnt = torch.unique(sk[ok], return_inverse=True,
+                                   return_counts=True)
+        one = sp[ok][cnt[inv] == 1]
+        want = torch.bincount((one >> 9) * nfl + (one & 0x1FF),
+                              minlength=single.shape[0])
+        assert int(want.sum()) > 0 and torch.equal(single, want)
+        with pytest.raises(RuntimeError, match="exceed the capacity"):
+            kpe.pe_candidates_ref(spos, srank, a, b, R, RF, tn, *tail, single,
+                                  capacity=keys.shape[0] - 1)
+
+
+@pytest.mark.parametrize("kind", ["mixed", "singletons"])
+@pytest.mark.parametrize("strand", ["ns", "ssfr"])
+def test_plain_version_slices_the_grid(strand, kind, monkeypatch):
+    """The plain version expands at most ``REF_SLICE_CELLS`` grid cells at
+    once, also on a chunk of singleton members only (which the chunk plan
+    weighs at one a member), and gives what one expansion of the whole
+    chunk gives: candidates, their order and the singleton counts."""
+    names, seqs = _seqs(49, n=15, n_frac=0.0)
+    tx = build_transcriptome(names, seqs)
+    rl, nfl, d0 = 18, 30, 5
+    two = strand == "ns"
+    ref = tdb.DeviceRef(tx, CPU)
+    t32, nsep = ref.t32(rl), ref.nsep()
+    R, spos, srank = tpe.rank_pass(ref, t32, rl, two, 0)
+    if kind == "singletons":
+        sng = kpe.singleton_members(srank, 0, srank.shape[0])
+        spos, srank = spos[sng], srank[sng]
+    args = (spos, srank, 3, spos.shape[0] - 2, R,
+            R.flip(0).contiguous() if two else None,
+            kpe.pack_tables(t32, nsep), d0, nfl, rl, tx.borderpos,
+            tx.seqlength, two)
+    whole = torch.zeros(tx.n_transcripts * nfl, dtype=torch.int64)
+    want = kpe.pe_candidates_ref(*args, whole)
+    assert int(whole.sum()) > 0 and (want[0].shape[0] > 0) == (kind == "mixed")
+    cells, grid = [], kpe.pe_candidate_grid_ref
+
+    def counted(mpos, *rest):
+        cells.append(mpos.shape[0] * nfl)
+        return grid(mpos, *rest)
+
+    monkeypatch.setattr(kpe, "REF_SLICE_CELLS", 7 * nfl + 3)
+    monkeypatch.setattr(kpe, "pe_candidate_grid_ref", counted)
+    single = torch.zeros_like(whole)
+    got = kpe.pe_candidates_ref(*args, single)
+    assert len(cells) > 10 and max(cells) <= 7 * nfl
+    assert sum(cells) == (args[3] - args[2]) * nfl
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(single, whole)
+
+
+@pytest.mark.parametrize("unstranded", [True, False], ids=["ns", "ssfr"])
+def test_bytes_moved_counts_what_the_kernel_needs(unstranded):
+    """The kernel's bound: 16 B a member, 4 B per R entry (and RF entry)
+    the windows cover together, 12 B per written candidate and 16 B per
+    changed entry of ``single``; the parent's grid bound adds RF[p] and
+    writes every cell."""
+    rng = np.random.default_rng(50)
+    nfl = 11
+    mpos = torch.as_tensor(rng.integers(0, 5000, 300).astype(np.int32))
+    covered = np.unique(mpos.numpy()[:, None] + np.arange(nfl)).size
+    u = 2 if unstranded else 1
+    M = mpos.shape[0]
+    assert kpe.bytes_moved(mpos, nfl, unstranded, 1234, 56) == (
+        16 * M + 4 * covered * u + 12 * 1234 + 16 * 56)
+    assert kpe.bytes_moved_grid(mpos, nfl, unstranded) == (
+        (16 + 4 * (u - 1)) * M + 4 * covered * u + 12 * M * nfl)
+    empty = mpos[:0]
+    assert kpe.bytes_moved(empty, nfl, unstranded, 0, 0) == 0
+    assert kpe.bytes_moved_grid(empty, nfl, unstranded) == 0
+
+
+def test_plan_chunks_weighs_singletons_lightly():
+    """Chunks are runs of whole clusters; a multi-member cluster weighs
+    nfl a member, a singleton one; each chunk weighs at most the budget,
+    and the next cluster would not fit; a cluster over the budget is
+    refused."""
+    rng = np.random.default_rng(48)
+    sizes = rng.choice([1, 1, 1, 2, 3, 6], 400)
+    srank = torch.as_tensor(np.repeat(np.arange(400), sizes).astype(np.int32))
+    nfl, budget = 7, 100
+    bounds = tpe.plan_chunks(srank, nfl, budget)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    weight = np.where(sizes > 1, sizes * nfl, tpe.SINGLETON_WEIGHT)
+    assert bounds[0][0] == 0 and bounds[-1][1] == starts[-1]
+    for (lo, hi, w), nxt in zip(bounds, bounds[1:] + [None]):
+        c0, c1 = np.searchsorted(starts, [lo, hi])
+        assert starts[c0] == lo and starts[c1] == hi
+        assert w == weight[c0:c1].sum() <= budget
+        if nxt is not None:
+            assert nxt[0] == hi and w + weight[c1] > budget
+    assert len(bounds) < (sizes * nfl).sum() // budget
+    assert tpe.plan_chunks(torch.arange(50, dtype=torch.int32), nfl, 10) \
+        == [(k, k + 10, 10) for k in range(0, 50, 10)]
+    with pytest.raises(ValueError, match="more than the chunk budget"):
+        tpe.plan_chunks(srank, nfl, 6 * nfl - 1)
+    assert tpe.plan_chunks(srank[:0], nfl, budget) == []
 
 
 @pytest.mark.parametrize("strand", ["ns", "ssfr"])
