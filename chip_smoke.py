@@ -82,6 +82,27 @@ exit, no result line):
    route): per fragment length, the size-1 groups, the kept groups and
    their members equal Σ single_euma, Σ multi_euma and Σ multi_euma x
    signature size.
+13. Multisample and distribution (``emsar_tpu_torch/parallel``): (a) the
+   smoke reads split by read name into 16 samples
+   (``emsar_tpu_torch.bench.multisample``), ``emsar-torch -M -I`` as the
+   per-sample loop and with ``--batch_samples`` (the batched solve over
+   the sample axis), each twice (loop, batched, batched, loop; the lower
+   wall time kept): per sample .fraglength_effect byte-equal, gene
+   iReadcount within 1e-3, the two batched runs' .fpkm byte-identical,
+   em_step launched; each batched .fpkm's logL within rel 1e-9 of the
+   same batched solve on the CPU (the plain versions); the loop-vs-batched
+   logL and gene-TPM gaps printed (the batched solve stops on one gain
+   summed over the samples, JAX's rule).  The batched solve timed on the
+   card: blocks, ms per block.  (b) em_step at the batched shape (R = 16,
+   per-sample reads and 1 / denom) against its plain version on the CPU:
+   bit-equal, two calls equal; times and bound.  (c) ``-M
+   --dist_merge_shards`` in one process over 3 read-name shards of the
+   smoke reads: .fpkm byte-equal to phase 5's whole-file default run.  (d)
+   Two processes sharing the card (gloo over 127.0.0.1): the same over 4
+   shards, byte-equal to (c); ``emsar-build-torch --PE -s ssfr -f 290 -F
+   300`` of phase 10's transcriptome sharded over both (a budget of >= 4
+   chunks set by a ``python -c`` launcher), byte-equal to phase 10's
+   unsharded build.
 
 Times on the card (``kernels/measure.py``): ``ms`` is device time per
 call, CUDA events around calls queued back to back behind a sleep kernel;
@@ -136,6 +157,13 @@ KERNELS = {
 # CPU core, and its first genes for the wide range, ~25 s (ns)
 PE_SMOKE_GENES = 100
 PE_WIDE_GENES = 5
+
+
+# phase 13: samples of the multisample run, shards of the merge runs
+MS_SAMPLES = 16
+MERGE_SHARDS = 3
+MERGE_SHARDS_2PROC = 4
+PE_SHARD_MIN_CHUNKS = 4
 
 
 def kernel_modules():
@@ -1649,6 +1677,287 @@ def phase_scale_pe_build(dev, out_root: str, fa: str, strand: str) -> dict:
             "phases_s": phases, **check}
 
 
+def _sample_checks(rsh: str, paths, runs: dict):
+    """Per sample of the multisample runs ``runs`` ({name: out dir}): its
+    problem's logL of each run's FPKM, gene iReadcount and gene TPM, and
+    the .fraglength_effect and .fpkm bytes.  Returns ({name: [per-sample
+    (logL, iReadcount, TPM, fl bytes, fpkm bytes)]}, the samples'
+    SampleCounts and problems, the index)."""
+    import numpy as np
+
+    from emsar_tpu_torch.config import QuantConfig
+    from emsar_tpu_torch.ingest import native as native_mod
+    from emsar_tpu_torch.io.rsh import RshIndex
+    from emsar_tpu_torch.model.quantify import _host_loglik, prepare_sample
+    from emsar_tpu_torch.model.solver import build_problem
+
+    index = RshIndex.load(rsh)
+    cfg = QuantConfig(verbose=0, min_fraglength=index.min_fraglength,
+                      max_fraglength=index.max_fraglength)
+    collapser = native_mod.NativeCollapser(index)
+    counts = [collapser.collapse_file(p, "bowtie", False, 0, cfg.max_repeat,
+                                      cfg.min_fraglength, cfg.max_fraglength)
+              for p in paths]
+    out = {name: [] for name in runs}
+    problems = []
+    for i, c in enumerate(counts):
+        x = prepare_sample(index, c, cfg)
+        problem = build_problem(x.graph, x.modules, x.eumaps, x.read_count)
+        problems.append(problem)
+        for name, d in runs.items():
+            names, cols = _parse_fpkm(os.path.join(d, f"s.{i}.fpkm"))
+            if not np.isfinite(cols).all() or names != index.names:
+                raise AssertionError(f"{name} sample {i}: unexpected .fpkm")
+            with open(os.path.join(d, f"s.{i}.fraglength_effect"),
+                      "rb") as fh, open(os.path.join(d, f"s.{i}.fpkm"),
+                                        "rb") as fp:
+                out[name].append((_host_loglik(problem, cols[:, 0]),
+                                  _gene_sum(names, cols[:, 3]),
+                                  _gene_sum(names, cols[:, 5]), fh.read(),
+                                  fp.read()))
+    return out, counts, problems, index
+
+
+def phase_multisample(rsh: str, aln: str, out_root: str, dev) -> dict:
+    """Phase 13 (a) and (b): the 16-sample run as the per-sample loop and
+    batched, checked; the batched solve against itself on the CPU and
+    timed on the card; em_step at its shape.  Returns what it measured."""
+    import numpy as np
+    import torch
+
+    from emsar_tpu_torch.bench.multisample import split_by_qname
+    from emsar_tpu_torch.cli import emsar as cli
+    from emsar_tpu_torch.config import QuantConfig
+    from emsar_tpu_torch.model.quantify import _host_loglik, batched_inputs
+    from emsar_tpu_torch.model.solver import gain_of
+    from emsar_tpu_torch.parallel.mesh import (_block, make_mesh,
+                                               shard_problem, solve_sharded)
+    from emsar_tpu_torch.utils.timing import phase_times, reset_phases
+
+    t0 = time.perf_counter()
+    ms_dir = os.path.join(CACHE, "ms")
+    paths = split_by_qname(aln, ms_dir, "ms", MS_SAMPLES)
+    listfile = os.path.join(ms_dir, "ms.list")
+    log(f"multisample: {MS_SAMPLES} samples split by read name in "
+        f"{time.perf_counter() - t0:.1f} s")
+    walls = {"loop": [], "batched": []}
+    runs, launches = {}, {}
+    for name, rep in (("loop", 0), ("batched", 0), ("batched", 1),
+                      ("loop", 1)):
+        out = os.path.join(out_root, f"ms_{name}{rep}")
+        flags = ["--batch_samples"] if name == "batched" else []
+        reset_phases()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(["-q", "-M", *flags, "-I", rsh, out, "s", listfile])
+        walls[name].append(time.perf_counter() - t0)
+        if rc != 0:
+            raise AssertionError(f"-M {name} run exited {rc}")
+        runs[f"{name}{rep}"] = out
+        launches.setdefault(name, read_launches())
+        phases = {}
+        for k, v in phase_times().items():  # summed over the samples' files
+            k = k.split(" /")[0]
+            phases[k] = phases.get(k, 0.0) + v
+        log(f"-M {name} run {rep}: {walls[name][-1]:.2f} s, launches "
+            f"{read_launches()}; phases " + ", ".join(
+                f"{k} {v:.3f}" for k, v in phases.items()))
+    if launches["batched"]["em_step"] <= 0:
+        raise AssertionError("the batched run never launched em_step")
+    res, counts, problems, index = _sample_checks(rsh, paths, runs)
+    cfg = QuantConfig(verbose=0)
+
+    # the batched solve: on the CPU (the plain versions) as the reference,
+    # on the card timed
+    b = batched_inputs(index, counts, cfg)
+    if b is None:
+        raise AssertionError("the batched inputs re-clustered")
+    solved = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        sp = shard_problem(b.problem, b.R, make_mesh(device=d),
+                           dtype=np.float64, eumaps_per_sample=b.E,
+                           denom_per_sample=b.denom)
+        solve_sharded(sp, epsilon=cfg.epsilon, block_iters=N_ITERS)
+        t0 = time.perf_counter()
+        theta, ll, it = solve_sharded(sp, epsilon=cfg.epsilon,
+                                      block_iters=N_ITERS)
+        solved[where] = (theta, ll, it, time.perf_counter() - t0, sp)
+    theta_c, ll_c, it_c, _, _ = solved["cpu"]
+    _, ll_g, it_g, wall_g, sp = solved["card"]
+    ms_per_block = wall_g * 1e3 / (it_g + 1)
+    log(f"batched solve ({MS_SAMPLES} x {b.R.shape[1]} segments, "
+        f"{len(b.problem.edge_cid)} edges, {b.problem.n_transcripts} "
+        f"transcripts, f64): card {it_g} blocks after the first, logL "
+        f"{ll_g!r}, {wall_g * 1e3:.1f} ms, {ms_per_block:.3f} ms per block; "
+        f"CPU {it_c} blocks, logL {ll_c!r}")
+    if it_g != it_c or abs(ll_g - ll_c) > 1e-9 * abs(ll_c):
+        raise AssertionError("the batched solve on the card disagrees with "
+                             "the CPU")
+    # why it stopped: each sample's gain over the first loop block.  One
+    # NaN ends every sample there, in both packages (one stop test over the
+    # summed gain; tests/test_torch_mesh.py::test_nan_gain_stops_the_batch
+    # _as_in_jax holds the port to emsar_tpu on such a batch)
+    th1, s1, _ = _block(sp, sp.theta0, N_ITERS)
+    s2 = _block(sp, th1, N_ITERS)[1]
+    g = gain_of(sp.reads, sp.eumaps, s1, s2).cpu().numpy()[:MS_SAMPLES]
+    nan_samples = np.flatnonzero(np.isnan(g)).tolist()
+    log(f"batched solve's first loop block: gain NaN in samples "
+        f"{nan_samples}, the other samples' gains sum to "
+        f"{float(np.nansum(g))!r} (epsilon {cfg.epsilon})")
+    if nan_samples and it_g != 1:
+        raise AssertionError("a NaN block gain did not stop the batch")
+
+    failed = []
+    gaps = {"ll": 0.0, "tpm": 0.0, "irc": 0.0}
+    for i in range(MS_SAMPLES):
+        ll_ref = _host_loglik(problems[i], theta_c[i])
+        ll_loop, irc_loop, tpm_loop, fl_loop, _ = res["loop0"][i]
+        ll_bat, irc_bat, tpm_bat, fl_bat, fpkm_bat = res["batched0"][i]
+        rel_ref = abs(ll_bat - ll_ref) / abs(ll_ref)
+        gaps["ll"] = max(gaps["ll"], abs(ll_bat - ll_loop) / abs(ll_loop))
+        gaps["tpm"] = max(gaps["tpm"], float(
+            (np.abs(tpm_bat - tpm_loop) / np.maximum(tpm_loop, 1.0)).max()))
+        d_irc = float(np.abs(irc_bat - irc_loop).max())
+        gaps["irc"] = max(gaps["irc"], d_irc)
+        same = (fl_loop == fl_bat and fpkm_bat == res["batched1"][i][4]
+                and res["loop0"][i][4] == res["loop1"][i][4])
+        if rel_ref > 1e-9 or d_irc > 1e-3 or not same:
+            failed.append((i, rel_ref, d_irc, same))
+    log(f"-M loop vs batched over {MS_SAMPLES} samples: max logL rel gap "
+        f"{gaps['ll']:.3e}, gene TPM max rel gap {gaps['tpm']:.3e}, gene "
+        f"iReadcount max abs diff {gaps['irc']:.3e} (tol 1e-3); "
+        f".fraglength_effect equal, repeated runs' .fpkm byte-identical, "
+        f"batched logL within 1e-9 of the CPU solve: "
+        f"{'all' if not failed else failed}")
+    if failed:
+        raise AssertionError(f"multisample checks failed: {failed}")
+
+    em = check_em_step(sp, sp.theta0, f"batched R={MS_SAMPLES} per-sample")
+    return {"loop_s": min(walls["loop"]), "batched_s": min(walls["batched"]),
+            "walls_s": walls, "batched_blocks": it_g,
+            "batched_ms_per_block": ms_per_block,
+            "batched_nan_gain_samples": nan_samples,
+            "loop_vs_batched_gaps": gaps, "em_step_batched": em,
+            "em_step_batched_launches": launches["batched"]["em_step"]}
+
+
+def _launch_world(argvs, label: str, dev, timeout: float = 300.0) -> list:
+    """Run each argv as one rank of a world of len(argvs) processes on
+    ``dev`` (gloo over 127.0.0.1, torch's environment; LOCAL_RANK 0 for
+    every rank: they share the card).  Returns their standard outputs; raises, with every
+    process stopped, when one fails or outlives ``timeout``."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    for rank, argv in enumerate(argvs):
+        # one intra-op thread a rank, as torchrun sets it
+        env = dict(os.environ, PYTHONPATH=REPO, EMSAR_TORCH_DEVICE=dev.type,
+                   RANK=str(rank), WORLD_SIZE=str(len(argvs)),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   LOCAL_RANK="0", OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(argv, env=env, cwd=REPO, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE))
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label}: rank {rank} exited "
+                                 f"{p.returncode}:\n{err[-3000:]}")
+    return [o for o, _ in outs]
+
+
+def phase_distribution(rsh: str, aln: str, pe_fa: str, out_root: str,
+                       dev) -> dict:
+    """Phase 13 (c) and (d): --dist_merge_shards in one process and in two
+    sharing the card, the sharded PE build in two.  Returns wall times and
+    the sharded build's chunks."""
+    import torch
+
+    from emsar_tpu_torch.bench.multisample import split_by_qname
+    from emsar_tpu_torch.cli import emsar as cli
+    from emsar_tpu_torch.index.device_build_pe import plan_chunks
+
+    def fpkm(d):
+        with open(os.path.join(d, "s.0.fpkm"), "rb") as fh:
+            return fh.read()
+
+    flags = ["-q", "-M", "--dist_merge_shards", "-I", rsh]
+    lists = {}
+    for n in (MERGE_SHARDS, MERGE_SHARDS_2PROC):
+        d = os.path.join(CACHE, f"shards{n}")
+        split_by_qname(aln, d, "shard", n)
+        lists[n] = os.path.join(d, "shard.list")
+    out1 = os.path.join(out_root, "merge1")
+    t0 = time.perf_counter()
+    if cli.main(flags + [out1, "s", lists[MERGE_SHARDS]]) != 0:
+        raise AssertionError("--dist_merge_shards in one process failed")
+    wall1 = time.perf_counter() - t0
+    same1 = fpkm(out1) == fpkm(os.path.join(out_root, "bmm"))
+    torch.cuda.empty_cache()
+    out2 = os.path.join(out_root, "merge2")
+    t0 = time.perf_counter()
+    _launch_world([[sys.executable, "-m", "emsar_tpu_torch.cli.emsar",
+                    *flags, out2, "s", lists[MERGE_SHARDS_2PROC]]] * 2,
+                  "--dist_merge_shards in two processes", dev)
+    wall2 = time.perf_counter() - t0
+    same2 = fpkm(out2) == fpkm(out1)
+    log(f"--dist_merge_shards: one process over {MERGE_SHARDS} shards "
+        f"{wall1:.2f} s, .fpkm byte-equal to the whole-file run {same1}; two "
+        f"processes on the card over {MERGE_SHARDS_2PROC} shards {wall2:.2f} "
+        f"s, byte-equal to one process's {same2}")
+    if not (same1 and same2):
+        raise AssertionError("a merge of shards changed the .fpkm bytes")
+
+    # the sharded PE build: a chunk budget of a sixth of the candidates
+    rl, nfl = 101, 11
+    srank = pe_tables(pe_fa, rl, False, dev)[6]
+    total = plan_chunks(srank, nfl, 1 << 62)[-1][2]
+    budget = max(total // 6, 1)
+    n_chunks = len(plan_chunks(srank, nfl, budget))
+    del srank
+    torch.cuda.empty_cache()
+    launcher = (
+        "import sys\n"
+        "from emsar_tpu_torch.index import device_build_pe\n"
+        f"device_build_pe.CHUNK_CANDIDATES = {budget}\n"
+        "from emsar_tpu_torch.cli import emsar_build\n"
+        "from emsar_tpu_torch.kernels import pe_candidates\n"
+        "rc = emsar_build.main(sys.argv[1:])\n"
+        "print('pe_candidates launches', pe_candidates.LAUNCHES)\n"
+        "sys.exit(rc)\n")
+    out = os.path.join(out_root, "pe_build_sharded")
+    name = "pe_smoke_ssfr_F290-300"
+    t0 = time.perf_counter()
+    stdout = _launch_world(
+        [[sys.executable, "-c", launcher, "-q", "--PE", "-s", "ssfr", "-f",
+          "290", "-F", "300", pe_fa, str(rl), out, name]] * 2,
+        "the sharded PE build", dev)
+    wall_pe = time.perf_counter() - t0
+    per_rank = [int(o.split("pe_candidates launches")[1].split()[0])
+                for o in stdout]
+    with open(os.path.join(out, name + ".rsh"), "rb") as a, open(
+            os.path.join(out_root, "pe_build", name + ".rsh"), "rb") as b:
+        same_pe = a.read() == b.read()
+    log(f"sharded PE build (2 processes on the card, ssfr l101 F290-300, "
+        f"budget {budget} of {total} candidates): {n_chunks} chunks planned, "
+        f"{per_rank} launched per rank, {wall_pe:.2f} s; .rsh byte-equal to "
+        f"the unsharded build {same_pe}")
+    if (not same_pe or n_chunks < PE_SHARD_MIN_CHUNKS
+            or sum(per_rank) != n_chunks or min(per_rank) <= 0):
+        raise AssertionError("the sharded PE build failed its checks")
+    return {"merge_1proc_s": wall1, "merge_2proc_s": wall2,
+            "pe_sharded_s": wall_pe, "pe_sharded_chunks": n_chunks,
+            "pe_sharded_launches_per_rank": per_rank}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "emsar_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -1702,6 +2011,11 @@ def main() -> int:
     scale_pe = {strand: phase_scale_pe_build(dev, out_root, scale_fa, strand)
                 for strand in ("ssfr", "ns")}
     os.remove(scale_fa)
+
+    t0 = time.perf_counter()
+    multisample = phase_multisample(rsh, aln, out_root, dev)
+    multisample.update(phase_distribution(rsh, aln, pe_fa, out_root, dev))
+    log(f"multisample and distribution: {time.perf_counter() - t0:.1f} s")
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     main_launches = {"squarem_block": launches["kernel"]["squarem_block"],
@@ -1709,18 +2023,21 @@ def main() -> int:
                      "em_step": launches["csr"]["em_step"],
                      "window_hash": build_launches["window_hash"],
                      "pe_candidates": pe_launches["pe_candidates"]}
+    rows = [(k, KERNELS[k], main_launches[k], measured[k]) for k in KERNELS]
+    # em_step's second shape: the batched multisample solve
+    rows.append(("em_step", dict(KERNELS["em_step"],
+                                 shape=f"R={MS_SAMPLES} per-sample operands"),
+                 multisample["em_step_batched_launches"],
+                 multisample.pop("em_step_batched")))
     print(json.dumps({"kernels": [
-        dict(KERNELS[k], launches=main_launches[k],
-             max_abs_err=measured[k]["err"], ms=measured[k]["ms"],
-             host_ms=measured[k]["host_ms"],
-             plain_ms=measured[k]["plain_ms"],
-             bound_ms=measured[k]["bound_ms"],
-             bound_by=measured[k]["bound_by"],
-             library_ms=measured[k]["library_ms"])
-        for k in KERNELS]}))
+        dict(row, launches=n, max_abs_err=m["err"], ms=m["ms"],
+             host_ms=m["host_ms"], plain_ms=m["plain_ms"],
+             bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+             library_ms=m["library_ms"])
+        for _, row, n, m in rows]}))
     print(json.dumps({"phase_seconds": seconds, "csr_blocks": csr_blocks,
                       "scale_build": scale, "scale_pe_build": scale_pe,
-                      "ptxas": ptxas}))
+                      "multisample": multisample, "ptxas": ptxas}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

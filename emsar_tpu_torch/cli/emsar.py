@@ -14,26 +14,35 @@ read-length range learned from the whole alignment file, or
 ``build_pe_index`` with ``--PE`` for the read length of its first
 alignment); ``-R`` writes that index and ``-m 1`` the positional-bias
 table.  ``--solver_pallas`` selects the hand-written CUDA SQUAREM kernel
-for the dense module batches.  ``--batch_samples`` and
-``--dist_merge_shards`` are not ported yet and exit with an error.
+for the dense module batches.  ``-M --batch_samples`` solves every sample
+of the list in one batched solve over the processes' (dp, tp) mesh
+(``parallel/mesh.py``); ``-M --dist_merge_shards`` reads the list as
+shards of ONE sample, each process ingesting its strided slice, merges
+the counts across processes and writes from process 0
+(``parallel/dist.py``, which names the environment of a multi-process
+run).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
+import functools
 import getopt
 import os
 import sys
 import threading
-from typing import List
+from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..config import BuildConfig, MAX_N_ALNFILES, QuantConfig, StrandType
 from ..device import resolve_device
 from ..index.build import build_pe_index, build_se_index
 from ..ingest import native as native_mod
-from ..ingest.collapse import PosBias, ReadCollapser, group_alignments
+from ..ingest.collapse import (PosBias, ReadCollapser, SampleCounts,
+                               group_alignments)
 from ..io import bowtie
 from ..io.bam import read_bam_records
 from ..io.fasta import read_fasta
@@ -43,7 +52,9 @@ from ..io.rsh import RshIndex
 from ..io.sam import (probe_readlength_range_sam_bam,
                       probe_readlength_sam_bam, read_sam_records,
                       stream_alignments_pe, stream_alignments_se)
-from ..model.quantify import index_modules, quantify_sample
+from ..model.quantify import (index_modules, quantify_sample,
+                              quantify_samples_batched)
+from ..parallel import dist
 from ..utils.timing import phase
 from .common import die
 
@@ -57,8 +68,6 @@ LONG = ["rsh=", "fasta=", "print_segments", "print_sfa", "print_rsh", "BAM",
         "batch_samples", "solver_dtype=", "solver_mode=", "solver_pallas",
         "dist_merge_shards"]
 
-NOT_PORTED = "not yet ported to emsar_tpu_torch"
-
 
 def usage(prog: str) -> None:
     print(f"Usage : {prog} <options> -x fastafile outdir outprefix "
@@ -71,9 +80,11 @@ def usage(prog: str) -> None:
           "compatible)")
     print("\t--solver_pallas : solve dense module batches with the "
           "hand-written CUDA SQUAREM kernel")
+    print("\t--batch_samples : with -M, solve every sample in one batched "
+          "solve; run over several processes, each needs a card of its "
+          "own (LOCAL_RANK)")
     print("\tdevice: $EMSAR_TORCH_DEVICE (default cuda; 'cpu' runs the "
           "kernel's plain PyTorch version)")
-    print(f"\t--batch_samples, --dist_merge_shards: {NOT_PORTED}")
 
 
 def _sam_bam_records(path: str, fmt: str):
@@ -167,9 +178,9 @@ def main(argv=None) -> int:
         elif o in ("-R", "--print_rsh"):
             cfg.print_rsh = True
         elif o == "--batch_samples":
-            die(f"error: --batch_samples is {NOT_PORTED}.")
+            cfg.batch_samples = True
         elif o == "--dist_merge_shards":
-            die(f"error: --dist_merge_shards is {NOT_PORTED}.")
+            cfg.dist_merge_shards = True
         elif o == "--solver_dtype":
             cfg.solver_dtype = a
         elif o == "--solver_mode":
@@ -216,9 +227,14 @@ def main(argv=None) -> int:
             die(f"error: too many alignment files (max {MAX_N_ALNFILES})")
 
     os.makedirs(outdir, exist_ok=True)
-    device = resolve_device()
-    return run_quantifier(cfg, rshfile, outdir, outprefix, alnfiles, device,
-                          fastafile=fastafile)
+    # a multi-process run (WORLD_SIZE > 1) joins its process group first
+    dist.maybe_init_from_env()
+    try:
+        device = dist.rank_device(resolve_device())
+        return run_quantifier(cfg, rshfile, outdir, outprefix, alnfiles,
+                              device, fastafile=fastafile)
+    finally:
+        dist.shutdown()
 
 
 def _echo_params(cfg: QuantConfig, fastafile: str, rshfile: str,
@@ -336,6 +352,22 @@ def run_quantifier(cfg: QuantConfig, rshfile: str, outdir: str,
     if native_mod.available():
         with phase("building native ingest tables", cfg.verbose):
             native_collapser = native_mod.NativeCollapser(index)
+    ingest = functools.partial(_collapse, cfg, index, name_to_tid,
+                               native_collapser, pe_readlength)
+
+    if cfg.dist_merge_shards:
+        return _run_dist_shards(cfg, index, ingest, outdir, outprefix,
+                                alnfiles, device)
+    if cfg.batch_samples and cfg.multisample and len(alnfiles) > 1:
+        if cfg.verbose > 0 and dist.process_count() == 1:
+            print("[emsar] note: --batch_samples targets meshes of several "
+                  "processes; on one device the per-sample loop (default) "
+                  "overlaps each solve with the next file's ingest")
+        rc = _run_batched(cfg, index, ingest, outdir, outprefix, alnfiles,
+                          device)
+        if rc is not None:
+            return rc
+        # EUMAcut re-clustering triggered: the per-sample loop
 
     # Multisample ingest/solve overlap: while sample i solves on the
     # device, a worker thread ingests file i+1 (the C++ collapser releases
@@ -348,13 +380,6 @@ def run_quantifier(cfg: QuantConfig, rshfile: str, outdir: str,
     # worker thread while the alignment file streams
     threading.Thread(target=index_modules, args=(index,), daemon=True).start()
 
-    def _ingest(path, posbias=None):
-        return native_collapser.collapse_file(
-            path, cfg.aln_format, cfg.pe, cfg.strand.code, cfg.max_repeat,
-            cfg.min_fraglength, cfg.max_fraglength,
-            pe_readlength if cfg.pe else None, nthreads=cfg.max_threads,
-            posbias=posbias)
-
     executor = (concurrent.futures.ThreadPoolExecutor(max_workers=1)
                 if prefetch_ok else None)
     pending = None
@@ -362,15 +387,9 @@ def run_quantifier(cfg: QuantConfig, rshfile: str, outdir: str,
         for i, alnfile in enumerate(alnfiles):
             with phase(f"reading alignment file {alnfile or '<stdin>'}",
                        cfg.verbose):
-                if pending is not None:
-                    counts = pending.result()
-                elif native_collapser is not None:
-                    counts = _ingest(alnfile, posbias)
-                else:
-                    counts = _collapse_python(index, name_to_tid, cfg,
-                                              alnfile, pe_readlength,
-                                              posbias)
-            pending = (executor.submit(_ingest, alnfiles[i + 1])
+                counts = (pending.result() if pending is not None
+                          else ingest(alnfile, posbias))
+            pending = (executor.submit(ingest, alnfiles[i + 1])
                        if executor is not None and i + 1 < len(alnfiles)
                        else None)
 
@@ -384,31 +403,101 @@ def run_quantifier(cfg: QuantConfig, rshfile: str, outdir: str,
                     index.write_npz(rshfile_out + ".npz")
 
             result = quantify_sample(index, counts, cfg, device)
-
-            fpkm_path = os.path.join(outdir, f"{outprefix}.{i}.fpkm")
-            write_fpkm(fpkm_path, index.names, result.fpkm_rounds,
-                       result.ieuma, result.total_read_count, cfg.verbose)
-
-            fl_path = os.path.join(outdir,
-                                   f"{outprefix}.{i}.fraglength_effect")
-            write_fraglength_dist(fl_path, index.fraglen_min,
-                                  index.n_fraglen, counts.fraglength_counts,
-                                  result.wf)
-
-            if cfg.print_segments:
-                seg_path = os.path.join(outdir, f"{outprefix}.{i}.segments")
-                write_segments(seg_path, index.names,
-                               result.graph.ct_offsets, result.graph.ct_tids,
-                               result.modules.cs, result.adj_euma,
-                               result.graph.read_count, result.fpkm,
-                               result.total_read_count)
-
-            if cfg.verbose > 0:
-                print(f"Complete: Output file :\n  {fpkm_path}\n  {fl_path}")
+            _write_sample(cfg, index, outdir, outprefix, i, result,
+                          counts.fraglength_counts)
     finally:
         if executor is not None:
             executor.shutdown(wait=True)
     return 0
+
+
+def _write_sample(cfg: QuantConfig, index: RshIndex, outdir: str,
+                  outprefix: str, i: int, result, fraglength_counts) -> None:
+    """Sample i's .fpkm, .fraglength_effect and (-g) .segments."""
+    fpkm_path = os.path.join(outdir, f"{outprefix}.{i}.fpkm")
+    write_fpkm(fpkm_path, index.names, result.fpkm_rounds, result.ieuma,
+               result.total_read_count, cfg.verbose)
+    fl_path = os.path.join(outdir, f"{outprefix}.{i}.fraglength_effect")
+    write_fraglength_dist(fl_path, index.fraglen_min, index.n_fraglen,
+                          fraglength_counts, result.wf)
+    if cfg.print_segments:
+        write_segments(os.path.join(outdir, f"{outprefix}.{i}.segments"),
+                       index.names, result.graph.ct_offsets,
+                       result.graph.ct_tids, result.modules.cs,
+                       result.adj_euma, result.graph.read_count,
+                       result.fpkm, result.total_read_count)
+    if cfg.verbose > 0:
+        print(f"Complete: Output file :\n  {fpkm_path}\n  {fl_path}")
+
+
+def _run_dist_shards(cfg: QuantConfig, index: RshIndex, ingest, outdir: str,
+                     outprefix: str, alnfiles: List[str],
+                     device: torch.device) -> int:
+    """--dist_merge_shards: the alignment list holds shards of ONE sample.
+    Each process collapses its strided slice, the counts merge across
+    processes (exact integer sums), every process quantifies the
+    identical merged counts, and process 0 writes the single output.  In
+    one process it is an in-process shard loop."""
+    merged = None
+    for alnfile in dist.shard_list(alnfiles):
+        with phase(f"reading alignment shard {alnfile}", cfg.verbose):
+            c = ingest(alnfile)
+        merged = c if merged is None else dataclasses.replace(
+            merged, single_counts=merged.single_counts + c.single_counts,
+            multi_counts=merged.multi_counts + c.multi_counts,
+            fraglength_counts=merged.fraglength_counts + c.fraglength_counts,
+            total_read_count=merged.total_read_count + c.total_read_count)
+    if merged is None:  # more processes than shards
+        merged = SampleCounts(
+            single_counts=np.zeros(index.n_transcripts, dtype=np.int64),
+            multi_counts=np.zeros(index.n_multi, dtype=np.int64),
+            fraglength_counts=np.zeros(
+                max(cfg.max_fraglength, index.fraglen_max) + 1,
+                dtype=np.int64),
+            total_read_count=0)
+    with phase("merging shard counts across processes", cfg.verbose):
+        merged = dist.allreduce_counts(merged)
+    result = quantify_sample(index, merged, cfg, device)
+    if dist.is_main():
+        _write_sample(cfg, index, outdir, outprefix, 0, result,
+                      merged.fraglength_counts)
+    dist.barrier()
+    return 0
+
+
+def _run_batched(cfg: QuantConfig, index: RshIndex, ingest, outdir: str,
+                 outprefix: str, alnfiles: List[str], device: torch.device
+                 ) -> Optional[int]:
+    """-M --batch_samples: collapse every file, then solve all samples in
+    one sharded solve.  Returns None to ask for the per-sample loop."""
+    counts_list = []
+    for alnfile in alnfiles:
+        with phase(f"reading alignment file {alnfile}", cfg.verbose):
+            counts_list.append(ingest(alnfile))
+    with phase(f"batched solve over {len(counts_list)} samples",
+               cfg.verbose):
+        results = quantify_samples_batched(index, counts_list, cfg, device)
+    if results is None:
+        return None
+    if dist.is_main():
+        for i, (counts, result) in enumerate(zip(counts_list, results)):
+            _write_sample(cfg, index, outdir, outprefix, i, result,
+                          counts.fraglength_counts)
+    return 0
+
+
+def _collapse(cfg: QuantConfig, index: RshIndex, name_to_tid,
+              native_collapser, pe_readlength, alnfile: str, posbias=None):
+    """One alignment file's SampleCounts: the C++ collapser where it
+    built, else the Python one."""
+    if native_collapser is not None:
+        return native_collapser.collapse_file(
+            alnfile, cfg.aln_format, cfg.pe, cfg.strand.code,
+            cfg.max_repeat, cfg.min_fraglength, cfg.max_fraglength,
+            pe_readlength if cfg.pe else None, nthreads=cfg.max_threads,
+            posbias=posbias)
+    return _collapse_python(index, name_to_tid, cfg, alnfile, pe_readlength,
+                            posbias)
 
 
 def _collapse_python(index: RshIndex, name_to_tid, cfg: QuantConfig,

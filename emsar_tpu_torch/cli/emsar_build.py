@@ -10,9 +10,14 @@ reference builder (src/emsar_build_main.c):
 
 The index (SE over a read-length range, PE for one read length) is built
 on the device named by ``EMSAR_TORCH_DEVICE`` (default ``cuda``); ``-T``
-also writes the suffix array, which takes the host NumPy builder.  The
-JAX package's process-sharded PE build (several processes, each writing
-a partial index) is not ported.
+also writes the suffix array, which takes the host NumPy builder.
+
+A PE build in a world of several processes (``WORLD_SIZE`` > 1, the
+environment of ``parallel/dist.py``) is sharded: process i of n builds
+every n-th chunk of mate1 clusters (``build_pe_index(shard=(i, n))``) and
+writes ``outprefix.part{i}of{n}.npz``; after a barrier process 0 sums the
+partials (``RshIndex.merge``) and writes the ``.rsh``, byte-equal to one
+process's build.
 """
 
 from __future__ import annotations
@@ -22,8 +27,11 @@ import os
 import sys
 
 from ..config import BuildConfig, StrandType
+from ..device import resolve_device
 from ..index.build import build_pe_index, build_se_index
 from ..io.fasta import read_fasta
+from ..io.rsh import RshIndex
+from ..parallel import dist
 from ..utils.timing import phase
 from .common import die
 
@@ -140,8 +148,23 @@ def main(argv=None) -> int:
 
     sfa_path = os.path.join(outdir, outprefix + ".sfa") if cfg.print_sfa \
         else None
+    try:
+        return _build(cfg, tx, readlength_str, outdir, outprefix, sfa_path)
+    finally:
+        dist.shutdown()
+
+
+def _build(cfg: BuildConfig, tx, readlength_str: str, outdir: str,
+           outprefix: str, sfa_path) -> int:
+    """Build (a PE build sharded over the processes of a multi-process
+    run) and write the index."""
+    sharded = dist.maybe_init_from_env() and cfg.pe
+    shard = (dist.process_index(), dist.process_count()) if sharded \
+        else None
     if cfg.pe:
-        idx = build_pe_index(tx, int(readlength_str), cfg, sfa_path=sfa_path)
+        idx = build_pe_index(
+            tx, int(readlength_str), cfg, sfa_path=sfa_path, shard=shard,
+            device=dist.rank_device(resolve_device()) if sharded else None)
     else:
         if "-" in readlength_str:
             lo_s, hi_s = readlength_str.split("-", 1)
@@ -151,6 +174,18 @@ def main(argv=None) -> int:
         idx = build_se_index(tx, lo, hi, cfg, sfa_path=sfa_path)
 
     rsh_path = os.path.join(outdir, outprefix + ".rsh")
+    if sharded:
+        part = os.path.join(outdir,
+                            f"{outprefix}.part{shard[0]}of{shard[1]}.npz")
+        idx.write_npz(part)
+        dist.barrier()
+        if not dist.is_main():
+            return 0
+        parts = [RshIndex.read_npz(os.path.join(
+            outdir, f"{outprefix}.part{i}of{shard[1]}.npz"))
+            for i in range(shard[1])]
+        with phase("merging shard partials", cfg.verbose):
+            idx = RshIndex.merge(parts)
     with phase("writing rsh file", cfg.verbose):
         idx.write_text(rsh_path)
         idx.write_npz(rsh_path + ".npz")

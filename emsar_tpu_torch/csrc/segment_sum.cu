@@ -6,8 +6,8 @@
 // EM step of model/solver.py::_em_iter:
 //
 //   mode 0 (plain):  out[r, g] = s
-//   mode 1 (ratio):  out[r, g] = s > 0 ? a[g] / s : 0        (a = reads)
-//   mode 2 (update): out[r, g] = (b[r, g] * s) * a[g]        (b = theta,
+//   mode 1 (ratio):  out[r, g] = s > 0 ? a[r, g] / s : 0     (a = reads)
+//   mode 2 (update): out[r, g] = (b[r, g] * s) * a[r, g]     (b = theta,
 //                                                             a = inv_denom)
 //
 // so one EM step is two launches: by cid in mode 1 (the segment
@@ -16,6 +16,11 @@
 // replaces the two `jax.ops.segment_sum` calls of
 // emsar_tpu/model/solver.py::_em_solve (XLA ops, not a Pallas kernel) and
 // the elementwise work between and after them.
+//
+// a[r, g] is a[r * a_stride + g]: a_stride 0 shares one row of a among
+// the R rows (one sample's reads and 1 / denom under its restart rounds),
+// a_stride G gives each row its own (the batched multisample solve of
+// parallel/mesh.py: per-sample reads [S, C] and inv_denom [S, T]).
 //
 // Order and bits.  Each product is rounded (mul_rn), then the products of
 // a segment are added to a running sum one after another in edge order
@@ -49,7 +54,8 @@
 // * The EM epilogues save the six elementwise launches of each EM step.
 //
 // Layout: x [R, N] contiguous; w [E]; idx [E] int32; offsets [G + 1]
-// int64; a [G]; b and out [R, G].  float or double.
+// int64; a [G] (a_stride 0) or [R, G] (a_stride G); b and out [R, G].
+// float or double.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,7 +90,7 @@ __global__ void __launch_bounds__(kThreads)
                        const int64_t* __restrict__ offsets,
                        const F* __restrict__ a, const F* __restrict__ b,
                        F* __restrict__ out, long long R, long long G,
-                       long long N) {
+                       long long N, long long a_stride) {
   static_assert(K == 4 || K == 8 || K == 16 || K == 32, "lanes per group");
   const long long grp =
       (blockIdx.x * (long long)kThreads + threadIdx.x) / K;
@@ -113,57 +119,73 @@ __global__ void __launch_bounds__(kThreads)
   if (lane != 0) return;
   if (MODE == 0) {
     out[grp] = acc;
-  } else if (MODE == 1) {
-    out[grp] = acc > F(0) ? div_rn(__ldg(a + g), acc) : F(0);
-  } else {
-    out[grp] = mul_rn(mul_rn(__ldg(b + grp), acc), __ldg(a + g));
+    return;
   }
+  const F ag = __ldg(a + r * a_stride + g);
+  if (MODE == 1) {
+    out[grp] = acc > F(0) ? div_rn(ag, acc) : F(0);
+  } else {
+    out[grp] = mul_rn(mul_rn(__ldg(b + grp), acc), ag);
+  }
+}
+
+template <typename F, int K, int MODE>
+int launch_mode(const void* x, const void* w, const void* idx,
+                const void* offsets, const void* a, const void* b, void* out,
+                long long R, long long G, long long N, long long a_stride,
+                cudaStream_t stream) {
+  const long long threads = R * G * K;
+  const long long blocks = (threads + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  segment_sum_kernel<F, K, MODE><<<static_cast<unsigned int>(blocks),
+                                   kThreads, 0, stream>>>(
+      static_cast<const F*>(x), static_cast<const F*>(w),
+      static_cast<const int32_t*>(idx), static_cast<const int64_t*>(offsets),
+      static_cast<const F*>(a), static_cast<const F*>(b),
+      static_cast<F*>(out), R, G, N, a_stride);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename F, int K>
 int launch_k(const void* x, const void* w, const void* idx,
              const void* offsets, const void* a, const void* b, void* out,
-             long long R, long long G, long long N, int mode,
-             cudaStream_t stream) {
-  const long long threads = R * G * K;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned int>(blocks));
-#define EMSAR_LAUNCH(M)                                                    \
-  segment_sum_kernel<F, K, M><<<grid, kThreads, 0, stream>>>(             \
-      static_cast<const F*>(x), static_cast<const F*>(w),                  \
-      static_cast<const int32_t*>(idx),                                    \
-      static_cast<const int64_t*>(offsets), static_cast<const F*>(a),      \
-      static_cast<const F*>(b), static_cast<F*>(out), R, G, N)
+             long long R, long long G, long long N, long long a_stride,
+             int mode, cudaStream_t stream) {
   switch (mode) {
-    case 0: EMSAR_LAUNCH(0); break;
-    case 1: EMSAR_LAUNCH(1); break;
-    case 2: EMSAR_LAUNCH(2); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0:
+      return launch_mode<F, K, 0>(x, w, idx, offsets, a, b, out, R, G, N,
+                                  a_stride, stream);
+    case 1:
+      return launch_mode<F, K, 1>(x, w, idx, offsets, a, b, out, R, G, N,
+                                  a_stride, stream);
+    case 2:
+      return launch_mode<F, K, 2>(x, w, idx, offsets, a, b, out, R, G, N,
+                                  a_stride, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef EMSAR_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename F>
 int launch(const void* x, const void* w, const void* idx, const void* offsets,
            const void* a, const void* b, void* out, long long R, long long G,
-           long long N, int lanes, int mode, void* stream_ptr) {
+           long long N, long long a_stride, int lanes, int mode,
+           void* stream_ptr) {
   if (R * G <= 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (lanes) {
     case 4:
-      return launch_k<F, 4>(x, w, idx, offsets, a, b, out, R, G, N, mode,
-                            stream);
+      return launch_k<F, 4>(x, w, idx, offsets, a, b, out, R, G, N,
+                            a_stride, mode, stream);
     case 8:
-      return launch_k<F, 8>(x, w, idx, offsets, a, b, out, R, G, N, mode,
-                            stream);
+      return launch_k<F, 8>(x, w, idx, offsets, a, b, out, R, G, N,
+                            a_stride, mode, stream);
     case 16:
-      return launch_k<F, 16>(x, w, idx, offsets, a, b, out, R, G, N, mode,
-                             stream);
+      return launch_k<F, 16>(x, w, idx, offsets, a, b, out, R, G, N,
+                             a_stride, mode, stream);
     case 32:
-      return launch_k<F, 32>(x, w, idx, offsets, a, b, out, R, G, N, mode,
-                             stream);
+      return launch_k<F, 32>(x, w, idx, offsets, a, b, out, R, G, N,
+                             a_stride, mode, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -175,16 +197,18 @@ extern "C" int emsar_segment_sum_f32(const void* x, const void* w,
                                      const void* idx, const void* offsets,
                                      const void* a, const void* b, void* out,
                                      long long R, long long G, long long N,
-                                     int lanes, int mode, void* stream) {
-  return launch<float>(x, w, idx, offsets, a, b, out, R, G, N, lanes, mode,
-                       stream);
+                                     long long a_stride, int lanes, int mode,
+                                     void* stream) {
+  return launch<float>(x, w, idx, offsets, a, b, out, R, G, N, a_stride,
+                       lanes, mode, stream);
 }
 
 extern "C" int emsar_segment_sum_f64(const void* x, const void* w,
                                      const void* idx, const void* offsets,
                                      const void* a, const void* b, void* out,
                                      long long R, long long G, long long N,
-                                     int lanes, int mode, void* stream) {
-  return launch<double>(x, w, idx, offsets, a, b, out, R, G, N, lanes, mode,
-                        stream);
+                                     long long a_stride, int lanes, int mode,
+                                     void* stream) {
+  return launch<double>(x, w, idx, offsets, a, b, out, R, G, N, a_stride,
+                        lanes, mode, stream);
 }

@@ -41,6 +41,10 @@ LAUNCHES = 0
 EM_LAUNCHES = 0
 LANES = (4, 8, 16, 32)
 _PLAIN, _RATIO, _UPDATE = 0, 1, 2
+# emsar_segment_sum_f32/f64(x, w, idx, offsets, a, b, out, R, G, N,
+# a_stride, lanes, mode, stream)
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 @dataclasses.dataclass
@@ -114,9 +118,10 @@ def segment_sum_ref(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
 def em_step_ref(theta: torch.Tensor, by_cid: EdgeGroups, by_tid: EdgeGroups,
                 reads: torch.Tensor, inv_denom: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of one CSR EM step from theta [R, ntid]:
-    s = segment sums of mult * theta[:, tid] by cid, ratio = R / s where
-    s > 0 (else 0), num = segment sums of mult * ratio[:, cid] by tid,
-    theta * num * inv_denom."""
+    s = segment sums of mult * theta[:, tid] by cid, ratio = reads / s
+    where s > 0 (else 0), num = segment sums of mult * ratio[:, cid] by
+    tid, theta * num * inv_denom (reads and inv_denom broadcast: one row
+    or one per row of theta)."""
     s = segment_sum_ref(theta, by_cid.mult, by_cid.idx, by_cid.offsets)
     pos = s > 0
     ratio = torch.where(pos, reads / torch.where(pos, s, 1.0), 0.0)
@@ -129,8 +134,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     for fn in (lib.emsar_segment_sum_f32, lib.emsar_segment_sum_f64):
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 3 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = ARGTYPES
     return lib
 
 
@@ -139,11 +143,23 @@ def build() -> None:
     _lib()
 
 
-def _launch(x: torch.Tensor, g: EdgeGroups, mode: int, a=None, b=None
-            ) -> torch.Tensor:
+def _row_stride(a: torch.Tensor, R: int, G: int, name: str) -> int:
+    """The row stride of an EM epilogue operand: 0 for one row [G] shared
+    by the R rows, G for a row each [R, G] (contiguous).  Raises
+    ValueError on any other shape (a shape check: no sync)."""
+    if tuple(a.shape) == (G,):
+        return 0
+    if tuple(a.shape) == (R, G) and a.is_contiguous():
+        return G
+    raise ValueError(f"em_step: {name} must be [{G}] or a contiguous "
+                     f"[{R}, {G}], got {tuple(a.shape)}")
+
+
+def _launch(x: torch.Tensor, g: EdgeGroups, mode: int, a=None, b=None,
+            a_stride: int = 0) -> torch.Tensor:
     """One launch over ``g`` with x [R, n_x] contiguous on g's device in
-    g's dtype (not checked); ``a`` [G] and ``b`` [R, G] feed the EM
-    epilogues."""
+    g's dtype (not checked); ``a`` (row ``r`` at ``r * a_stride``) and
+    ``b`` [R, G] feed the EM epilogues."""
     fn = (_lib().emsar_segment_sum_f64 if x.dtype == torch.float64 else
           _lib().emsar_segment_sum_f32)
     R = x.shape[0]
@@ -152,7 +168,8 @@ def _launch(x: torch.Tensor, g: EdgeGroups, mode: int, a=None, b=None
     rc = fn(x.data_ptr(), g.mult.data_ptr(), g.idx.data_ptr(),
             g.offsets.data_ptr(), None if a is None else a.data_ptr(),
             None if b is None else b.data_ptr(), out.data_ptr(), R, G, g.n_x,
-            g.lanes, mode, torch.cuda.current_stream(x.device).cuda_stream)
+            a_stride, g.lanes, mode,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"segment_sum: kernel launch failed with CUDA "
                            f"error {rc}")
@@ -177,15 +194,21 @@ def em_step(theta: torch.Tensor, by_cid: EdgeGroups, by_tid: EdgeGroups,
             reads: torch.Tensor, inv_denom: torch.Tensor) -> torch.Tensor:
     """One CSR EM step (``em_step_ref``) in two launches on the card: by
     cid with the read ratio as epilogue, by tid with the update.  theta
-    [R, ntid] contiguous; reads [C] and inv_denom [ntid] in theta's dtype
-    on its device (not checked on the card)."""
+    [R, ntid] contiguous; reads [C] or [R, C] and inv_denom [ntid] or [R,
+    ntid] (one row shared by every row of theta, or one each: the batched
+    multisample solve's per-sample operands), in theta's dtype on its
+    device (shapes checked, dtype and device not, on the card)."""
     global EM_LAUNCHES
     if theta.device.type == "cpu":
         return em_step_ref(theta, by_cid, by_tid, reads, inv_denom)
     if theta.device.type != "cuda":
         raise ValueError(f"em_step: unsupported device {theta.device}")
-    ratio = _launch(theta, by_cid, _RATIO, a=reads)
-    out = _launch(ratio, by_tid, _UPDATE, a=inv_denom, b=theta)
+    R = theta.shape[0]
+    ratio = _launch(theta, by_cid, _RATIO, a=reads, a_stride=_row_stride(
+        reads, R, by_cid.n_groups, "reads"))
+    out = _launch(ratio, by_tid, _UPDATE, a=inv_denom, b=theta,
+                  a_stride=_row_stride(inv_denom, R, by_tid.n_groups,
+                                       "inv_denom"))
     EM_LAUNCHES += 2
     return out
 

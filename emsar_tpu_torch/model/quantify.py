@@ -326,3 +326,119 @@ def _solve_auto(graph, modules, eumaps, read_count, problem, cfg, dtype,
         touched[csr_problem.edge_tid] = True
         fpkm[touched] = theta.astype(np.float64)[touched]
     return fpkm, blocks_total, part
+
+
+@dataclasses.dataclass
+class BatchedInputs:
+    """The likelihood inputs of a multisample batch: one edge list over
+    the active cids (in a module) and per-sample EUMAps ``E`` [S, C],
+    reads ``R`` [S, C] (0 where E is 0: the reference skips such segments)
+    and denominators [S, T]."""
+
+    problem: SolverProblem  # the edges, with sample 0's E, R and denom
+    E: np.ndarray
+    R: np.ndarray
+    denom: np.ndarray
+    graph: SegmentGraph
+    modules: ModuleDecomposition
+    wfs: list
+    adjs: list
+    rcs: list
+
+
+def batched_inputs(index: RshIndex, counts_list, cfg: QuantConfig
+                   ) -> Optional[BatchedInputs]:
+    """Per-sample fragment-length weights and adjusted EUMA, one module
+    decomposition and the batch's matrices; None when EUMAcut
+    re-clustering triggers (the module structure then depends on each
+    sample's EUMA)."""
+    ntid = index.n_transcripts
+    S = len(counts_list)
+    wfs, adjs, rcs = [], [], []
+    for counts in counts_list:
+        wf = compute_wf(index, counts.fraglength_counts)
+        adj = np.concatenate([index.single_euma.astype(np.float64) @ wf,
+                              index.multi_euma.astype(np.float64) @ wf])
+        wfs.append(wf)
+        adjs.append(adj)
+        rcs.append(counts.readcount_per_cid())
+
+    graph = build_segment_graph(index, adjs[0], rcs[0])
+    modules = decompose_modules(graph, verbose=cfg.verbose)
+    if modules.euma_cut != 0.0:
+        return None
+
+    # active cids: in a module (a sample's E == 0 segments get 0 reads)
+    active = modules.cs >= 0
+    act_cids = np.flatnonzero(active)
+    local = np.full(graph.n_cid, -1, dtype=np.int64)
+    local[act_cids] = np.arange(len(act_cids))
+    sizes = np.diff(graph.ct_offsets)
+    rep = np.repeat(active, sizes)
+    flat_cid = np.repeat(np.arange(graph.n_cid, dtype=np.int64), sizes)[rep]
+    flat_tid = graph.ct_tids[rep].astype(np.int64)
+    uniq, mult = np.unique(flat_cid * ntid + flat_tid, return_counts=True)
+    e_cid = local[uniq // ntid].astype(np.int32)
+    e_tid = (uniq % ntid).astype(np.int32)
+    e_mult = mult.astype(np.float64)
+
+    scale = (10.0 ** cfg.delta) / 1e9
+    E = np.stack([adjs[s][act_cids] * (counts_list[s].total_read_count
+                                       * scale) for s in range(S)])
+    R = np.stack([rcs[s][act_cids].astype(np.float64) for s in range(S)])
+    R = np.where(E > 0, R, 0.0)
+    denom = np.zeros((S, ntid))
+    for s in range(S):
+        np.add.at(denom[s], e_tid, e_mult * E[s, e_cid])
+    problem = SolverProblem(n_transcripts=ntid, edge_cid=e_cid,
+                            edge_tid=e_tid, edge_mult=e_mult, eumaps=E[0],
+                            reads=R[0], denom=denom[0])
+    return BatchedInputs(problem=problem, E=E, R=R, denom=denom, graph=graph,
+                         modules=modules, wfs=wfs, adjs=adjs, rcs=rcs)
+
+
+def quantify_samples_batched(index: RshIndex, counts_list, cfg: QuantConfig,
+                             device: torch.device):
+    """Batched multisample quantification (the port of the JAX package's):
+    one sharded solve on ``device`` over the likelihood edges, split
+    across every process (tp; ``parallel.mesh``), with
+    per-sample EUMAps from per-sample fragment-length weights.  Returns a
+    QuantResult per sample, or None when EUMAcut re-clustering triggers
+    (the caller then loops over the samples).  Results match the
+    per-sample path at solver tolerance; each result's ``loglik`` is the
+    batch's total, as in the JAX package."""
+    from ..parallel.mesh import make_mesh, shard_problem, solve_sharded
+
+    b = batched_inputs(index, counts_list, cfg)
+    if b is None:
+        return None
+    ntid = index.n_transcripts
+    dtype = _resolve_dtype(cfg)
+    sp = shard_problem(b.problem, b.R, make_mesh(device=device), dtype=dtype,
+                       eumaps_per_sample=b.E, denom_per_sample=b.denom)
+    theta, ll, blocks = solve_sharded(
+        sp, epsilon=max(cfg.epsilon, 1e-5) if dtype == np.float32
+        else cfg.epsilon, block_iters=cfg.solver_block_iters)
+    theta = theta.astype(np.float64)
+
+    results = []
+    graph = b.graph
+    ct_rep = np.repeat(np.arange(graph.n_cid), np.diff(graph.ct_offsets))
+    for s, counts in enumerate(counts_list):
+        fpkm = theta[s]
+        ps = dataclasses.replace(b.problem, eumaps=b.E[s], reads=b.R[s],
+                                 denom=b.denom[s])
+        if dtype == np.float32:
+            fpkm = polish_host_f64(ps, fpkm, epsilon=max(cfg.epsilon, 1e-9),
+                                   max_cycles=200)
+        ieuma = np.zeros(ntid)
+        np.add.at(ieuma, graph.ct_tids, b.adjs[s][ct_rep])
+        fpkm_rounds = _make_rounds(ps, fpkm, cfg, dtype, device)
+        results.append(QuantResult(
+            fpkm=fpkm, fpkm_rounds=fpkm_rounds, ieuma=ieuma,
+            adj_euma=b.adjs[s], wf=b.wfs[s],
+            graph=dataclasses.replace(graph, adj_euma=b.adjs[s],
+                                      read_count=b.rcs[s]),
+            modules=b.modules, total_read_count=counts.total_read_count,
+            loglik=float(ll), em_blocks=blocks))
+    return results

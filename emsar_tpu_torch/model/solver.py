@@ -99,6 +99,24 @@ def build_problem(graph: SegmentGraph, modules: ModuleDecomposition,
                          edge_mult=e_mult, eumaps=E, reads=R, denom=denom)
 
 
+def group_edges(seg: np.ndarray, other: np.ndarray, mult: np.ndarray,
+                n_seg: int, n_other: int, device: torch.device,
+                dtype: torch.dtype) -> EdgeGroups:
+    """Edges grouped by ``seg`` (a stable sort: each group keeps the edges'
+    order), with their ``other`` endpoint in ``[0, n_other)`` and weight
+    ``mult``, on ``device`` in ``dtype`` and checked for the kernel
+    (``kernels.segment_sum.prepare``)."""
+    seg = np.asarray(seg, dtype=np.int64)
+    order = np.argsort(seg, kind="stable")
+    offsets = np.zeros(n_seg + 1, dtype=np.int64)
+    np.cumsum(np.bincount(seg, minlength=n_seg), out=offsets[1:])
+    return prepare(
+        torch.as_tensor(offsets).to(device),
+        torch.as_tensor(np.asarray(other, dtype=np.int64)[order]).to(device),
+        torch.as_tensor(np.asarray(mult)[order]).to(device=device,
+                                                    dtype=dtype), n_other)
+
+
 def problem_to_device(problem: SolverProblem, device: torch.device,
                       dtype: torch.dtype) -> DeviceProblem:
     """Move a SolverProblem to ``device`` in ``dtype``, with the edges
@@ -107,32 +125,25 @@ def problem_to_device(problem: SolverProblem, device: torch.device,
     sorts of the edge list, so each segment keeps the edges' own order
     (``build_problem`` emits edges sorted by (cid, tid): the cid grouping
     is then the identity)."""
-    cid = np.asarray(problem.edge_cid, dtype=np.int64)
-    tid = np.asarray(problem.edge_tid, dtype=np.int64)
-    mult = np.asarray(problem.edge_mult)
+    cid, tid, mult = problem.edge_cid, problem.edge_tid, problem.edge_mult
 
     def f(a):
         return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
 
-    def i(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(device)
-
-    def groups(seg, other, n_seg, n_other):
-        order = np.argsort(seg, kind="stable")
-        offsets = np.zeros(n_seg + 1, dtype=np.int64)
-        np.cumsum(np.bincount(seg, minlength=n_seg), out=offsets[1:])
-        return prepare(i(offsets), i(other[order]), f(mult[order]), n_other)
-
     n_seg = len(problem.eumaps)
     ntid = problem.n_transcripts
-    denom = f(problem.denom)
-    pos = denom > 0
-    inv_denom = torch.where(pos, 1.0 / torch.where(pos, denom, 1.0), 0.0)
     return DeviceProblem(
-        n_segments=n_seg, by_cid=groups(cid, tid, n_seg, ntid),
-        by_tid=groups(tid, cid, ntid, n_seg),
+        n_segments=n_seg,
+        by_cid=group_edges(cid, tid, mult, n_seg, ntid, device, dtype),
+        by_tid=group_edges(tid, cid, mult, ntid, n_seg, device, dtype),
         eumaps=f(problem.eumaps), reads=f(problem.reads),
-        inv_denom=inv_denom)
+        inv_denom=inverse_denom(f(problem.denom)))
+
+
+def inverse_denom(denom: torch.Tensor) -> torch.Tensor:
+    """1 / denom where denom > 0, else 0."""
+    pos = denom > 0
+    return torch.where(pos, 1.0 / torch.where(pos, denom, 1.0), 0.0)
 
 
 def _segment_sum(g: EdgeGroups, x: torch.Tensor) -> torch.Tensor:
@@ -169,12 +180,15 @@ def gain_of(reads: torch.Tensor, eumaps: torch.Tensor, s_old: torch.Tensor,
     return torch.sum(term - eumaps * (s_new - s_old), dim=-1)
 
 
-def _loglik_of(p: DeviceProblem, s: torch.Tensor) -> torch.Tensor:
-    lam = p.eumaps * s
+def loglik_of(reads: torch.Tensor, eumaps: torch.Tensor, s: torch.Tensor
+              ) -> torch.Tensor:
+    """logL of intensities ``s`` summed over the last (segment) axis; a
+    read-bearing segment of zero intensity counts -1e30."""
+    lam = eumaps * s
     pos = lam > 0
     safe = torch.where(pos, lam, 1.0)
-    dead = (p.reads > 0).to(s.dtype) * -1e30
-    return torch.sum(torch.where(pos, p.reads * torch.log(safe) - lam, dead),
+    dead = (reads > 0).to(s.dtype) * -1e30
+    return torch.sum(torch.where(pos, reads * torch.log(safe) - lam, dead),
                      dim=-1)
 
 
@@ -228,7 +242,7 @@ def em_solve(p: DeviceProblem, theta0: torch.Tensor, epsilon: float,
         active = active & (gain >= epsilon)
         if not (it * block_iters * 3 < max_iters and bool(active.any())):
             break
-    return theta, _loglik_of(p, s_prev), it
+    return theta, loglik_of(p.reads, p.eumaps, s_prev), it
 
 
 def polish_host_f64(problem: SolverProblem, theta: np.ndarray,
@@ -345,13 +359,27 @@ def solve_restart_rounds(problem: SolverProblem, n_rounds: int,
     return theta
 
 
+def read_attribution_starts(problem: SolverProblem, reads: np.ndarray,
+                            denom: np.ndarray) -> np.ndarray:
+    """The solve's default start of each sample (float64 [S, ntid]) from
+    its reads [S, C] and denominators [S, ntid]: every segment's reads
+    granted fully to each member transcript (upper-bound scale), over the
+    denominator (0 where it is 0)."""
+    S, T = reads.shape[0], problem.n_transcripts
+    rows = np.repeat(np.arange(S, dtype=np.int64) * T, len(problem.edge_tid))
+    num0 = np.bincount(  # sums each transcript's edges in edge order
+        rows + np.tile(problem.edge_tid.astype(np.int64), S),
+        weights=(problem.edge_mult[None, :]
+                 * reads[:, problem.edge_cid]).ravel(),
+        minlength=S * T).reshape(S, T)
+    th0 = num0 / np.where(denom > 0, denom, 1.0)
+    return np.where(denom > 0, th0, 0.0)
+
+
 def read_attribution_start(problem: SolverProblem) -> np.ndarray:
-    """The solve's default start (float64 [ntid]): every segment's reads
-    granted fully to each member transcript (upper-bound scale)."""
-    num0 = np.zeros(problem.n_transcripts, dtype=np.float64)
-    np.add.at(num0, problem.edge_tid,
-              problem.edge_mult * problem.reads[problem.edge_cid])
-    return num0 / np.where(problem.denom > 0, problem.denom, 1.0)
+    """The solve's default start (float64 [ntid])."""
+    return read_attribution_starts(problem, problem.reads[None],
+                                   problem.denom[None])[0]
 
 
 def solve(problem: SolverProblem, device: torch.device,

@@ -1,8 +1,10 @@
 // The CUDA the port's kernels use, emulated on the CPU so that g++ can
 // build a kernel source and run it: one std::thread per CUDA thread,
 // blocks one after another, a barrier for __syncthreads and one per warp
-// for __syncwarp, the shuffles and the ballots, atomicAdd, atomicOr and
-// atomicCAS through std::atomic_ref.  Block-level __shared__ variables
+// for __syncwarp (and one per group of lanes for a shuffle of width < 32),
+// the shuffles and the ballots, atomicAdd, atomicOr and atomicCAS through
+// std::atomic_ref, and the round-to-nearest float intrinsics as plain
+// IEEE operations (g++ contracts no FMA for x86-64 without -mfma).  Block-level __shared__ variables
 // become statics (one block runs at a time).  tests/test_torch_cuda_
 // emulated.py rewrites each `kernel<<<grid, block, smem, stream>>>(args)`
 // into emu_launch(grid, block, smem, [&] { kernel(args); }).
@@ -77,9 +79,17 @@ inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t s) {
   return (uint32_t)(((((uint64_t)hi) << 32) | lo) << (s & 31) >> 32);
 }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
 
 struct EmuWarp {
   std::unique_ptr<std::barrier<>> bar;
+  // sub[k][i]: the barrier of lanes [i << k, (i + 1) << k), k = 1..4
+  std::unique_ptr<std::barrier<>> sub[5][16];
   unsigned char slot[32][8];
 };
 inline std::vector<EmuWarp>* emu_warps;
@@ -91,18 +101,25 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
   (*emu_warps)[threadIdx.x >> 5].bar->arrive_and_wait();
 }
 template <class T>
-T emu_shfl(T v, int src) {
+T emu_shfl(T v, int src, int width = 32) {
   EmuWarp& w = (*emu_warps)[threadIdx.x >> 5];
-  std::memcpy(w.slot[threadIdx.x & 31], &v, sizeof(T));
-  w.bar->arrive_and_wait();
+  const int lane = threadIdx.x & 31;
+  std::barrier<>* bar = w.bar.get();
+  if (width < 32) {  // only the lanes of this group take part
+    const int k = __builtin_ctz(width);
+    bar = w.sub[k][lane >> k].get();
+    src = (lane & ~(width - 1)) | (src & (width - 1));
+  }
+  std::memcpy(w.slot[lane], &v, sizeof(T));
+  bar->arrive_and_wait();
   T out;
   std::memcpy(&out, w.slot[src & 31], sizeof(T));
-  w.bar->arrive_and_wait();
+  bar->arrive_and_wait();
   return out;
 }
 template <class T>
-T __shfl_sync(unsigned, T v, int src) {
-  return emu_shfl(v, src);
+T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  return emu_shfl(v, src, width);
 }
 template <class T>
 T __shfl_xor_sync(unsigned, T v, int o) {
@@ -137,7 +154,12 @@ inline void emu_launch(long long grid, int block, size_t smem,
     std::barrier<> bar(block);
     emu_block_bar = &bar;
     std::vector<EmuWarp> warps((block + 31) / 32);
-    for (auto& w : warps) w.bar = std::make_unique<std::barrier<>>(32);
+    for (auto& w : warps) {
+      w.bar = std::make_unique<std::barrier<>>(32);
+      for (int k = 1; k < 5; ++k)
+        for (int i = 0; i < (32 >> k); ++i)
+          w.sub[k][i] = std::make_unique<std::barrier<>>(1 << k);
+    }
     emu_warps = &warps;
     std::vector<std::thread> threads;
     for (int t = 0; t < block; ++t)

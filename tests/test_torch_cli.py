@@ -1,7 +1,7 @@
 """The port's ``emsar -I`` CLI against the JAX package's on the same .rsh
 and bowtie alignments: .fraglength_effect byte-equal, .segments structural
-columns equal, gene-level TPM and logL equal; plus stdin, -M, -R and the
-flags that are not ported yet or need -x."""
+columns equal, gene-level TPM and logL equal; plus stdin, -M, -R and -m 1
+(which needs -x)."""
 
 import os
 import subprocess
@@ -161,17 +161,12 @@ def test_print_rsh_matches_jax(fixture, tmp_path):
             == open(rsh, "rb").read())
 
 
-NOT_PORTED = "not yet ported to emsar_tpu_torch"
-
-
 @pytest.mark.parametrize("flags,message", [
-    (["-m", "1", "-I"], "requires -x fastafile (not -I)"),
-    (["-M", "--batch_samples", "-I"], NOT_PORTED),
-    (["-M", "--dist_merge_shards", "-I"], NOT_PORTED)],
-    ids=["posbias", "batch_samples", "dist_merge_shards"])
+    (["-m", "1", "-I"], "requires -x fastafile (not -I)")],
+    ids=["posbias"])
 def test_unported_flags_exit(fixture, tmp_path, flags, message, capsys):
-    """What is not ported exits with an error: batched and sharded
-    multisample runs; -m 1 needs -x, as in the JAX package."""
+    """What the port refuses exits with an error: -m 1 needs -x, as in
+    the JAX package."""
     rsh, aln = fixture
     with pytest.raises(SystemExit) as exc:
         torch_cli.main(flags + [rsh, str(tmp_path), "s", aln])

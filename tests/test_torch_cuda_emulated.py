@@ -19,9 +19,11 @@ import torch
 from emsar_tpu_torch.index.device_build import DeviceRef
 from emsar_tpu_torch.index.device_build_pe import rank_pass
 from emsar_tpu_torch.io.fasta import build_transcriptome
-from emsar_tpu_torch.kernels import _build, pe_candidates, squarem, window_hash
+from emsar_tpu_torch.kernels import (_build, pe_candidates, segment_sum,
+                                     squarem, window_hash)
 from emsar_tpu_torch.kernels.check import (block_agreement, block_tol,
                                            random_modules)
+from emsar_tpu_torch.model import solver
 from emsar_tpu_torch.model.dense import SIZE_CLASSES
 from emsar_tpu_torch.sim import gene_family_transcriptome
 
@@ -57,7 +59,8 @@ def _emulated_source(text: str) -> str:
 def emulated(tmp_path_factory):
     """{source: its library built for the CPU emulation}."""
     libs = {}
-    for source in (window_hash.SOURCE, squarem.SOURCE, pe_candidates.SOURCE):
+    for source in (window_hash.SOURCE, squarem.SOURCE, pe_candidates.SOURCE,
+                   segment_sum.SOURCE):
         with open(os.path.join(_build.CSRC_DIR, source)) as fh:
             text = _emulated_source(fh.read())
         cc = tmp_path_factory.mktemp("emu") / (source + ".cc")
@@ -269,3 +272,77 @@ def test_pe_candidates_source_chunk_kinds(emulated, unstranded, kind, nfl):
         unstranded, 5, nfl, 40 if nfl == 400 else 200, kind)
     assert (written > 0, added > 0, dropped > 0) == (
         (True, False, False) if kind == "multi" else (False, True, True))
+
+
+def _sum_problem(rng, n_seg=40, ntid=48, n_edges=700):
+    """A SolverProblem whose last quarter of segments and of transcripts
+    have no edge, segment 0 holding an edge to every other transcript
+    (more edges than a warp), read-less segments among the rest."""
+    used_seg, used_tid = n_seg * 3 // 4, ntid * 3 // 4
+    key = np.unique(np.concatenate([
+        rng.integers(0, used_seg, n_edges) * ntid
+        + rng.integers(0, used_tid, n_edges), np.arange(used_tid)]))
+    return solver.SolverProblem(
+        n_transcripts=ntid, edge_cid=(key // ntid).astype(np.int32),
+        edge_tid=(key % ntid).astype(np.int32),
+        edge_mult=rng.integers(1, 3, len(key)).astype(np.float64),
+        eumaps=rng.uniform(0.1, 2, n_seg),
+        reads=rng.poisson(3, n_seg) * (rng.random(n_seg) < 0.8),
+        denom=rng.uniform(0.5, 3, ntid) * (rng.random(ntid) < 0.9))
+
+
+def _emulated_sum(lib, x, g, lanes, mode, a=None, b=None, a_stride=0):
+    """The emulated launch of csrc/segment_sum.cu over grouping ``g``."""
+    fn = (lib.emsar_segment_sum_f64 if x.dtype == torch.float64
+          else lib.emsar_segment_sum_f32)
+    fn.restype = ctypes.c_int
+    fn.argtypes = segment_sum.ARGTYPES
+    out = torch.full((x.shape[0], g.n_groups), 7.0, dtype=x.dtype)
+    assert fn(x.data_ptr(), g.mult.data_ptr(), g.idx.data_ptr(),
+              g.offsets.data_ptr(), None if a is None else a.data_ptr(),
+              None if b is None else b.data_ptr(), out.data_ptr(),
+              x.shape[0], g.n_groups, g.n_x, a_stride, lanes, mode,
+              None) == 0
+    return out
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["shared", "per_row"])
+@pytest.mark.parametrize("lanes", segment_sum.LANES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_segment_sum_source_matches_plain(emulated, dtype, lanes, per_row):
+    """Mode 0 (the plain sums by cid and by tid), mode 1 (the read ratio)
+    and mode 2 (the update) at every lane count, with reads and inv_denom
+    one row shared by the R = 3 rows of theta or one row each: bit-equal
+    to ``segment_sum_ref`` and ``em_step_ref``, with empty segments, a
+    segment of more edges than a warp, zero thetas and read-less
+    segments."""
+    rng = np.random.default_rng(lanes + 2 * per_row)
+    problem = _sum_problem(rng)
+    p = solver.problem_to_device(problem, torch.device("cpu"), dtype)
+    R, C, T = 3, len(problem.eumaps), problem.n_transcripts
+    theta = rng.uniform(0, 10, (R, T))
+    theta[:, rng.random(T) < 0.2] = 0.0
+    theta = torch.as_tensor(theta).to(dtype)
+    reads, inv_denom = p.reads, p.inv_denom
+    if per_row:  # each row its own sample: scaled reads, other denominators
+        reads = torch.stack([reads * k for k in (1, 2, 0.5)])
+        inv_denom = torch.stack([inv_denom.roll(k) for k in range(R)])
+    lib = emulated[segment_sum.SOURCE]
+    for g, x in ((p.by_cid, theta), (p.by_tid, reads.expand(R, C)
+                                     .contiguous())):
+        want = segment_sum.segment_sum_ref(x, g.mult, g.idx, g.offsets)
+        assert torch.equal(_emulated_sum(lib, x, g, lanes, 0), want)
+    stride = C if per_row else 0
+    ratio = _emulated_sum(lib, theta, p.by_cid, lanes, 1, a=reads,
+                          a_stride=stride)
+    s = segment_sum.segment_sum_ref(theta, p.by_cid.mult, p.by_cid.idx,
+                                    p.by_cid.offsets)
+    assert (s == 0).any() and (reads == 0).any()
+    assert torch.equal(ratio, torch.where(s > 0, reads / torch.where(
+        s > 0, s, 1.0), 0.0))
+    got = _emulated_sum(lib, ratio, p.by_tid, lanes, 2, a=inv_denom,
+                        b=theta, a_stride=T if per_row else 0)
+    want = segment_sum.em_step_ref(theta, p.by_cid, p.by_tid, reads,
+                                   inv_denom)
+    assert torch.equal(got, want) and (want > 0).any()

@@ -26,6 +26,7 @@ _NO_JAX = textwrap.dedent("""
     import numpy as np
     import emsar_tpu_torch
     import emsar_tpu_torch.bench.kernel_ab
+    import emsar_tpu_torch.bench.multisample
     import emsar_tpu_torch.bench.segment_sum_ab
     import emsar_tpu_torch.cli.emsar as cli
     import emsar_tpu_torch.cli.emsar_build as build_cli
@@ -37,6 +38,8 @@ _NO_JAX = textwrap.dedent("""
     import emsar_tpu_torch.kernels.squarem
     import emsar_tpu_torch.kernels.window_hash
     import emsar_tpu_torch.model.quantify as quant
+    import emsar_tpu_torch.parallel.dist
+    import emsar_tpu_torch.parallel.mesh
     from emsar_tpu_torch.config import BuildConfig, QuantConfig
     from emsar_tpu_torch.device import resolve_device
     from emsar_tpu_torch.index.build import build_se_index
@@ -67,6 +70,10 @@ _NO_JAX = textwrap.dedent("""
     res = quant.quantify_sample(
         idx, counts, QuantConfig(verbose=0, solver_mode="csr"), dev)
     assert np.isfinite(res.loglik) and np.isfinite(res.fpkm).all()
+    # the batched multisample solve (parallel/mesh.py, a world of one)
+    for res in quant.quantify_samples_batched(
+            idx, [counts, counts], QuantConfig(verbose=0), dev):
+        assert np.isfinite(res.loglik) and np.isfinite(res.fpkm).all()
 
     # the CLIs end to end: the SE build, then -I on a bowtie file (native
     # ingest, its own C++ library) and -x with -m 1 on the same file

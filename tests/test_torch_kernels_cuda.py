@@ -204,6 +204,37 @@ def test_em_step_matches_cpu_em_iter(cuda, dtype, R):
     assert torch.equal(got.cpu(), solver._em_iter(p_cpu, th))
 
 
+@pytest.mark.parametrize("R", [3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_em_step_per_sample_operands_match_cpu(cuda, dtype, R):
+    """em_step with reads [R, C] and inv_denom [R, ntid], a row each (the
+    batched multisample solve), gives the bits of its plain version on
+    the CPU, on two calls; an operand of another shape is refused."""
+    rng = np.random.default_rng(R + 7)
+    problem = _random_problem(rng, 3000, 1200, 12000)
+    C, T = len(problem.eumaps), problem.n_transcripts
+    theta = rng.uniform(0, 10, (R, T))
+    theta[:, rng.random(T) < 0.2] = 0.0
+    reads = rng.poisson(3, (R, C)) * 1.0
+    inv_denom = rng.uniform(0.2, 2, (R, T)) * (rng.random((R, T)) < 0.95)
+    p_gpu = solver.problem_to_device(problem, cuda, dtype)
+    p_cpu = solver.problem_to_device(problem, torch.device("cpu"), dtype)
+    th, rd, inv = (torch.as_tensor(a).to(dtype)
+                   for a in (theta, reads, inv_denom))
+    before = ssum.EM_LAUNCHES
+    got = [ssum.em_step(th.to(cuda), p_gpu.by_cid, p_gpu.by_tid,
+                        rd.to(cuda), inv.to(cuda)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ssum.EM_LAUNCHES == before + 4
+    want = ssum.em_step_ref(th, p_cpu.by_cid, p_cpu.by_tid, rd, inv)
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0].cpu(), want)
+    with pytest.raises(ValueError, match="reads"):
+        ssum.em_step(th.to(cuda), p_gpu.by_cid, p_gpu.by_tid,
+                     rd[:1].to(cuda), inv.to(cuda))
+
+
 @pytest.mark.parametrize("nfl", [1, 11, 400])
 @pytest.mark.parametrize("d0", [0, 189])
 @pytest.mark.parametrize("unstranded", [True, False], ids=["ns", "ssfr"])
