@@ -37,9 +37,10 @@ exit, no result line):
 6. Kernels against plain versions at the main path's shapes: the SQUAREM
    block on its dense batches (float64), the segment sums and em_step on
    its CSR problem (bit-equal to the CPU); max abs error, device and host
-   times, bounds.  Then the CSR solve: CSR_BLOCKS blocks to its end, and
-   over three blocks the ms per block, the kernel launches per block and
-   the device busy share (torch.profiler).
+   times, bounds.  Then the CSR solve, its blocks replayed from a CUDA
+   graph (``model/loop.py``): CSR_BLOCKS blocks to its end; the whole
+   solve's ms per block, capture ms, kernel launches per block run and
+   device busy share (torch.profiler).
 7. The SE index build on the card: ``emsar-build-torch smoke.fa 50`` must
    write the NumPy builder's smoke.rsh byte for byte (window-hash launch
    count > 0), and ``emsar-torch --solver_pallas -x smoke.fa`` must agree
@@ -103,6 +104,14 @@ exit, no result line):
    300`` of phase 10's transcriptome sharded over both (a budget of >= 4
    chunks set by a ``python -c`` launcher), byte-equal to phase 10's
    unsharded build.
+14. The convergence loops on the card (``emsar_tpu_torch/model/loop.py``):
+   the CSR solve of phase 6, both dense size classes with torch.bmm and
+   with ``squarem_block``, their restart rounds (R = 3) and the 16-sample
+   batched solve of phase 13, each replayed from a CUDA graph against the
+   plain loop (the stop flag read after every block, as before the graph
+   loop): theta, logL and block count bit-equal; ms per block both ways,
+   blocks run after the stop, capture ms, device busy share and kernels
+   per block (torch.profiler); the CSR block's bound.
 
 Times on the card (``kernels/measure.py``): ``ms`` is device time per
 call, CUDA events around calls queued back to back behind a sleep kernel;
@@ -870,17 +879,37 @@ def phase_segment_sum_main(x, dev):
     return {"segment_sum": seg, "em_step": em}, problem
 
 
-def phase_csr_profile(problem, dev, n_blocks: int = 3) -> dict:
-    """The CSR solve of the main path on the card: the whole solve must
-    stop after CSR_BLOCKS blocks; then ``n_blocks`` blocks from the same
-    start, timed (ms per block, host clock around work that ends in a
-    sync), counted (kernel launches per block: the port's counts and every
-    kernel the profiler saw) and profiled (device busy share: kernel time
-    on the card over the wall time of the window, torch.profiler)."""
+def _profiled(run):
+    """(``run()``'s result, wall seconds, device kernels, device busy
+    seconds) of one ``run()`` under torch.profiler: the kernels the card
+    ran and their summed time (a graph's kernels each count)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    return out, wall, len(kernels), busy_s
+
+
+def phase_csr_profile(problem, dev) -> dict:
+    """The CSR solve of the main path on the card, its blocks replayed
+    from a CUDA graph (``model/loop.py``): it must stop after CSR_BLOCKS
+    blocks; then, after a warm solve, the whole solve timed (ms per block,
+    host clock around work that ends in a sync), counted (the port's
+    kernel launches and every kernel the profiler saw, per block run) and
+    profiled (device busy share: kernel time on the card over the wall
+    time of the solve, torch.profiler)."""
     import numpy as np
     import torch
 
     from emsar_tpu_torch.kernels import segment_sum as ss
+    from emsar_tpu_torch.model import loop
     from emsar_tpu_torch.model.solver import (em_solve, problem_to_device,
                                               read_attribution_start, solve)
     _, ll, blocks = solve(problem, dev, dtype=np.float64)
@@ -890,10 +919,9 @@ def phase_csr_profile(problem, dev, n_blocks: int = 3) -> dict:
                              f"{CSR_BLOCKS}")
     p = problem_to_device(problem, dev, torch.float64)
     th0 = torch.as_tensor(read_attribution_start(problem))[None].to(dev)
-    max_iters = n_blocks * 8 * 3
 
     def run():
-        out = em_solve(p, th0, 1e-9, 8, max_iters)
+        out = em_solve(p, th0, 1e-9, N_ITERS, 200000)
         torch.cuda.synchronize()
         return out
 
@@ -902,22 +930,17 @@ def phase_csr_profile(problem, dev, n_blocks: int = 3) -> dict:
     t0 = time.perf_counter()
     _, _, it = run()
     wall = time.perf_counter() - t0
-    ours = (ss.LAUNCHES + ss.EM_LAUNCHES - n0) / it
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        prof_wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    busy = busy_us / (prof_wall * 1e6) if kernels else None
-    out = {"blocks": it, "ms_per_block": wall * 1e3 / it,
+    stats = loop.LAST
+    ours = (ss.LAUNCHES + ss.EM_LAUNCHES - n0) / stats.blocks_run
+    _, prof_wall, n_kernels, busy_s = _profiled(run)
+    out = {"blocks": it, "blocks_run": stats.blocks_run,
+           "ms_per_block": wall * 1e3 / it, "solve_ms": wall * 1e3,
+           "capture_ms": stats.capture_s * 1e3,
            "port_kernel_launches_per_block": ours,
-           "device_kernels_per_block": len(kernels) / it,
-           "device_busy_share": busy, "profiled_wall_s": prof_wall}
-    log(f"CSR blocks on the card: {out}")
+           "device_kernels_per_block": n_kernels / stats.blocks_run,
+           "device_busy_share": busy_s / prof_wall,
+           "profiled_wall_s": prof_wall}
+    log(f"CSR solve on the card (graph loop): {out}")
     return out
 
 
@@ -1718,10 +1741,11 @@ def _sample_checks(rsh: str, paths, runs: dict):
     return out, counts, problems, index
 
 
-def phase_multisample(rsh: str, aln: str, out_root: str, dev) -> dict:
+def phase_multisample(rsh: str, aln: str, out_root: str, dev):
     """Phase 13 (a) and (b): the 16-sample run as the per-sample loop and
     batched, checked; the batched solve against itself on the CPU and
-    timed on the card; em_step at its shape.  Returns what it measured."""
+    timed on the card; em_step at its shape.  Returns (what it measured,
+    the batched solve's ShardedProblem on the card)."""
     import numpy as np
     import torch
 
@@ -1838,7 +1862,7 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev) -> dict:
             "batched_ms_per_block": ms_per_block,
             "batched_nan_gain_samples": nan_samples,
             "loop_vs_batched_gaps": gaps, "em_step_batched": em,
-            "em_step_batched_launches": launches["batched"]["em_step"]}
+            "em_step_batched_launches": launches["batched"]["em_step"]}, sp
 
 
 def _launch_world(argvs, label: str, dev, timeout: float = 300.0) -> list:
@@ -1958,6 +1982,149 @@ def phase_distribution(rsh: str, aln: str, pe_fa: str, out_root: str,
             "pe_sharded_launches_per_rank": per_rank}
 
 
+def _bits(x):
+    """float64 bit patterns of a tensor, array or float (NaN equals
+    itself)."""
+    import numpy as np
+    import torch
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.ascontiguousarray(np.asarray(x, dtype=np.float64)).view(
+        np.uint64)
+
+
+def csr_block_bound_ms(p) -> float:
+    """A CSR block's bound (8 cycles of 3 em_step and 2 by-cid sums, then
+    the intensities: the hand kernels' bounds of ``check_em_step`` and
+    ``check_segment_sum`` summed; the block's small elementwise kernels
+    are left out).  ``p`` is a DeviceProblem, R = 1."""
+    from emsar_tpu_torch.kernels import measure
+    R, (C, T) = 1, (p.by_cid.n_groups, p.by_tid.n_groups)
+    E = p.by_cid.idx.shape[0]
+    item = p.reads.element_size()
+    groups = [measure.nbytes(g.mult, g.idx, g.offsets)
+              for g in (p.by_cid, p.by_tid)]
+    em, _ = measure.bound_ms(sum(groups) + item * (2 * T + C + T),
+                             R * (4 * E + C + 2 * T), p.reads.dtype)
+    cid, _ = measure.bound_ms(groups[0] + item * (T + C), 2 * E * R,
+                              p.reads.dtype)
+    return N_ITERS * (3 * em + 2 * cid) + cid
+
+
+def phase_loops(problem, x, sp, dev) -> dict:
+    """Phase 14: the convergence loops on the card, each replayed from a
+    CUDA graph against the plain loop (the stop flag read after every
+    block, no capture: the parent's loop), on the main path's problems at
+    full width: the CSR solve of phase 6, both dense size classes with
+    torch.bmm and with ``squarem_block``, their restart rounds (R = 3,
+    ``_make_rounds_dense``'s inits) and the 16-sample batched solve of
+    phase 13.  Each must give the plain loop's theta, logL and block count
+    bit for bit.  Per loop: ms per block both ways (after a warm solve
+    each), the blocks the graph ran after the stop, the capture's ms, and
+    the device busy share and kernels per block run of each
+    (torch.profiler).  Returns what it measured."""
+    import numpy as np
+    import torch
+
+    from emsar_tpu_torch.config import QuantConfig
+    from emsar_tpu_torch.model import loop
+    from emsar_tpu_torch.model.dense import (_dense_solve_pallas, _pad_b,
+                                             _solve_loop, _theta0,
+                                             batch_to_device,
+                                             partition_modules, subset_batch)
+    from emsar_tpu_torch.model.quantify import _restart_eps
+    from emsar_tpu_torch.model.solver import (em_solve, problem_to_device,
+                                              read_attribution_start)
+    from emsar_tpu_torch.parallel.mesh import solve_sharded
+
+    cfg = QuantConfig(verbose=0)
+    eps = cfg.epsilon
+    p = problem_to_device(problem, dev, torch.float64)
+    th0 = torch.as_tensor(read_attribution_start(problem))[None].to(dev)
+    cases = [("csr", lambda plain: em_solve(p, th0, eps, N_ITERS, 200000,
+                                            plain=plain))]
+    part = partition_modules(x.graph, x.modules, x.eumaps, x.read_count,
+                             dtype=np.float64)
+    rng = np.random.default_rng(np.uint64(0x5EED_0001))
+    n_extra = cfg.num_round - 1
+    for batch in part.batches:
+        cls = "x".join(map(str, batch.shape[1:]))
+        padded = batch_to_device(_pad_b(batch)[0], dev, torch.float64)
+        db = batch_to_device(batch, dev, torch.float64)
+        cases.append((f"bmm {cls}", lambda plain, d=padded: _solve_loop(
+            d, _theta0(d)[None], eps, N_ITERS, 2048, plain=plain)))
+        cases.append((f"kernel {cls}", lambda plain, d=db: (
+            _dense_solve_pallas(d, eps, N_ITERS, 2048, plain=plain))))
+        rows = np.flatnonzero((batch.tid_map >= 0).sum(axis=1) >= 2)
+        sub, nB = _pad_b(subset_batch(batch, rows))
+        inits = rng.uniform(0.0, 100.0, size=(n_extra, nB, sub.shape[2]))
+        inits = np.where(sub.tid_map[None, :nB] >= 0, inits, 0.0)
+        inits = np.pad(inits, ((0, 0), (0, sub.shape[0] - nB), (0, 0)))
+        dr = batch_to_device(sub, dev, torch.float64)
+        tr = torch.as_tensor(inits).to(dev)
+        cases.append((f"restarts {cls} R={n_extra}",
+                      lambda plain, d=dr, t=tr: _solve_loop(
+                          d, t, _restart_eps(cfg), N_ITERS, 2048,
+                          plain=plain)))
+    cases.append((f"batched S={MS_SAMPLES}", lambda plain: solve_sharded(
+        sp, epsilon=eps, block_iters=N_ITERS, plain=plain)))
+
+    def result(out):
+        """(theta, logL or None, blocks) of a solve's return."""
+        return (out[0], None, out[1]) if len(out) == 2 else out
+
+    measured, failed = {}, []
+    for label, fn in cases:
+        runs = {}
+        for plain in (True, False):
+            fn(plain)  # warm: the graph loop builds, captures, replays
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = result(fn(plain))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            stats = loop.LAST
+            _, prof_wall, n_kernels, busy_s = _profiled(lambda: fn(plain))
+            runs["plain" if plain else "graph"] = (out, wall, stats, dict(
+                busy_share=busy_s / prof_wall,
+                kernels_per_block=n_kernels / stats.blocks_run))
+        (pl, p_wall, _, p_prof), (gr, g_wall, g_st, g_prof) = (
+            runs["plain"], runs["graph"])
+        it = gr[2]
+        same = (it == pl[2] and np.array_equal(_bits(gr[0]), _bits(pl[0]))
+                and (gr[1] is None or np.array_equal(_bits(gr[1]),
+                                                     _bits(pl[1]))))
+        m = {"blocks": it, "graph_ms_per_block": g_wall * 1e3 / it,
+             "plain_ms_per_block": p_wall * 1e3 / it,
+             "graph_solve_ms": g_wall * 1e3, "plain_solve_ms": p_wall * 1e3,
+             "blocks_after_stop": g_st.blocks_run - it,
+             "flag_reads": g_st.reads, "capture_ms": g_st.capture_s * 1e3,
+             "graph_busy_share": g_prof["busy_share"],
+             "plain_busy_share": p_prof["busy_share"],
+             "graph_kernels_per_block": g_prof["kernels_per_block"],
+             "plain_kernels_per_block": p_prof["kernels_per_block"],
+             "bit_equal": same}
+        if label == "csr":
+            m["bound_ms_per_block"] = csr_block_bound_ms(p)
+        measured[label] = m
+        log(f"loop {label}: {it} blocks; graph {m['graph_ms_per_block']:.4f}"
+            f" ms a block ({g_wall * 1e3:.2f} ms, capture "
+            f"{m['capture_ms']:.2f} ms, {m['blocks_after_stop']} blocks after "
+            f"the stop, {g_st.reads} flag reads, busy "
+            f"{m['graph_busy_share']:.3f}, "
+            f"{m['graph_kernels_per_block']:.1f} kernels a block); plain "
+            f"{m['plain_ms_per_block']:.4f} ms a block ({p_wall * 1e3:.2f} "
+            f"ms, busy {m['plain_busy_share']:.3f}, "
+            f"{m['plain_kernels_per_block']:.1f} kernels a block); theta, "
+            f"logL and blocks bit-equal {same}")
+        if not same:
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"graph loops differ from the plain loop: "
+                             f"{failed}")
+    return measured
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "emsar_tpu_torch")):
         raise SystemExit("chip_smoke.py must run from a checkout of the "
@@ -2013,9 +2180,16 @@ def main() -> int:
     os.remove(scale_fa)
 
     t0 = time.perf_counter()
-    multisample = phase_multisample(rsh, aln, out_root, dev)
+    multisample, batched_sp = phase_multisample(rsh, aln, out_root, dev)
     multisample.update(phase_distribution(rsh, aln, pe_fa, out_root, dev))
-    log(f"multisample and distribution: {time.perf_counter() - t0:.1f} s")
+    seconds["multisample"] = {"total": time.perf_counter() - t0}
+    log(f"multisample and distribution: {seconds['multisample']['total']:.1f}"
+        f" s")
+
+    t0 = time.perf_counter()
+    loops = phase_loops(problem, sample, batched_sp, dev)
+    seconds["loops"] = {"total": time.perf_counter() - t0}
+    log(f"convergence loops: {seconds['loops']['total']:.1f} s")
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     main_launches = {"squarem_block": launches["kernel"]["squarem_block"],
@@ -2037,7 +2211,8 @@ def main() -> int:
         for _, row, n, m in rows]}))
     print(json.dumps({"phase_seconds": seconds, "csr_blocks": csr_blocks,
                       "scale_build": scale, "scale_pe_build": scale_pe,
-                      "multisample": multisample, "ptxas": ptxas}))
+                      "multisample": multisample, "loops": loops,
+                      "ptxas": ptxas}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,9 @@ In turns (parent, change, change, parent), each of:
   (``kernels.measure.device_ms``) and host ms per call, through what each
   solver calls (the parent's public ``segment_sum``, this ``sum_groups``);
 * one EM step (``model.solver._em_iter`` of each);
-* three SQUAREM blocks of the solve (``em_solve``), ms per block with a
-  sync at the end;
+* the whole solve through each checkout's own ``em_solve`` (its
+  convergence loop: the parent's may read the stop flag every block, this
+  one replays a CUDA graph), ms per block with a sync at the end;
 * the whole CSR solve, its blocks and logL.
 
 The two must give the same bits (sums, EM step) and the same blocks and
@@ -53,12 +54,13 @@ def timed(fn) -> dict:
             "host_ms": host}
 
 
-def blocks_ms(em_solve, p, th0, n_blocks: int = 3) -> float:
-    """Wall ms per SQUAREM block over ``n_blocks`` blocks, synced."""
-    em_solve(p, th0, 1e-9, 8, n_blocks * 24)
+def blocks_ms(em_solve, p, th0) -> float:
+    """Wall ms per SQUAREM block of the whole solve, synced (after a warm
+    solve)."""
+    em_solve(p, th0, 1e-9, 8, 200000)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, _, it = em_solve(p, th0, 1e-9, 8, n_blocks * 24)
+    _, _, it = em_solve(p, th0, 1e-9, 8, 200000)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / it
 

@@ -15,7 +15,8 @@ M is materialized there by a scatter-add of 1.0 (exact in any order).
 
 ``use_pallas=True`` runs each block of SQUAREM cycles in the hand-written
 CUDA kernel ``kernels.squarem.squarem_block`` (the port of the Pallas
-``_pallas_block``) inside a host convergence loop.
+``_pallas_block``).  Both paths converge in ``model/loop.py``'s
+``while_loop`` (JAX's ``lax.while_loop``: a CUDA graph on the card).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..kernels.squarem import squarem_block
+from . import loop
 from .modules import ModuleDecomposition, SegmentGraph
 from .solver import gain_of, torch_dtype
 
@@ -224,74 +226,78 @@ def _theta0(db: DeviceBatch) -> torch.Tensor:
     return _mc(db.m, db.reads) * db.inv_denom
 
 
+def _cycle(db: DeviceBatch, th: torch.Tensor) -> torch.Tensor:
+    """One stabilized SQUAREM cycle of every module of ``th`` [..., B, T]
+    (the JAX ``_solve_loop``'s ``cycle``)."""
+    m, E, R, inv = db.m, db.eumaps, db.reads, db.inv_denom
+    t1 = _em_iter_dense(m, R, inv, th)
+    t2 = _em_iter_dense(m, R, inv, t1)
+    r = t1 - th
+    v = t2 - t1 - r
+    rn = torch.sqrt(torch.sum(r * r, dim=-1, keepdim=True))
+    vn = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+    alpha = torch.where(vn > 0, -rn / torch.where(vn > 0, vn, 1.0), -1.0)
+    alpha = torch.clamp(alpha, max=-1.0)
+    # coordinates the extrapolation would clamp to 0 take the plain
+    # double-EM value instead: an exact 0 is an absorbing boundary for
+    # multiplicative EM and can freeze a suboptimal KKT point
+    extrap = th - 2.0 * alpha * r + alpha * alpha * v
+    cand = _em_iter_dense(m, R, inv, torch.where(extrap > 0, extrap, t2))
+    better = gain_of(R, E, _mt(m, t2), _mt(m, cand)) >= 0
+    return torch.where(better[..., None], cand, t2)
+
+
 def _solve_loop(db: DeviceBatch, theta0: torch.Tensor, epsilon: float,
-                block_iters: int, max_blocks: int
+                block_iters: int, max_blocks: int, *, plain: bool = False
                 ) -> Tuple[torch.Tensor, int]:
     """SQUAREM EM from ``theta0`` [R, B, T] with the CSR solver's
     convergence semantics (termwise likelihood gains, per-module max).  A
     round stops when its best module's block gain drops below epsilon; the
-    loop runs until every round has stopped or ``max_blocks``.  One host
-    sync per block."""
-    m, E, R, inv = db.m, db.eumaps, db.reads, db.inv_denom
-
-    def cycle(th):
-        t1 = _em_iter_dense(m, R, inv, th)
-        t2 = _em_iter_dense(m, R, inv, t1)
-        r = t1 - th
-        v = t2 - t1 - r
-        rn = torch.sqrt(torch.sum(r * r, dim=-1, keepdim=True))
-        vn = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
-        alpha = torch.where(vn > 0, -rn / torch.where(vn > 0, vn, 1.0), -1.0)
-        alpha = torch.clamp(alpha, max=-1.0)
-        # coordinates the extrapolation would clamp to 0 take the plain
-        # double-EM value instead: an exact 0 is an absorbing boundary for
-        # multiplicative EM and can freeze a suboptimal KKT point
-        extrap = th - 2.0 * alpha * r + alpha * alpha * v
-        cand = _em_iter_dense(m, R, inv, torch.where(extrap > 0, extrap, t2))
-        better = gain_of(R, E, _mt(m, t2), _mt(m, cand)) >= 0
-        return torch.where(better[..., None], cand, t2)
-
-    th = theta0
-    s_prev = _mt(m, th)
+    loop runs until every round has stopped or ``max_blocks``.  The blocks
+    run in ``loop.while_loop`` (``plain``: the flag read every block)."""
+    th = theta0.clone()
+    s_prev = _mt(db.m, th)
     active = torch.ones(th.shape[0], dtype=torch.bool, device=th.device)
-    it = 0
-    while True:
+    it = torch.zeros((), dtype=torch.int64, device=th.device)
+
+    def block():
         new = th
         for _ in range(block_iters):
-            new = cycle(new)
-        s_new = _mt(m, new)
-        gain = torch.amax(gain_of(R, E, s_prev, s_new), dim=-1)
+            new = _cycle(db, new)
+        s_new = _mt(db.m, new)
+        gain = torch.amax(gain_of(db.reads, db.eumaps, s_prev, s_new),
+                          dim=-1)
         # rounds that already stopped keep their state (vmap'd while_loop)
-        th = torch.where(active[:, None, None], new, th)
-        s_prev = torch.where(active[:, None, None], s_new, s_prev)
-        it += 1
-        active = active & (gain >= epsilon)
-        if not (it < max_blocks and bool(active.any())):
-            break
-    return th, it
+        loop.advance(active, it, ((th, new), (s_prev, s_new)))
+        active.logical_and_((gain >= epsilon) & (it < max_blocks))
+
+    loop.while_loop(block, active, plain=plain)
+    return th, int(it)
 
 
 def _dense_solve_pallas(db: DeviceBatch, epsilon: float, block_iters: int,
-                        max_blocks: int) -> Tuple[torch.Tensor, int]:
+                        max_blocks: int, *, plain: bool = False
+                        ) -> Tuple[torch.Tensor, int]:
     """The kernel path: each block of ``block_iters`` SQUAREM cycles is one
-    ``squarem_block`` launch; between blocks the host evaluates the same
-    termwise likelihood gain as ``_solve_loop``.  The loop syncs once per
-    block through ``.item()`` (the JAX code keeps it in a device
-    ``while_loop``; moving it onto the device or into CUDA graphs is
-    queued)."""
+    ``squarem_block`` launch, then the same termwise likelihood gain as
+    ``_solve_loop``, with one stop for the whole batch (an ``active``
+    flag, so that blocks after the stop keep theta).  The blocks run in
+    ``loop.while_loop``, as JAX's run in its device ``while_loop``."""
     th = _theta0(db)
     s_prev = _mt(db.m, th)
-    it = 0
-    while True:
-        th = squarem_block(db.m, db.eumaps, db.reads, db.inv_denom, th,
-                           block_iters)
-        s_new = _mt(db.m, th)
+    active = torch.ones((), dtype=torch.bool, device=th.device)
+    it = torch.zeros((), dtype=torch.int64, device=th.device)
+
+    def block():
+        new = squarem_block(db.m, db.eumaps, db.reads, db.inv_denom, th,
+                            block_iters)
+        s_new = _mt(db.m, new)
         gain = torch.max(gain_of(db.reads, db.eumaps, s_prev, s_new))
-        s_prev = s_new
-        it += 1
-        if not (gain.item() >= epsilon and it < max_blocks):
-            break
-    return th, it
+        loop.advance(active, it, ((th, new), (s_prev, s_new)))
+        active.logical_and_((gain >= epsilon) & (it < max_blocks))
+
+    loop.while_loop(block, active, plain=plain)
+    return th, int(it)
 
 
 def subset_batch(batch: DenseBatch, rows: np.ndarray) -> DenseBatch:

@@ -16,11 +16,12 @@ global (cid, tid, multiplicity) edge list.  Every segment sum goes through
 bits on every run (``index_add_`` on CUDA sums with float atomics), and
 the card gives the CPU's bits.
 
-The loop runs on the host one block of ``block_iters`` cycles at a time and
-syncs once per block to test convergence (JAX's ``lax.while_loop`` keeps it
-on the device; moving it there is queued).  Restart rounds, vmapped in the
-JAX package, ride a leading ``[R, ntid]`` axis with a per-round convergence
-mask, so every round stops exactly where it would stop alone.
+The convergence loop is ``model/loop.py``'s ``while_loop`` (JAX's
+``lax.while_loop``): blocks of ``block_iters`` cycles replayed from a CUDA
+graph on the card, the stop flag read once per ``loop.CHECK_EVERY``
+blocks.  Restart rounds, vmapped in the JAX package, ride a leading
+``[R, ntid]`` axis with a per-round convergence mask, so every round stops
+exactly where it would stop alone.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 
 from ..kernels.segment_sum import EdgeGroups, em_step, prepare, sum_groups
+from . import loop
 from .modules import ModuleDecomposition, SegmentGraph
 
 
@@ -216,33 +218,34 @@ def _squarem_cycle(p: DeviceProblem, theta: torch.Tensor) -> torch.Tensor:
 
 
 def em_solve(p: DeviceProblem, theta0: torch.Tensor, epsilon: float,
-             block_iters: int, max_iters: int
+             block_iters: int, max_iters: int, *, plain: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """SQUAREM EM from ``theta0`` [R, ntid] until each row's likelihood
     gain over a block drops below ``epsilon`` or the iteration cap is hit
     (the JAX loop's cond, ``it * block_iters * 3 < max_iters``).  Returns
     (theta [R, ntid], logL [R], n_blocks of the longest row).
 
-    The host reads one flag per block (``.item()``), the only sync."""
-    theta = theta0
+    The blocks run in ``loop.while_loop`` (a CUDA graph on the card);
+    ``plain=True`` reads the stop flag after every block instead."""
+    theta = theta0.clone()
     s_prev = _intensities(p, theta)
     active = torch.ones(theta.shape[0], dtype=torch.bool,
                         device=theta.device)
-    it = 0
-    while True:
+    it = torch.zeros((), dtype=torch.int64, device=theta.device)
+
+    def block():
         th = theta
         for _ in range(block_iters):
             th = _squarem_cycle(p, th)
         s_new = _intensities(p, th)
         gain = gain_of(p.reads, p.eumaps, s_prev, s_new)
         # rows that already stopped keep their state (vmap'd while_loop)
-        theta = torch.where(active[:, None], th, theta)
-        s_prev = torch.where(active[:, None], s_new, s_prev)
-        it += 1
-        active = active & (gain >= epsilon)
-        if not (it * block_iters * 3 < max_iters and bool(active.any())):
-            break
-    return theta, loglik_of(p.reads, p.eumaps, s_prev), it
+        loop.advance(active, it, ((theta, th), (s_prev, s_new)))
+        active.logical_and_((gain >= epsilon)
+                            & (it * (block_iters * 3) < max_iters))
+
+    loop.while_loop(block, active, plain=plain)
+    return theta, loglik_of(p.reads, p.eumaps, s_prev), int(it)
 
 
 def polish_host_f64(problem: SolverProblem, theta: np.ndarray,

@@ -31,8 +31,10 @@ sample, one block before the loop, one stop test for the whole problem
 (the block gain summed over every sample, all-reduced over dp, against
 ``epsilon`` and ``max_blocks``), the SQUAREM step-length norms all-reduced
 over tp in the transcript layout, a logL summed over every sample, and
-theta [S, T] gathered to every rank.  The loop reads the gain on the host
-once per block (the JAX package keeps it in ``lax.while_loop``).
+theta [S, T] gathered to every rank.  The loop is ``model/loop.py``'s
+``while_loop`` (JAX's ``lax.while_loop``): a CUDA graph read once per
+``loop.CHECK_EVERY`` blocks in a world of one; a mesh of several
+processes reads the all-reduced gain after every block.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..kernels.segment_sum import EdgeGroups, em_step, sum_groups
+from ..model import loop
 from ..model.solver import (SolverProblem, gain_of, group_edges,
                             inverse_denom, loglik_of,
                             read_attribution_starts, torch_dtype)
@@ -271,23 +274,37 @@ def _block(sp: ShardedProblem, th: torch.Tensor, block_iters: int):
 
 
 def solve_sharded(sp: ShardedProblem, epsilon: float = 1e-6,
-                  max_blocks: int = 4096, block_iters: int = 32
-                  ) -> Tuple[np.ndarray, float, int]:
+                  max_blocks: int = 4096, block_iters: int = 32, *,
+                  plain: bool = False) -> Tuple[np.ndarray, float, int]:
     """The sharded EM solve: one block from the warm start, then blocks
     while the gain of the last one, summed over every sample, is at least
     ``epsilon`` and fewer than ``max_blocks`` ran.  Returns (theta [S, T]
-    float array on every rank, logL summed over the samples, n_blocks)."""
+    float array on every rank, logL summed over the samples, n_blocks).
+
+    The loop blocks run in ``model/loop.py``'s ``while_loop`` with one
+    stop flag for the batch (a CUDA graph on the card) when the mesh has
+    no process groups; a mesh of several processes reads the all-reduced
+    gain after every block (``plain``), as every rank must take the same
+    collectives."""
     m = sp.mesh
     th, s, ll = _block(sp, sp.theta0, block_iters)
-    gain, it = float("inf"), 0
-    while gain >= epsilon and it < max_blocks:
+    th = th.clone()  # the state is updated in place; theta0 stays
+    dev = th.device
+    # JAX's first cond, the initial gain being +inf
+    active = torch.tensor(max_blocks > 0, device=dev)
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def block():
         th_new, s_new, ll_new = _block(sp, th, block_iters)
-        g = gain_of(sp.reads, sp.eumaps, s, s_new).sum().reshape(1)
-        gain = float(_psum(g, m.dp_group))
-        th, s, ll = th_new, s_new, ll_new
-        it += 1
+        g = _psum(gain_of(sp.reads, sp.eumaps, s, s_new).sum().reshape(1),
+                  m.dp_group)
+        loop.advance(active, it, ((th, th_new), (s, s_new), (ll, ll_new)))
+        active.logical_and_((g[0] >= epsilon) & (it < max_blocks))
+
+    collective = m.dp_group is not None or m.tp_group is not None
+    loop.while_loop(block, active, plain=plain or collective)
     ll_tot = float(_psum(ll.sum().reshape(1), m.dp_group))
-    return gather_theta(sp, th), ll_tot, it
+    return gather_theta(sp, th), ll_tot, int(it)
 
 
 def gather_theta(sp: ShardedProblem, th: torch.Tensor) -> np.ndarray:

@@ -30,6 +30,7 @@ _NO_JAX = textwrap.dedent("""
     import emsar_tpu_torch.bench.segment_sum_ab
     import emsar_tpu_torch.cli.emsar as cli
     import emsar_tpu_torch.cli.emsar_build as build_cli
+    import emsar_tpu_torch.cli.readgen as readgen_cli
     import emsar_tpu_torch.index.device_build
     import emsar_tpu_torch.index.device_build_pe
     import emsar_tpu_torch.kernels.pe_candidates
@@ -37,6 +38,7 @@ _NO_JAX = textwrap.dedent("""
     import emsar_tpu_torch.kernels.segment_sum
     import emsar_tpu_torch.kernels.squarem
     import emsar_tpu_torch.kernels.window_hash
+    import emsar_tpu_torch.model.loop
     import emsar_tpu_torch.model.quantify as quant
     import emsar_tpu_torch.parallel.dist
     import emsar_tpu_torch.parallel.mesh
@@ -83,6 +85,13 @@ _NO_JAX = textwrap.dedent("""
         for n, s in zip(names, seqs):
             fh.write(f">{n}\\n{s.decode()}\\n")
     assert build_cli.main(["-q", fa, "20", d, "idx"]) == 0
+    # readgen-torch: SE reads and PE mates
+    assert readgen_cli.main(["--seed", "3", fa, "20", "50", d, "rg"]) == 0
+    assert readgen_cli.main(["--seed", "3", "-P", "-f", "60", fa, "20",
+                             "50", d, "rg"]) == 0
+    for out in ("rg", "rg.R1", "rg.R2"):
+        with open(os.path.join(d, out)) as fh:
+            assert fh.read().count(">") == 50
     _, r1, _ = fragments_to_reads(tx, simulate_fragments(tx, 20, 300, rng),
                                   20, 20, pe=False)
     aln = os.path.join(d, "a.bowtieout")
