@@ -8,7 +8,7 @@ imports nothing of JAX.  Phases, each of which raises on failure (non-zero
 exit, no result line):
 
 1. torch version, the card's name and power limit (nvidia-smi).
-2. Build the four hand-written CUDA kernel sources of csrc/ (one nvcc per
+2. Build the five hand-written CUDA kernel sources of csrc/ (one nvcc per
    source, all started together; sm_90a); per kernel instance ptxas'
    registers, stack, spills and static shared memory (the SQUAREM block
    classes' dynamic shared memory is written in its source).
@@ -36,11 +36,15 @@ exit, no result line):
    The CSR run's logL must be CSR_LOGL.
 6. Kernels against plain versions at the main path's shapes: the SQUAREM
    block on its dense batches (float64), the segment sums and em_step on
-   its CSR problem (bit-equal to the CPU); max abs error, device and host
-   times, bounds.  Then the CSR solve, its blocks replayed from a CUDA
-   graph (``model/loop.py``): CSR_BLOCKS blocks to its end; the whole
-   solve's ms per block, capture ms, kernel launches per block run and
-   device busy share (torch.profiler).
+   its CSR problem (bit-equal to the CPU); the CSR cycle's kernels
+   (em_step_cycle, cycle_extrap, pair_gain, block_gain, cycle_select and
+   a whole cycle of twelve launches) bit-equal to their plain versions at
+   the CSR shape (R 1, float64) and the CSR restart rounds' (R 3, float32
+   and float64); max abs error, device and host times, bounds.  Then the
+   CSR solve, its blocks replayed from a CUDA graph (``model/loop.py``):
+   CSR_BLOCKS blocks to its end; the whole solve's ms per block, capture
+   ms, kernel launches per block run and device busy share
+   (torch.profiler).
 7. The SE index build on the card: ``emsar-build-torch smoke.fa 50`` must
    write the NumPy builder's smoke.rsh byte for byte (window-hash launch
    count > 0), and ``emsar-torch --solver_pallas -x smoke.fa`` must agree
@@ -90,13 +94,16 @@ exit, no result line):
    the sample axis), each twice (loop, batched, batched, loop; the lower
    wall time kept): per sample .fraglength_effect byte-equal, gene
    iReadcount within 1e-3, the two batched runs' .fpkm byte-identical,
-   em_step launched; each batched .fpkm's logL within rel 1e-9 of the
+   em_step and csr_cycle launched in the batched solve (counted around
+   ``solve_sharded``, apart from the run's per-sample CSR restart loops);
+   each batched .fpkm's logL within rel 1e-9 of the
    same batched solve on the CPU (the plain versions); the loop-vs-batched
    logL and gene-TPM gaps printed (the batched solve stops on one gain
    summed over the samples, JAX's rule).  The batched solve timed on the
    card: blocks, ms per block.  (b) em_step at the batched shape (R = 16,
    per-sample reads and 1 / denom) against its plain version on the CPU:
-   bit-equal, two calls equal; times and bound.  (c) ``-M
+   bit-equal, two calls equal; times and bound; the CSR cycle's kernels
+   there as in phase 6.  (c) ``-M
    --dist_merge_shards`` in one process over 3 read-name shards of the
    smoke reads: .fpkm byte-equal to phase 5's whole-file default run.  (d)
    Two processes sharing the card (gloo over 127.0.0.1): the same over 4
@@ -105,8 +112,9 @@ exit, no result line):
    chunks set by a ``python -c`` launcher), byte-equal to phase 10's
    unsharded build.
 14. The convergence loops on the card (``emsar_tpu_torch/model/loop.py``):
-   the CSR solve of phase 6, both dense size classes with torch.bmm and
-   with ``squarem_block``, their restart rounds (R = 3) and the 16-sample
+   the CSR solve of phase 6 and its restart rounds (R = 3), both dense
+   size classes with torch.bmm and with ``squarem_block``, their restart
+   rounds (R = 3) and the 16-sample
    batched solve of phase 13, each replayed from a CUDA graph against the
    plain loop (the stop flag read after every block, as before the graph
    loop): theta, logL and block count bit-equal; ms per block both ways,
@@ -160,6 +168,9 @@ KERNELS = {
     "pe_candidates": {"name": "pe_candidates", "route": "cuda",
                       "source": "emsar_tpu_torch/csrc/pe_candidates.cu",
                       "replaces": "emsar_tpu/index/device_build.py:1010"},
+    "csr_cycle": {"name": "csr_cycle", "route": "cuda",
+                  "source": "emsar_tpu_torch/csrc/csr_cycle.cu",
+                  "replaces": "emsar_tpu/model/solver.py:150"},
 }
 # the PE build checks: a gene-family transcriptome the port's NumPy PE
 # builder takes ~15 s (ns) and ~9 s (ssfr) for at l101 F290-300 on one
@@ -168,8 +179,7 @@ PE_SMOKE_GENES = 100
 PE_WIDE_GENES = 5
 
 
-# phase 13: samples of the multisample run, shards of the merge runs
-MS_SAMPLES = 16
+# phase 13: shards of the merge runs (its samples: bench.MS_SAMPLES)
 MERGE_SHARDS = 3
 MERGE_SHARDS_2PROC = 4
 PE_SHARD_MIN_CHUNKS = 4
@@ -177,10 +187,11 @@ PE_SHARD_MIN_CHUNKS = 4
 
 def kernel_modules():
     """{kernel source's name: its wrapper module} (each has build)."""
-    from emsar_tpu_torch.kernels import (pe_candidates, segment_sum, squarem,
-                                         window_hash)
+    from emsar_tpu_torch.kernels import (csr_cycle, pe_candidates,
+                                         segment_sum, squarem, window_hash)
     return {"squarem_block": squarem, "segment_sum": segment_sum,
-            "window_hash": window_hash, "pe_candidates": pe_candidates}
+            "window_hash": window_hash, "pe_candidates": pe_candidates,
+            "csr_cycle": csr_cycle}
 
 
 def launch_counters():
@@ -190,7 +201,8 @@ def launch_counters():
             "segment_sum": (mods["segment_sum"], "LAUNCHES"),
             "em_step": (mods["segment_sum"], "EM_LAUNCHES"),
             "window_hash": (mods["window_hash"], "LAUNCHES"),
-            "pe_candidates": (mods["pe_candidates"], "LAUNCHES")}
+            "pe_candidates": (mods["pe_candidates"], "LAUNCHES"),
+            "csr_cycle": (mods["csr_cycle"], "LAUNCHES")}
 
 
 def reset_launches() -> None:
@@ -459,8 +471,8 @@ def phase_main_path(rsh: str, aln: str, out_root: str):
             + ", ".join(f"{k} {v:.3f}" for k, v in seconds[name].items()))
     for name, _ in RUNS:
         kernels = (("squarem_block",) if name.startswith("kernel") else
-                   ("segment_sum", "em_step") if name.startswith("csr")
-                   else ())
+                   ("segment_sum", "em_step", "csr_cycle")
+                   if name.startswith("csr") else ())
         for kernel in kernels:
             if launches[name][kernel] <= 0:
                 raise AssertionError(f"run {name} never launched {kernel}")
@@ -755,6 +767,148 @@ def check_em_step(p, theta, label: str) -> dict:
             "library_ms": None, "bound_ms": bound, "bound_by": by}
 
 
+def _same_bits(a, b) -> bool:
+    """The same shape, NaN in the same places and the same bits
+    elsewhere (any NaN equals any NaN)."""
+    import numpy as np
+    if a.shape != b.shape:
+        return False
+    a, b = (np.ascontiguousarray(t.detach().cpu().numpy()) for t in (a, b))
+    nan = np.isnan(a)
+    return bool(np.array_equal(nan, np.isnan(b))) and bool(np.array_equal(
+        a[~nan].view(np.uint8), b[~nan].view(np.uint8)))
+
+
+def plain_cycle(p, theta):
+    """One SQUAREM cycle as torch ops around the port's EM-step and
+    intensity kernels (the plain versions of kernels/csr_cycle.py and the
+    lines that em_step_cycle took over), on p's device: the card path the
+    cycle's kernels replace."""
+    import torch
+
+    from emsar_tpu_torch.kernels import csr_cycle as cc
+    from emsar_tpu_torch.kernels import segment_sum as ss
+
+    def em(th):
+        return ss.em_step(th, p.by_cid, p.by_tid, p.reads, p.inv_denom)
+    t1 = em(theta)
+    t2 = em(t1)
+    r = t1 - theta
+    v = t2 - t1 - r
+    cand = em(cc.cycle_extrap_ref(theta, t1, t2,
+                                  torch.sum(r * r, dim=1, keepdim=True),
+                                  torch.sum(v * v, dim=1, keepdim=True)))
+    gain = torch.sum(cc.gain_terms(p.reads, p.eumaps,
+                                   ss.sum_groups(t2, p.by_cid),
+                                   ss.sum_groups(cand, p.by_cid)), dim=-1)
+    return cc.cycle_select_ref(gain, cand, t2)
+
+
+def check_csr_cycle(p, theta, label: str) -> dict:
+    """The CSR cycle's kernels on the card against their plain versions on
+    the same inputs, bit for bit: em_step_cycle (t2, r * r, v * v) against
+    the CPU's; cycle_extrap, cycle_select and the gain terms of pair_gain
+    and block_gain against torch on the card (their intensities summed on
+    the CPU: index_add_ on the card sums with atomics); a whole
+    ``solver._squarem_cycle`` (twelve launches) against ``plain_cycle``,
+    and on two calls.  ``p`` is a DeviceProblem or ShardedProblem on the
+    card (reads, eumaps, inv_denom one row or a row each), theta [R, T].
+    Times the three csr_cycle kernels of a cycle (device and host ms), their
+    plain versions on the card, em_step_cycle against em_step and the
+    whole cycle against ``plain_cycle``.  The bound counts each of the
+    three kernels' inputs once and outputs once.  Returns what it
+    measured."""
+    import torch
+
+    from emsar_tpu_torch.kernels import csr_cycle as cc
+    from emsar_tpu_torch.kernels import measure
+    from emsar_tpu_torch.kernels import segment_sum as ss
+    from emsar_tpu_torch.model.solver import _squarem_cycle
+
+    theta = theta.contiguous()
+    gc, gt = p.by_cid, p.by_tid
+    cpu = (cpu_groups(gc), cpu_groups(gt), p.reads.cpu(), p.inv_denom.cpu())
+    failed = []
+    t1 = ss.em_step(theta, gc, gt, p.reads, p.inv_denom)
+    got = ss.em_step_cycle(t1, theta, gc, gt, p.reads, p.inv_denom)
+    torch.cuda.synchronize()
+    want = ss.em_step_cycle_ref(t1.cpu(), theta.cpu(), *cpu)
+    if not all(_same_bits(a, b) for a, b in zip(got, want)):
+        failed.append("em_step_cycle")
+    t2, r_sq, v_sq = got
+    rs = torch.sum(r_sq, dim=1, keepdim=True)
+    vs = torch.sum(v_sq, dim=1, keepdim=True)
+    x = cc.cycle_extrap(theta, t1, t2, rs, vs)
+    if not _same_bits(x, cc.cycle_extrap_ref(theta, t1, t2, rs, vs)):
+        failed.append("cycle_extrap")
+    cand = ss.em_step(x, gc, gt, p.reads, p.inv_denom)
+    s_t2, s_cand = (ss.segment_sum_ref(a.cpu(), cpu[0].mult, cpu[0].idx,
+                                       cpu[0].offsets).to(theta.device)
+                    for a in (t2, cand))
+    terms = cc.gain_terms(p.reads, p.eumaps, s_t2, s_cand)
+    got = cc.pair_gain(gc, p.reads, p.eumaps, t2, cand)
+    if not _same_bits(got, terms):
+        failed.append("pair_gain")
+    s_new, got_b = cc.block_gain(gc, p.reads, p.eumaps, s_t2, cand)
+    if not (_same_bits(s_new, s_cand) and _same_bits(got_b, terms)):
+        failed.append("block_gain")
+    gain = torch.sum(got, dim=-1)
+    out = cc.cycle_select(gain, cand, t2)
+    if not _same_bits(out, cc.cycle_select_ref(gain, cand, t2)):
+        failed.append("cycle_select")
+    whole = [_squarem_cycle(p, theta) for _ in range(2)]
+    if not (_same_bits(whole[0], plain_cycle(p, theta))
+            and _same_bits(whole[0], whole[1])):
+        failed.append("the whole cycle")
+    n_nan = int(torch.isnan(terms).sum())
+    if failed:
+        raise AssertionError(f"csr_cycle {label}: {failed} differ from "
+                             f"their plain versions")
+
+    def kernels():
+        cc.cycle_extrap(theta, t1, t2, rs, vs)
+        cc.cycle_select(torch.sum(cc.pair_gain(gc, p.reads, p.eumaps, t2,
+                                               cand), dim=-1), cand, t2)
+
+    def plains():
+        cc.cycle_extrap_ref(theta, t1, t2, rs, vs)
+        cc.cycle_select_ref(torch.sum(cc.pair_gain_ref(
+            gc, p.reads, p.eumaps, t2, cand), dim=-1), cand, t2)
+
+    host = measure.host_ms(kernels)
+    k_ms = measure.device_ms(kernels, host_per_call_ms=host)
+    p_ms = measure.device_ms(plains, n=50)
+    em_ms = measure.device_ms(lambda: ss.em_step(t1, gc, gt, p.reads,
+                                                 p.inv_denom))
+    emc_ms = measure.device_ms(lambda: ss.em_step_cycle(
+        t1, theta, gc, gt, p.reads, p.inv_denom))
+    cyc_ms = measure.device_ms(lambda: _squarem_cycle(p, theta))
+    plain_cyc_ms = measure.device_ms(lambda: plain_cycle(p, theta), n=50)
+    R, T = theta.shape
+    C, E = gc.n_groups, gc.idx.shape[0]
+    n_bytes = (measure.nbytes(theta, t1, t2, rs, vs, x)
+               + measure.nbytes(gc.mult, gc.idx, gc.offsets, t2, cand,
+                                p.reads, p.eumaps, got)
+               + measure.nbytes(gain, cand, t2, out))
+    # the two sums' products and adds, ~14 operations a gain term, ~10 a
+    # transcript for the extrapolation, none for the selection
+    bound, by = measure.bound_ms(n_bytes, R * (4 * E + 14 * C + 10 * T),
+                                 theta.dtype)
+    log(f"csr_cycle {label} {str(theta.dtype)[6:]} R={R} C={C} T={T} E={E}: "
+        f"em_step_cycle, cycle_extrap, pair_gain, block_gain, cycle_select "
+        f"and the whole cycle bit-equal to their plain versions ({n_nan} NaN "
+        f"gain terms); the three kernels {k_ms:.4f} ms on the card, "
+        f"{host:.4f} ms host per cycle; plain {p_ms:.4f} ms; bound "
+        f"{bound:.4f} ms ({by}, {n_bytes} B); em_step_cycle {emc_ms:.4f} ms "
+        f"(em_step {em_ms:.4f}); a cycle {cyc_ms:.4f} ms (torch body "
+        f"{plain_cyc_ms:.4f})")
+    return {"err": 0.0, "ms": k_ms, "host_ms": host, "plain_ms": p_ms,
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "em_step_cycle_ms": emc_ms, "em_step_ms": em_ms,
+            "cycle_ms": cyc_ms, "plain_cycle_ms": plain_cyc_ms,
+            "nan_terms": n_nan}
+
+
 def random_problem(rng, n_seg: int, ntid: int, n_edges: int):
     """A random SolverProblem with read-less segments and transcripts of
     zero denominator among the rest."""
@@ -851,14 +1005,18 @@ def phase_segment_sum_main(x, dev):
     """Segment sums and em_step on the main path's CSR problem (the whole
     fixture in --solver_mode csr, float64, R = 1): the sums by cid
     (intensities) and by tid (the EM numerator), and em_step in float64
-    and float32.  Returns ({kernel: measured}, the SolverProblem); the
-    segment-sum times are the two sums' together, its host time their
-    mean."""
+    and float32; the CSR cycle's kernels (``check_csr_cycle``) there and
+    at the restart rounds' shape (R 3 on ``restart_problem``'s problem
+    from ``restart_inits``' draws, float64 and float32).  Returns
+    ({kernel: measured}, the SolverProblem); the segment-sum times are the
+    two sums' together, its host time their mean."""
     import numpy as np
     import torch
 
+    from emsar_tpu_torch.model.quantify import restart_problem
     from emsar_tpu_torch.model.solver import (build_problem, problem_to_device,
-                                              read_attribution_start)
+                                              read_attribution_start,
+                                              restart_inits)
     problem = build_problem(x.graph, x.modules, x.eumaps, x.read_count)
     p = problem_to_device(problem, dev, torch.float64)
     rng = np.random.default_rng(5)
@@ -876,7 +1034,15 @@ def phase_segment_sum_main(x, dev):
     em = check_em_step(p, theta, "main path")
     p32 = problem_to_device(problem, dev, torch.float32)
     check_em_step(p32, theta.float(), "main path")
-    return {"segment_sum": seg, "em_step": em}, problem
+    cycle = check_csr_cycle(p, theta, "main path")
+    # the restart rounds' shape: R 3 on the restricted problem
+    sub = restart_problem(problem)[0]
+    for np_dt, dt in ((np.float64, torch.float64),
+                      (np.float32, torch.float32)):
+        inits = torch.as_tensor(restart_inits(sub, 3, 0, np_dt)).to(dev)
+        check_csr_cycle(problem_to_device(sub, dev, dt), inits,
+                        "restart rounds R=3")
+    return {"segment_sum": seg, "em_step": em, "csr_cycle": cycle}, problem
 
 
 def _profiled(run):
@@ -908,6 +1074,7 @@ def phase_csr_profile(problem, dev) -> dict:
     import numpy as np
     import torch
 
+    from emsar_tpu_torch.kernels import csr_cycle
     from emsar_tpu_torch.kernels import segment_sum as ss
     from emsar_tpu_torch.model import loop
     from emsar_tpu_torch.model.solver import (em_solve, problem_to_device,
@@ -925,18 +1092,21 @@ def phase_csr_profile(problem, dev) -> dict:
         torch.cuda.synchronize()
         return out
 
+    def ours():
+        return ss.LAUNCHES + ss.EM_LAUNCHES + csr_cycle.LAUNCHES
+
     run()
-    n0 = ss.LAUNCHES + ss.EM_LAUNCHES
+    n0 = ours()
     t0 = time.perf_counter()
     _, _, it = run()
     wall = time.perf_counter() - t0
     stats = loop.LAST
-    ours = (ss.LAUNCHES + ss.EM_LAUNCHES - n0) / stats.blocks_run
+    per_block = (ours() - n0) / stats.blocks_run
     _, prof_wall, n_kernels, busy_s = _profiled(run)
     out = {"blocks": it, "blocks_run": stats.blocks_run,
            "ms_per_block": wall * 1e3 / it, "solve_ms": wall * 1e3,
            "capture_ms": stats.capture_s * 1e3,
-           "port_kernel_launches_per_block": ours,
+           "port_kernel_launches_per_block": per_block,
            "device_kernels_per_block": n_kernels / stats.blocks_run,
            "device_busy_share": busy_s / prof_wall,
            "profiled_wall_s": prof_wall}
@@ -1700,27 +1870,21 @@ def phase_scale_pe_build(dev, out_root: str, fa: str, strand: str) -> dict:
             "phases_s": phases, **check}
 
 
-def _sample_checks(rsh: str, paths, runs: dict):
-    """Per sample of the multisample runs ``runs`` ({name: out dir}): its
-    problem's logL of each run's FPKM, gene iReadcount and gene TPM, and
-    the .fraglength_effect and .fpkm bytes.  Returns ({name: [per-sample
+def _sample_checks(index, counts, runs: dict):
+    """Per sample (``counts``, its SampleCounts against ``index``) of the
+    multisample runs ``runs`` ({name: out dir}): its problem's logL of
+    each run's FPKM, gene iReadcount and gene TPM, and the
+    .fraglength_effect and .fpkm bytes.  Returns ({name: [per-sample
     (logL, iReadcount, TPM, fl bytes, fpkm bytes)]}, the samples'
-    SampleCounts and problems, the index)."""
+    problems)."""
     import numpy as np
 
     from emsar_tpu_torch.config import QuantConfig
-    from emsar_tpu_torch.ingest import native as native_mod
-    from emsar_tpu_torch.io.rsh import RshIndex
     from emsar_tpu_torch.model.quantify import _host_loglik, prepare_sample
     from emsar_tpu_torch.model.solver import build_problem
 
-    index = RshIndex.load(rsh)
     cfg = QuantConfig(verbose=0, min_fraglength=index.min_fraglength,
                       max_fraglength=index.max_fraglength)
-    collapser = native_mod.NativeCollapser(index)
-    counts = [collapser.collapse_file(p, "bowtie", False, 0, cfg.max_repeat,
-                                      cfg.min_fraglength, cfg.max_fraglength)
-              for p in paths]
     out = {name: [] for name in runs}
     problems = []
     for i, c in enumerate(counts):
@@ -1738,7 +1902,7 @@ def _sample_checks(rsh: str, paths, runs: dict):
                                   _gene_sum(names, cols[:, 3]),
                                   _gene_sum(names, cols[:, 5]), fh.read(),
                                   fp.read()))
-    return out, counts, problems, index
+    return out, problems
 
 
 def phase_multisample(rsh: str, aln: str, out_root: str, dev):
@@ -1749,23 +1913,34 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
     import numpy as np
     import torch
 
-    from emsar_tpu_torch.bench.multisample import split_by_qname
+    from emsar_tpu_torch.bench import MS_SAMPLES, batched_sample
     from emsar_tpu_torch.cli import emsar as cli
     from emsar_tpu_torch.config import QuantConfig
-    from emsar_tpu_torch.model.quantify import _host_loglik, batched_inputs
+    from emsar_tpu_torch.model.quantify import _host_loglik
     from emsar_tpu_torch.model.solver import gain_of
+    from emsar_tpu_torch.parallel import mesh
     from emsar_tpu_torch.parallel.mesh import (_block, make_mesh,
                                                shard_problem, solve_sharded)
     from emsar_tpu_torch.utils.timing import phase_times, reset_phases
 
     t0 = time.perf_counter()
-    ms_dir = os.path.join(CACHE, "ms")
-    paths = split_by_qname(aln, ms_dir, "ms", MS_SAMPLES)
-    listfile = os.path.join(ms_dir, "ms.list")
-    log(f"multisample: {MS_SAMPLES} samples split by read name in "
-        f"{time.perf_counter() - t0:.1f} s")
+    index, paths, counts, b = batched_sample(rsh, aln)
+    listfile = os.path.join(os.path.dirname(paths[0]), "ms.list")
+    log(f"multisample: {MS_SAMPLES} samples split by read name, collapsed "
+        f"and batched in {time.perf_counter() - t0:.1f} s")
     walls = {"loop": [], "batched": []}
     runs, launches = {}, {}
+    # the batched solve's own launches, apart from the per-sample CSR
+    # restart loops of the same run
+    in_solve = []
+
+    def counted_solve(*args, **kwargs):
+        before = read_launches()
+        out = solve_sharded(*args, **kwargs)
+        in_solve.append({k: v - before[k] for k, v in
+                         read_launches().items()})
+        return out
+
     for name, rep in (("loop", 0), ("batched", 0), ("batched", 1),
                       ("loop", 1)):
         out = os.path.join(out_root, f"ms_{name}{rep}")
@@ -1773,7 +1948,12 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
         reset_phases()
         reset_launches()
         t0 = time.perf_counter()
-        rc = cli.main(["-q", "-M", *flags, "-I", rsh, out, "s", listfile])
+        mesh.solve_sharded = counted_solve
+        try:
+            rc = cli.main(["-q", "-M", *flags, "-I", rsh, out, "s",
+                           listfile])
+        finally:
+            mesh.solve_sharded = solve_sharded
         walls[name].append(time.perf_counter() - t0)
         if rc != 0:
             raise AssertionError(f"-M {name} run exited {rc}")
@@ -1786,16 +1966,17 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
         log(f"-M {name} run {rep}: {walls[name][-1]:.2f} s, launches "
             f"{read_launches()}; phases " + ", ".join(
                 f"{k} {v:.3f}" for k, v in phases.items()))
-    if launches["batched"]["em_step"] <= 0:
-        raise AssertionError("the batched run never launched em_step")
-    res, counts, problems, index = _sample_checks(rsh, paths, runs)
+    solve_launches = in_solve[0]
+    log(f"-M batched: launches in its batched solve {solve_launches}, in "
+        f"the whole run {launches['batched']}")
+    if solve_launches["em_step"] <= 0 or solve_launches["csr_cycle"] <= 0:
+        raise AssertionError("the batched solve never launched em_step and "
+                             "csr_cycle")
+    res, problems = _sample_checks(index, counts, runs)
     cfg = QuantConfig(verbose=0)
 
     # the batched solve: on the CPU (the plain versions) as the reference,
     # on the card timed
-    b = batched_inputs(index, counts, cfg)
-    if b is None:
-        raise AssertionError("the batched inputs re-clustered")
     solved = {}
     for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
         sp = shard_problem(b.problem, b.R, make_mesh(device=d),
@@ -1857,12 +2038,16 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
         raise AssertionError(f"multisample checks failed: {failed}")
 
     em = check_em_step(sp, sp.theta0, f"batched R={MS_SAMPLES} per-sample")
+    cycle = check_csr_cycle(sp, sp.theta0,
+                            f"batched R={MS_SAMPLES} per-sample")
     return {"loop_s": min(walls["loop"]), "batched_s": min(walls["batched"]),
             "walls_s": walls, "batched_blocks": it_g,
             "batched_ms_per_block": ms_per_block,
             "batched_nan_gain_samples": nan_samples,
             "loop_vs_batched_gaps": gaps, "em_step_batched": em,
-            "em_step_batched_launches": launches["batched"]["em_step"]}, sp
+            "csr_cycle_batched": cycle,
+            "batched_solve_launches": solve_launches,
+            "batched_run_launches": launches["batched"]}, sp
 
 
 def _launch_world(argvs, label: str, dev, timeout: float = 300.0) -> list:
@@ -1994,59 +2179,81 @@ def _bits(x):
 
 
 def csr_block_bound_ms(p) -> float:
-    """A CSR block's bound (8 cycles of 3 em_step and 2 by-cid sums, then
-    the intensities: the hand kernels' bounds of ``check_em_step`` and
-    ``check_segment_sum`` summed; the block's small elementwise kernels
-    are left out).  ``p`` is a DeviceProblem, R = 1."""
+    """A CSR block's bound: 8 cycles, then the block's gain, each kernel of
+    them at its own bound (its inputs read once, its outputs written once)
+    summed: per cycle two em_step and one em_step_cycle (which also reads
+    theta and writes r * r and v * v), the two row sums of those,
+    cycle_extrap, pair_gain, the gain's row sum and cycle_select; then
+    block_gain and its row sum.  The loop's own bookkeeping (the masked
+    state update, the stop test: a few scalars and two state copies) is
+    left out.  ``p`` is a DeviceProblem, R = 1."""
     from emsar_tpu_torch.kernels import measure
-    R, (C, T) = 1, (p.by_cid.n_groups, p.by_tid.n_groups)
+    dt = p.reads.dtype
+    C, T = p.by_cid.n_groups, p.by_tid.n_groups
     E = p.by_cid.idx.shape[0]
     item = p.reads.element_size()
-    groups = [measure.nbytes(g.mult, g.idx, g.offsets)
-              for g in (p.by_cid, p.by_tid)]
-    em, _ = measure.bound_ms(sum(groups) + item * (2 * T + C + T),
-                             R * (4 * E + C + 2 * T), p.reads.dtype)
-    cid, _ = measure.bound_ms(groups[0] + item * (T + C), 2 * E * R,
-                              p.reads.dtype)
-    return N_ITERS * (3 * em + 2 * cid) + cid
+    cid, tid = (measure.nbytes(g.mult, g.idx, g.offsets)
+                for g in (p.by_cid, p.by_tid))
+
+    def bound(n_items, n_ops, groups=0):
+        return measure.bound_ms(groups + item * n_items, n_ops, dt)[0]
+    em = bound(2 * T + C + T, 4 * E + C + 2 * T, cid + tid)
+    em_cycle = em + bound(3 * T, 5 * T)
+    row_sums = 2 * bound(T + 1, T)
+    extrap = bound(4 * T + 2, 10 * T)
+    pair = bound(2 * T + 3 * C, 4 * E + 14 * C, cid)
+    gain_sum = bound(C + 1, C)
+    select = bound(3 * T + 1, 0)
+    block_gain = bound(T + 5 * C, 2 * E + 14 * C, cid)
+    cycle = 2 * em + em_cycle + row_sums + extrap + pair + gain_sum + select
+    return N_ITERS * cycle + block_gain + gain_sum
 
 
 def phase_loops(problem, x, sp, dev) -> dict:
     """Phase 14: the convergence loops on the card, each replayed from a
     CUDA graph against the plain loop (the stop flag read after every
     block, no capture: the parent's loop), on the main path's problems at
-    full width: the CSR solve of phase 6, both dense size classes with
-    torch.bmm and with ``squarem_block``, their restart rounds (R = 3,
-    ``_make_rounds_dense``'s inits) and the 16-sample batched solve of
-    phase 13.  Each must give the plain loop's theta, logL and block count
-    bit for bit.  Per loop: ms per block both ways (after a warm solve
-    each), the blocks the graph ran after the stop, the capture's ms, and
-    the device busy share and kernels per block run of each
-    (torch.profiler).  Returns what it measured."""
+    full width: the CSR solve of phase 6 and its restart rounds (R = 3,
+    ``restart_inits``' draws on ``restart_problem``'s problem), both dense
+    size classes with torch.bmm and with ``squarem_block``, their restart
+    rounds (R = 3, ``_make_rounds_dense``'s inits) and the 16-sample
+    batched solve of phase 13.  Each must give the plain loop's theta,
+    logL and block count bit for bit.  Per loop: ms per block both ways
+    (after a warm solve each), the blocks the graph ran after the stop,
+    the capture's ms, and the device busy share and kernels per block run
+    of each (torch.profiler).  Returns what it measured."""
     import numpy as np
     import torch
 
+    from emsar_tpu_torch.bench import MS_SAMPLES
     from emsar_tpu_torch.config import QuantConfig
     from emsar_tpu_torch.model import loop
     from emsar_tpu_torch.model.dense import (_dense_solve_pallas, _pad_b,
                                              _solve_loop, _theta0,
                                              batch_to_device,
                                              partition_modules, subset_batch)
-    from emsar_tpu_torch.model.quantify import _restart_eps
+    from emsar_tpu_torch.model.quantify import _restart_eps, restart_problem
     from emsar_tpu_torch.model.solver import (em_solve, problem_to_device,
-                                              read_attribution_start)
+                                              read_attribution_start,
+                                              restart_inits)
     from emsar_tpu_torch.parallel.mesh import solve_sharded
 
     cfg = QuantConfig(verbose=0)
     eps = cfg.epsilon
     p = problem_to_device(problem, dev, torch.float64)
     th0 = torch.as_tensor(read_attribution_start(problem))[None].to(dev)
+    sub = restart_problem(problem)[0]
+    ps = problem_to_device(sub, dev, torch.float64)
+    n_extra = cfg.num_round - 1
+    ths = torch.as_tensor(restart_inits(sub, n_extra, 0, np.float64)).to(dev)
     cases = [("csr", lambda plain: em_solve(p, th0, eps, N_ITERS, 200000,
-                                            plain=plain))]
+                                            plain=plain)),
+             (f"csr restarts R={n_extra}", lambda plain: em_solve(
+                 ps, ths, _restart_eps(cfg), N_ITERS, cfg.max_niter_mle,
+                 plain=plain))]
     part = partition_modules(x.graph, x.modules, x.eumaps, x.read_count,
                              dtype=np.float64)
     rng = np.random.default_rng(np.uint64(0x5EED_0001))
-    n_extra = cfg.num_round - 1
     for batch in part.batches:
         cls = "x".join(map(str, batch.shape[1:]))
         padded = batch_to_device(_pad_b(batch)[0], dev, torch.float64)
@@ -2138,6 +2345,7 @@ def main() -> int:
         raise SystemExit("no CUDA device: chip_smoke.py runs on the GPU only")
     log(f"card: {card_line()}")
     os.environ["EMSAR_TORCH_DEVICE"] = "cuda"
+    from emsar_tpu_torch.bench import MS_SAMPLES
     from emsar_tpu_torch.device import resolve_device
     dev = resolve_device()
     t_start = time.perf_counter()
@@ -2196,13 +2404,17 @@ def main() -> int:
                      "segment_sum": launches["csr"]["segment_sum"],
                      "em_step": launches["csr"]["em_step"],
                      "window_hash": build_launches["window_hash"],
-                     "pe_candidates": pe_launches["pe_candidates"]}
+                     "pe_candidates": pe_launches["pe_candidates"],
+                     "csr_cycle": launches["csr"]["csr_cycle"]}
     rows = [(k, KERNELS[k], main_launches[k], measured[k]) for k in KERNELS]
-    # em_step's second shape: the batched multisample solve
-    rows.append(("em_step", dict(KERNELS["em_step"],
-                                 shape=f"R={MS_SAMPLES} per-sample operands"),
-                 multisample["em_step_batched_launches"],
-                 multisample.pop("em_step_batched")))
+    # the second shape of em_step and csr_cycle: the batched multisample
+    # solve (its launches counted in the solve alone)
+    batched = f"R={MS_SAMPLES} per-sample operands"
+    for k, key in (("em_step", "em_step_batched"),
+                   ("csr_cycle", "csr_cycle_batched")):
+        rows.append((k, dict(KERNELS[k], shape=batched),
+                     multisample["batched_solve_launches"][k],
+                     multisample.pop(key)))
     print(json.dumps({"kernels": [
         dict(row, launches=n, max_abs_err=m["err"], ms=m["ms"],
              host_ms=m["host_ms"], plain_ms=m["plain_ms"],

@@ -20,6 +20,10 @@ SCALE_GENES = 42000
 SCALE_SEED = 20260820
 SCALE_READLEN = 76
 
+# the samples of the smoke fixture's multisample split (chip_smoke.py's
+# phase 13, the batched solve of bench/loop_ab.py)
+MS_SAMPLES = 16
+
 
 def load_parent(root: str, *names: str):
     """Modules ``names`` (relative to the package, e.g. "kernels.squarem")
@@ -51,6 +55,34 @@ def smoke_sample(rsh: str, aln: str):
         aln, "bowtie", False, 0, cfg.max_repeat, cfg.min_fraglength,
         cfg.max_fraglength)
     return quantify.prepare_sample(index, counts, cfg)
+
+
+def batched_sample(rsh: str, aln: str):
+    """The smoke fixture's reads (``rsh``, bowtie alignments ``aln``) split
+    by read name into ``MS_SAMPLES`` samples (``multisample.split_by_qname``,
+    written beside ``aln`` under ``ms/`` with their list ``ms.list``):
+    (the index, the samples' paths, their SampleCounts through the native
+    collapser, their ``quantify.batched_inputs``).  Raises when the
+    samples re-cluster."""
+    from ..config import QuantConfig
+    from ..ingest import native
+    from ..io.rsh import RshIndex
+    from ..model import quantify
+    from .multisample import split_by_qname
+
+    paths = split_by_qname(aln, os.path.join(os.path.dirname(aln), "ms"),
+                           "ms", MS_SAMPLES)
+    index = RshIndex.load(rsh)
+    cfg = QuantConfig(verbose=0, min_fraglength=index.min_fraglength,
+                      max_fraglength=index.max_fraglength)
+    collapser = native.NativeCollapser(index)
+    counts = [collapser.collapse_file(p, "bowtie", False, 0, cfg.max_repeat,
+                                      cfg.min_fraglength, cfg.max_fraglength)
+              for p in paths]
+    b = quantify.batched_inputs(index, counts, QuantConfig(verbose=0))
+    if b is None:
+        raise RuntimeError("the split samples re-cluster: no batched solve")
+    return index, paths, counts, b
 
 
 def scale_transcriptome():

@@ -2,7 +2,7 @@
 card, in one process, and this one's at several ``CHECK_EVERY`` values:
 
     python3 -m emsar_tpu_torch.bench.loop_ab PARENT_DIR [--rsh R] [--aln A]
-        [--out bench_cache/loop_ab.json]
+        [--every 1,2,4] [--out bench_cache/loop_ab.json]
 
 PARENT_DIR is the root of another checkout of this repository (for
 example ``git archive`` of the parent commit unpacked into a directory
@@ -10,18 +10,24 @@ that ``.gitignore`` lists); its ``emsar_tpu_torch`` is loaded under the
 name ``parent_port``.  The problems are the smoke fixture's
 (``chip_smoke.py`` makes it under ``bench_cache/torch_smoke/``), float64:
 the CSR solve of ``--solver_mode csr`` (R = 1, from the read-attribution
-start) and, for each dense size class of the default partition, the
-torch.bmm loop (``_solve_loop``), the kernel path (``_dense_solve_pallas``)
-and the restart rounds (R = 3 from ``_make_rounds_dense``'s draws), each
-with the default epsilons and 8 cycles a block.  Each side builds its own
-device inputs from the same host arrays.
+start), its restart rounds (R = 3: ``restart_inits``' draws on
+``restart_problem``'s problem), the batched solve of the
+``bench.MS_SAMPLES``-sample split (``bench.batched_sample``; tp 1,
+per-sample reads, EUMAps and denominators) and, for each dense size
+class of the default partition, the torch.bmm loop (``_solve_loop``), the
+kernel path
+(``_dense_solve_pallas``) and the restart rounds (R = 3 from
+``_make_rounds_dense``'s draws), each with the default epsilons and 8
+cycles a block.  Each side builds its own device inputs from the same
+host arrays.
 
 In turns (parent, change, change, parent): each solve's wall ms, synced,
-after a warm solve (the change's includes its capture), and its blocks.
-Both sides must give the same blocks and theta bits; the script raises
-otherwise.  Then the change alone at each ``CHECK_EVERY`` of ``--every``:
-the solves' ms and the blocks they ran.  Prints one JSON object and
-writes it to ``--out``.
+after a warm solve (the change's includes its capture), and its blocks
+(the batched solve's count its loop blocks, after its first).  Both sides
+must give the same blocks and theta bits; the script raises otherwise.
+Then the change alone at each ``CHECK_EVERY`` of ``--every``: the
+solves' ms and the blocks they ran.  Prints one JSON object (with the
+median ms a block of each side) and writes it to ``--out``.
 """
 
 from __future__ import annotations
@@ -34,15 +40,17 @@ import time
 import numpy as np
 import torch
 
-from . import ORDER, load_parent, smoke_sample, write_result
+from . import ORDER, batched_sample, load_parent, smoke_sample, write_result
 from ..config import QuantConfig
 from ..model import dense, loop, quantify, solver
+from ..parallel import mesh
 
 
-def cases(mods, x, dev):
-    """{case: solve()} of one side (``mods``: its solver and dense
-    modules), each returning (theta, blocks)."""
-    msolver, mdense = mods
+def cases(mods, x, b, dev):
+    """{case: solve()} of one side (``mods``: its solver, dense and mesh
+    modules; ``b`` the 16 samples' BatchedInputs), each returning (theta,
+    blocks)."""
+    msolver, mdense, mmesh = mods
     cfg = QuantConfig(verbose=0)
     eps, bi = cfg.epsilon, cfg.solver_block_iters
     problem = solver.build_problem(x.graph, x.modules, x.eumaps,
@@ -50,7 +58,24 @@ def cases(mods, x, dev):
     p = msolver.problem_to_device(problem, dev, torch.float64)
     th0 = torch.as_tensor(solver.read_attribution_start(problem))[None].to(
         dev)
-    out = {"csr": lambda: msolver.em_solve(p, th0, eps, bi, 200000)[::2]}
+    sub = quantify.restart_problem(problem)[0]
+    ps = msolver.problem_to_device(sub, dev, torch.float64)
+    n_extra = cfg.num_round - 1
+    ths = torch.as_tensor(solver.restart_inits(sub, n_extra, 0,
+                                               np.float64)).to(dev)
+    sp = mmesh.shard_problem(b.problem, b.R, mmesh.make_mesh(device=dev),
+                             dtype=np.float64, eumaps_per_sample=b.E,
+                             denom_per_sample=b.denom)
+
+    def batched():
+        th, _, it = mmesh.solve_sharded(sp, epsilon=eps, block_iters=bi)
+        return torch.as_tensor(th), it
+
+    out = {"csr": lambda: msolver.em_solve(p, th0, eps, bi, 200000)[::2],
+           f"csr restarts R={n_extra}": lambda: msolver.em_solve(
+               ps, ths, quantify._restart_eps(cfg), bi,
+               cfg.max_niter_mle)[::2],
+           f"batched S={b.R.shape[0]}": batched}
     part = dense.partition_modules(x.graph, x.modules, x.eumaps,
                                    x.read_count, dtype=np.float64)
     rng = np.random.default_rng(np.uint64(0x5EED_0001))
@@ -100,9 +125,11 @@ def main(argv=None) -> int:
         raise SystemExit("loop_ab: needs a CUDA device")
     dev = torch.device("cuda")
     x = smoke_sample(args.rsh, args.aln)
+    b = batched_sample(args.rsh, args.aln)[3]
     fns = {"parent": cases(load_parent(args.parent, "model.solver",
-                                       "model.dense"), x, dev),
-           "change": cases((solver, dense), x, dev)}
+                                       "model.dense", "parallel.mesh"),
+                           x, b, dev),
+           "change": cases((solver, dense, mesh), x, b, dev)}
     res = {who: {name: [] for name in fns[who]} for who in fns}
     blocks, theta = {}, {}
     for who in ORDER:
@@ -127,12 +154,14 @@ def main(argv=None) -> int:
         sweep[k]["total_ms"] = sum(v["ms"] for v in sweep[k].values())
     median = {who: {name: statistics.median(v) for name, v in r.items()}
               for who, r in res.items()}
+    per_block = {who: {name: v / max(blocks[name]["change"], 1)
+                       for name, v in m.items()} for who, m in median.items()}
     for who in median:
         median[who]["total_ms"] = sum(median[who].values())
     write_result({"card": torch.cuda.get_device_name(0), "order": ORDER,
-                  "blocks": {n: b["change"] for n, b in blocks.items()},
-                  "median_ms": median, "runs_ms": res,
-                  "check_every": sweep}, args.out)
+                  "blocks": {n: v["change"] for n, v in blocks.items()},
+                  "median_ms": median, "median_ms_per_block": per_block,
+                  "runs_ms": res, "check_every": sweep}, args.out)
     return 0
 
 

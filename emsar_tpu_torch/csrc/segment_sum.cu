@@ -9,13 +9,21 @@
 //   mode 1 (ratio):  out[r, g] = s > 0 ? a[r, g] / s : 0     (a = reads)
 //   mode 2 (update): out[r, g] = (b[r, g] * s) * a[r, g]     (b = theta,
 //                                                             a = inv_denom)
+//   mode 3 (cycle):  mode 2, and with c = the SQUAREM cycle's theta
+//                    (b = t1 = one EM step from it, out = t2):
+//                    rr[r, g] = r * r, vv[r, g] = v * v for
+//                    r = t1 - c and v = (t2 - t1) - r
 //
 // so one EM step is two launches: by cid in mode 1 (the segment
 // intensities s, turned into the read ratio R / s), then by tid in mode 2
 // (the numerator sum of mult * ratio, times theta and 1 / denom).  It
 // replaces the two `jax.ops.segment_sum` calls of
 // emsar_tpu/model/solver.py::_em_solve (XLA ops, not a Pallas kernel) and
-// the elementwise work between and after them.
+// the elementwise work between and after them.  Mode 3 is the second EM
+// step of a cycle (model/solver.py::_squarem_cycle): its epilogue writes
+// the squares whose row sums are the step-length norms, which saves the
+// four elementwise launches of r, v, r * r and v * v
+// (kernels/csr_cycle.py has the rest of the cycle's vector work).
 //
 // a[r, g] is a[r * a_stride + g]: a_stride 0 shares one row of a among
 // the R rows (one sample's reads and 1 / denom under its restart rounds),
@@ -27,8 +35,9 @@
 // (add_rn), starting from 0; no FMA contraction, no atomics.  That is the
 // order of the sequential CPU `index_add_` over the same edges, so the
 // kernel gives the plain version's bits on the CPU, and the same bits on
-// every launch.  The epilogues use IEEE division and two separately
-// rounded products in torch's order, so they give torch's bits too.
+// every launch.  The epilogues use IEEE division and separately rounded
+// products and differences in torch's order, so they give torch's bits
+// too.
 //
 // What bounds it on the H100: bytes.  One f64 launch by cid on the smoke
 // workload's CSR problem (27,619 segments, 89,744 edges, x of 12,090)
@@ -54,8 +63,8 @@
 // * The EM epilogues save the six elementwise launches of each EM step.
 //
 // Layout: x [R, N] contiguous; w [E]; idx [E] int32; offsets [G + 1]
-// int64; a [G] (a_stride 0) or [R, G] (a_stride G); b and out [R, G].
-// float or double.
+// int64; a [G] (a_stride 0) or [R, G] (a_stride G); b, c, out, rr and vv
+// [R, G].  float or double.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,6 +89,12 @@ __device__ __forceinline__ float div_rn(float a, float b) {
 __device__ __forceinline__ double div_rn(double a, double b) {
   return __ddiv_rn(a, b);
 }
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
 
 constexpr int kThreads = 256;
 
@@ -89,8 +104,9 @@ __global__ void __launch_bounds__(kThreads)
                        const int32_t* __restrict__ idx,
                        const int64_t* __restrict__ offsets,
                        const F* __restrict__ a, const F* __restrict__ b,
-                       F* __restrict__ out, long long R, long long G,
-                       long long N, long long a_stride) {
+                       const F* __restrict__ c, F* __restrict__ out,
+                       F* __restrict__ rr, F* __restrict__ vv, long long R,
+                       long long G, long long N, long long a_stride) {
   static_assert(K == 4 || K == 8 || K == 16 || K == 32, "lanes per group");
   const long long grp =
       (blockIdx.x * (long long)kThreads + threadIdx.x) / K;
@@ -124,15 +140,24 @@ __global__ void __launch_bounds__(kThreads)
   const F ag = __ldg(a + r * a_stride + g);
   if (MODE == 1) {
     out[grp] = acc > F(0) ? div_rn(ag, acc) : F(0);
-  } else {
-    out[grp] = mul_rn(mul_rn(__ldg(b + grp), acc), ag);
+    return;
+  }
+  const F t1 = __ldg(b + grp);
+  const F t2 = mul_rn(mul_rn(t1, acc), ag);
+  out[grp] = t2;
+  if (MODE == 3) {
+    const F res = sub_rn(t1, __ldg(c + grp));  // r
+    const F curv = sub_rn(sub_rn(t2, t1), res);  // v
+    rr[grp] = mul_rn(res, res);
+    vv[grp] = mul_rn(curv, curv);
   }
 }
 
 template <typename F, int K, int MODE>
 int launch_mode(const void* x, const void* w, const void* idx,
-                const void* offsets, const void* a, const void* b, void* out,
-                long long R, long long G, long long N, long long a_stride,
+                const void* offsets, const void* a, const void* b,
+                const void* c, void* out, void* rr, void* vv, long long R,
+                long long G, long long N, long long a_stride,
                 cudaStream_t stream) {
   const long long threads = R * G * K;
   const long long blocks = (threads + kThreads - 1) / kThreads;
@@ -142,25 +167,30 @@ int launch_mode(const void* x, const void* w, const void* idx,
       static_cast<const F*>(x), static_cast<const F*>(w),
       static_cast<const int32_t*>(idx), static_cast<const int64_t*>(offsets),
       static_cast<const F*>(a), static_cast<const F*>(b),
-      static_cast<F*>(out), R, G, N, a_stride);
+      static_cast<const F*>(c), static_cast<F*>(out), static_cast<F*>(rr),
+      static_cast<F*>(vv), R, G, N, a_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename F, int K>
 int launch_k(const void* x, const void* w, const void* idx,
-             const void* offsets, const void* a, const void* b, void* out,
-             long long R, long long G, long long N, long long a_stride,
-             int mode, cudaStream_t stream) {
+             const void* offsets, const void* a, const void* b,
+             const void* c, void* out, void* rr, void* vv, long long R,
+             long long G, long long N, long long a_stride, int mode,
+             cudaStream_t stream) {
   switch (mode) {
     case 0:
-      return launch_mode<F, K, 0>(x, w, idx, offsets, a, b, out, R, G, N,
-                                  a_stride, stream);
+      return launch_mode<F, K, 0>(x, w, idx, offsets, a, b, c, out, rr, vv,
+                                  R, G, N, a_stride, stream);
     case 1:
-      return launch_mode<F, K, 1>(x, w, idx, offsets, a, b, out, R, G, N,
-                                  a_stride, stream);
+      return launch_mode<F, K, 1>(x, w, idx, offsets, a, b, c, out, rr, vv,
+                                  R, G, N, a_stride, stream);
     case 2:
-      return launch_mode<F, K, 2>(x, w, idx, offsets, a, b, out, R, G, N,
-                                  a_stride, stream);
+      return launch_mode<F, K, 2>(x, w, idx, offsets, a, b, c, out, rr, vv,
+                                  R, G, N, a_stride, stream);
+    case 3:
+      return launch_mode<F, K, 3>(x, w, idx, offsets, a, b, c, out, rr, vv,
+                                  R, G, N, a_stride, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -168,24 +198,24 @@ int launch_k(const void* x, const void* w, const void* idx,
 
 template <typename F>
 int launch(const void* x, const void* w, const void* idx, const void* offsets,
-           const void* a, const void* b, void* out, long long R, long long G,
-           long long N, long long a_stride, int lanes, int mode,
-           void* stream_ptr) {
+           const void* a, const void* b, const void* c, void* out, void* rr,
+           void* vv, long long R, long long G, long long N,
+           long long a_stride, int lanes, int mode, void* stream_ptr) {
   if (R * G <= 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (lanes) {
     case 4:
-      return launch_k<F, 4>(x, w, idx, offsets, a, b, out, R, G, N,
-                            a_stride, mode, stream);
+      return launch_k<F, 4>(x, w, idx, offsets, a, b, c, out, rr, vv, R,
+                            G, N, a_stride, mode, stream);
     case 8:
-      return launch_k<F, 8>(x, w, idx, offsets, a, b, out, R, G, N,
-                            a_stride, mode, stream);
+      return launch_k<F, 8>(x, w, idx, offsets, a, b, c, out, rr, vv, R,
+                            G, N, a_stride, mode, stream);
     case 16:
-      return launch_k<F, 16>(x, w, idx, offsets, a, b, out, R, G, N,
-                             a_stride, mode, stream);
+      return launch_k<F, 16>(x, w, idx, offsets, a, b, c, out, rr, vv, R,
+                             G, N, a_stride, mode, stream);
     case 32:
-      return launch_k<F, 32>(x, w, idx, offsets, a, b, out, R, G, N,
-                             a_stride, mode, stream);
+      return launch_k<F, 32>(x, w, idx, offsets, a, b, c, out, rr, vv, R,
+                             G, N, a_stride, mode, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -193,14 +223,16 @@ int launch(const void* x, const void* w, const void* idx, const void* offsets,
 
 }  // namespace
 
+// mode 0-2; the C interface of the wrapper's plain sums and EM steps
 extern "C" int emsar_segment_sum_f32(const void* x, const void* w,
                                      const void* idx, const void* offsets,
                                      const void* a, const void* b, void* out,
                                      long long R, long long G, long long N,
                                      long long a_stride, int lanes, int mode,
                                      void* stream) {
-  return launch<float>(x, w, idx, offsets, a, b, out, R, G, N, a_stride,
-                       lanes, mode, stream);
+  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(x, w, idx, offsets, a, b, nullptr, out, nullptr,
+                       nullptr, R, G, N, a_stride, lanes, mode, stream);
 }
 
 extern "C" int emsar_segment_sum_f64(const void* x, const void* w,
@@ -209,6 +241,33 @@ extern "C" int emsar_segment_sum_f64(const void* x, const void* w,
                                      long long R, long long G, long long N,
                                      long long a_stride, int lanes, int mode,
                                      void* stream) {
-  return launch<double>(x, w, idx, offsets, a, b, out, R, G, N, a_stride,
-                        lanes, mode, stream);
+  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<double>(x, w, idx, offsets, a, b, nullptr, out, nullptr,
+                        nullptr, R, G, N, a_stride, lanes, mode, stream);
+}
+
+// mode 3: x = the read ratio, a = inv_denom, b = t1, c = theta; writes
+// t2 to out, r * r to rr and v * v to vv
+extern "C" int emsar_em_cycle_update_f32(const void* x, const void* w,
+                                         const void* idx,
+                                         const void* offsets, const void* a,
+                                         const void* b, const void* c,
+                                         void* out, void* rr, void* vv,
+                                         long long R, long long G,
+                                         long long N, long long a_stride,
+                                         int lanes, void* stream) {
+  return launch<float>(x, w, idx, offsets, a, b, c, out, rr, vv, R, G, N,
+                       a_stride, lanes, 3, stream);
+}
+
+extern "C" int emsar_em_cycle_update_f64(const void* x, const void* w,
+                                         const void* idx,
+                                         const void* offsets, const void* a,
+                                         const void* b, const void* c,
+                                         void* out, void* rr, void* vv,
+                                         long long R, long long G,
+                                         long long N, long long a_stride,
+                                         int lanes, void* stream) {
+  return launch<double>(x, w, idx, offsets, a, b, c, out, rr, vv, R, G, N,
+                        a_stride, lanes, 3, stream);
 }

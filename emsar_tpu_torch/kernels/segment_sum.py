@@ -7,7 +7,10 @@ kernel and its plain versions.
 ``offsets[g]:offsets[g + 1]`` (``G = len(offsets) - 1``).  ``em_step``
 computes one EM step of the CSR solver (``model/solver.py::_em_iter``)
 from two such sums, by cid and by tid, with the elementwise work in their
-epilogues.  Together they replace the ``jax.ops.segment_sum`` calls of
+epilogues; ``em_step_cycle`` is the second EM step of a SQUAREM cycle,
+whose epilogue also writes the squares of the cycle's r and v (the
+step-length norms' summands).  Together they replace the
+``jax.ops.segment_sum`` calls of
 ``emsar_tpu/model/solver.py::_em_solve``.  The CUDA source is
 ``csrc/segment_sum.cu`` (a group of lanes per output, products folded in
 edge order, no atomics; what bounds it is written there).
@@ -19,11 +22,13 @@ call.  The public ``segment_sum`` prepares on every call.
 
 On CPU tensors the wrappers compute the plain versions (``segment_sum_ref``:
 ``index_add_``, which adds edges sequentially in edge order on the CPU;
-``em_step_ref``: the torch body of the EM step).  On CUDA tensors they
+``em_step_ref``, ``em_step_cycle_ref``: the torch body of the EM step
+and of the cycle's lines it takes).  On CUDA tensors they
 launch the kernel or raise; they never fall back (``index_add_`` on CUDA
 sums with float atomics, in an order that changes between launches).  The
 kernel gives the CPU plain versions' bits.  ``LAUNCHES`` counts plain-sum
-launches, ``EM_LAUNCHES`` the launches of ``em_step`` (two per step).
+launches, ``EM_LAUNCHES`` the launches of ``em_step`` and
+``em_step_cycle`` (two per step).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Tuple
 
 import torch
 
@@ -45,6 +51,10 @@ _PLAIN, _RATIO, _UPDATE = 0, 1, 2
 # a_stride, lanes, mode, stream)
 ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# emsar_em_cycle_update_f32/f64(x, w, idx, offsets, a, b, c, out, rr, vv,
+# R, G, N, a_stride, lanes, stream)
+CYCLE_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 4 + [
+    ctypes.c_int, ctypes.c_void_p]
 
 
 @dataclasses.dataclass
@@ -129,12 +139,27 @@ def em_step_ref(theta: torch.Tensor, by_cid: EdgeGroups, by_tid: EdgeGroups,
     return theta * num * inv_denom
 
 
+def em_step_cycle_ref(t1: torch.Tensor, theta: torch.Tensor,
+                      by_cid: EdgeGroups, by_tid: EdgeGroups,
+                      reads: torch.Tensor, inv_denom: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``em_step_cycle``: (t2, r * r, v * v) for t2 =
+    ``em_step_ref(t1)``, r = t1 - theta and v = t2 - t1 - r."""
+    t2 = em_step_ref(t1, by_cid, by_tid, reads, inv_denom)
+    r = t1 - theta
+    v = t2 - t1 - r
+    return t2, r * r, v * v
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     for fn in (lib.emsar_segment_sum_f32, lib.emsar_segment_sum_f64):
         fn.restype = ctypes.c_int
         fn.argtypes = ARGTYPES
+    for fn in (lib.emsar_em_cycle_update_f32, lib.emsar_em_cycle_update_f64):
+        fn.restype = ctypes.c_int
+        fn.argtypes = CYCLE_ARGTYPES
     return lib
 
 
@@ -211,6 +236,47 @@ def em_step(theta: torch.Tensor, by_cid: EdgeGroups, by_tid: EdgeGroups,
                                        "inv_denom"))
     EM_LAUNCHES += 2
     return out
+
+
+def em_step_cycle(t1: torch.Tensor, theta: torch.Tensor, by_cid: EdgeGroups,
+                  by_tid: EdgeGroups, reads: torch.Tensor,
+                  inv_denom: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The second EM step of a SQUAREM cycle from theta: (t2 = one EM step
+    from t1, r * r, v * v) for r = t1 - theta and v = t2 - t1 - r, all
+    [R, ntid] (``em_step_cycle_ref``).  Two launches on the card, the
+    squares written by the update's epilogue; operands as ``em_step``'s,
+    theta [R, ntid] contiguous in t1's dtype on its device."""
+    global EM_LAUNCHES
+    if theta.device != t1.device or theta.dtype != t1.dtype:
+        raise ValueError(f"em_step_cycle: theta is {theta.dtype} on "
+                         f"{theta.device}, want {t1.dtype} on {t1.device}")
+    if t1.device.type == "cpu":
+        return em_step_cycle_ref(t1, theta, by_cid, by_tid, reads,
+                                 inv_denom)
+    if t1.device.type != "cuda":
+        raise ValueError(f"em_step_cycle: unsupported device {t1.device}")
+    if theta.shape != t1.shape or not theta.is_contiguous():
+        raise ValueError(f"em_step_cycle: theta must be a contiguous "
+                         f"{tuple(t1.shape)} tensor, got "
+                         f"{tuple(theta.shape)}")
+    R, G = t1.shape[0], by_tid.n_groups
+    ratio = _launch(t1, by_cid, _RATIO, a=reads, a_stride=_row_stride(
+        reads, R, by_cid.n_groups, "reads"))
+    t2, rr, vv = (torch.empty((R, G), dtype=t1.dtype, device=t1.device)
+                  for _ in range(3))
+    fn = (_lib().emsar_em_cycle_update_f64 if t1.dtype == torch.float64
+          else _lib().emsar_em_cycle_update_f32)
+    rc = fn(ratio.data_ptr(), by_tid.mult.data_ptr(), by_tid.idx.data_ptr(),
+            by_tid.offsets.data_ptr(), inv_denom.data_ptr(), t1.data_ptr(),
+            theta.data_ptr(), t2.data_ptr(), rr.data_ptr(), vv.data_ptr(), R,
+            G, by_tid.n_x, _row_stride(inv_denom, R, G, "inv_denom"),
+            by_tid.lanes, torch.cuda.current_stream(t1.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"em_step_cycle: kernel launch failed with CUDA "
+                           f"error {rc}")
+    EM_LAUNCHES += 2
+    return t2, rr, vv
 
 
 def segment_sum(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,

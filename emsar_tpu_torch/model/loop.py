@@ -50,7 +50,7 @@ from typing import Callable, Iterable, Tuple
 
 import torch
 
-from ..kernels import segment_sum, squarem
+from ..kernels import csr_cycle, segment_sum, squarem
 
 # Blocks between two reads of the stop flag.  A read drains the stream and
 # costs the host's round trip; a block run after the stop costs a block's
@@ -60,7 +60,7 @@ from ..kernels import segment_sum, squarem
 CHECK_EVERY = 4
 # (wrapper module, name of its launch counter) of every kernel a block runs
 COUNTERS = ((segment_sum, "LAUNCHES"), (segment_sum, "EM_LAUNCHES"),
-            (squarem, "LAUNCHES"))
+            (squarem, "LAUNCHES"), (csr_cycle, "LAUNCHES"))
 
 
 @dataclasses.dataclass

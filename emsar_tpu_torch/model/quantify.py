@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -203,13 +203,13 @@ def _make_rounds(problem, fpkm: np.ndarray, cfg: QuantConfig, dtype,
     return np.concatenate([fpkm[None, :], extra], axis=0)
 
 
-def _csr_restarts(problem, fpkm: np.ndarray, cfg: QuantConfig, dtype,
-                  device: torch.device) -> Optional[np.ndarray]:
-    """Restart rounds on the CSR edge list, restricted to transcripts in
-    multi-transcript modules; [num_round-1, ntid] with round-0 values
-    elsewhere, or None when nothing is multi-transcript."""
+def restart_problem(problem: SolverProblem
+                    ) -> Optional[Tuple[SolverProblem, np.ndarray]]:
+    """The CSR restart rounds' problem: ``problem`` restricted to the
+    transcripts in multi-transcript modules (and the segments of their
+    edges), with the mask of those transcripts; None when nothing is
+    multi-transcript."""
     ntid = problem.n_transcripts
-    denom_pos = problem.denom > 0
     e_cid = problem.edge_cid
     seg_deg = np.zeros(len(problem.eumaps), dtype=np.int64)
     np.add.at(seg_deg, e_cid, 1)
@@ -228,13 +228,25 @@ def _csr_restarts(problem, fpkm: np.ndarray, cfg: QuantConfig, dtype,
         edge_mult=problem.edge_mult[keep],
         eumaps=problem.eumaps[seg_used], reads=problem.reads[seg_used],
         denom=np.where(multi_tid, problem.denom, 0.0))
+    return sub, multi_tid
+
+
+def _csr_restarts(problem, fpkm: np.ndarray, cfg: QuantConfig, dtype,
+                  device: torch.device) -> Optional[np.ndarray]:
+    """Restart rounds on the CSR edge list, restricted to transcripts in
+    multi-transcript modules; [num_round-1, ntid] with round-0 values
+    elsewhere, or None when nothing is multi-transcript."""
+    restricted = restart_problem(problem)
+    if restricted is None:
+        return None
+    sub, multi_tid = restricted
     extra = solve_restart_rounds(
         sub, cfg.num_round - 1, device, epsilon=_restart_eps(cfg),
         max_iters=cfg.max_niter_mle, block_iters=cfg.solver_block_iters,
         dtype=dtype, seed=cfg.rng_seed if cfg.rng_seed is not None else 0,
         polish=False)
-    return np.where(multi_tid[None, :] & denom_pos[None, :], extra,
-                    fpkm[None, :])
+    return np.where(multi_tid[None, :] & (problem.denom > 0)[None, :],
+                    extra, fpkm[None, :])
 
 
 def _make_rounds_dense(problem, fpkm: np.ndarray, cfg: QuantConfig, dtype,

@@ -14,7 +14,10 @@ global (cid, tid, multiplicity) edge list.  Every segment sum goes through
 (CSC): an EM step is ``em_step`` (two launches on the card), an intensity
 ``sum_groups``.  The summation order is fixed, so a solve gives the same
 bits on every run (``index_add_`` on CUDA sums with float atomics), and
-the card gives the CPU's bits.
+the card gives the CPU's bits.  The rest of a SQUAREM cycle (step length,
+extrapolation, the accept test's intensities and gain) is
+``kernels.csr_cycle``: a cycle is twelve launches on the card, with the
+torch body's bits.
 
 The convergence loop is ``model/loop.py``'s ``while_loop`` (JAX's
 ``lax.while_loop``): blocks of ``block_iters`` cycles replayed from a CUDA
@@ -32,7 +35,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.segment_sum import EdgeGroups, em_step, prepare, sum_groups
+from ..kernels.csr_cycle import (block_gain, cycle_extrap, cycle_select,
+                                 gain_terms, pair_gain)
+from ..kernels.segment_sum import (EdgeGroups, em_step, em_step_cycle,
+                                   prepare, sum_groups)
 from . import loop
 from .modules import ModuleDecomposition, SegmentGraph
 
@@ -170,16 +176,9 @@ def gain_of(reads: torch.Tensor, eumaps: torch.Tensor, s_old: torch.Tensor,
     termwise from the intensity deltas (resolves tiny gains even in
     float32).  A read-bearing segment whose intensity collapses to 0 is a
     likelihood collapse (-1e30), the reverse +1e30.  Shared by the CSR and
-    the dense solvers."""
-    both = (s_old > 0) & (s_new > 0)
-    safe_old = torch.where(both, s_old, 1.0)
-    ratio = torch.log1p(torch.where(both, (s_new - s_old) / safe_old, 0.0))
-    died = (s_old > 0) & (s_new <= 0) & (reads > 0)
-    born = (s_old <= 0) & (s_new > 0) & (reads > 0)
-    # died and born exclude each other: the nested where of the JAX code
-    term = torch.where(both, reads * ratio,
-                       (born.to(s_new.dtype) - died.to(s_new.dtype)) * 1e30)
-    return torch.sum(term - eumaps * (s_new - s_old), dim=-1)
+    the dense solvers (the CSR cycle computes the terms in
+    ``kernels.csr_cycle``'s kernels on the card)."""
+    return torch.sum(gain_terms(reads, eumaps, s_old, s_new), dim=-1)
 
 
 def loglik_of(reads: torch.Tensor, eumaps: torch.Tensor, s: torch.Tensor
@@ -197,24 +196,22 @@ def loglik_of(reads: torch.Tensor, eumaps: torch.Tensor, s: torch.Tensor
 def _squarem_cycle(p: DeviceProblem, theta: torch.Tensor) -> torch.Tensor:
     """One stabilized SQUAREM cycle (Varadhan & Roland 2008) per row: the
     extrapolation falls back to the double-EM value whenever it loses
-    likelihood, so convergence stays monotone."""
+    likelihood, so convergence stays monotone.  Twelve launches on the
+    card: three EM steps (the second also writes r * r and v * v), their
+    two row sums, the extrapolation, the gain terms of cand over t2, their
+    row sum and the accept test.  ``p`` is a DeviceProblem or anything
+    with its edge groupings and reads, eumaps and inv_denom of one row or
+    one per row of theta (the batched solve's ShardedProblem)."""
+    theta = theta.contiguous()
     t1 = _em_iter(p, theta)
-    t2 = _em_iter(p, t1)
-    r = t1 - theta
-    v = t2 - t1 - r
-    rnorm = torch.sqrt(torch.sum(r * r, dim=1, keepdim=True))
-    vnorm = torch.sqrt(torch.sum(v * v, dim=1, keepdim=True))
-    alpha = torch.where(vnorm > 0, -rnorm / torch.where(vnorm > 0, vnorm, 1.0),
-                        -1.0)
-    alpha = torch.clamp(alpha, max=-1.0)  # never shorter than a plain step
-    # zero-crossing coordinates fall back to the plain double-EM value: an
-    # exact 0 is an absorbing boundary for multiplicative EM and can freeze
-    # a suboptimal KKT point
-    extrap = theta - 2.0 * alpha * r + (alpha * alpha) * v
-    cand = _em_iter(p, torch.where(extrap > 0, extrap, t2))  # stabilization
-    better = gain_of(p.reads, p.eumaps, _intensities(p, t2),
-                      _intensities(p, cand)) >= 0
-    return torch.where(better[:, None], cand, t2)
+    t2, r_sq, v_sq = em_step_cycle(t1, theta, p.by_cid, p.by_tid, p.reads,
+                                   p.inv_denom)
+    x = cycle_extrap(theta, t1, t2, torch.sum(r_sq, dim=1, keepdim=True),
+                     torch.sum(v_sq, dim=1, keepdim=True))
+    cand = _em_iter(p, x)  # stabilization
+    gain = torch.sum(pair_gain(p.by_cid, p.reads, p.eumaps, t2, cand),
+                     dim=-1)
+    return cycle_select(gain, cand, t2)
 
 
 def em_solve(p: DeviceProblem, theta0: torch.Tensor, epsilon: float,
@@ -237,8 +234,8 @@ def em_solve(p: DeviceProblem, theta0: torch.Tensor, epsilon: float,
         th = theta
         for _ in range(block_iters):
             th = _squarem_cycle(p, th)
-        s_new = _intensities(p, th)
-        gain = gain_of(p.reads, p.eumaps, s_prev, s_new)
+        s_new, terms = block_gain(p.by_cid, p.reads, p.eumaps, s_prev, th)
+        gain = torch.sum(terms, dim=-1)
         # rows that already stopped keep their state (vmap'd while_loop)
         loop.advance(active, it, ((theta, th), (s_prev, s_new)))
         active.logical_and_((gain >= epsilon)
@@ -327,6 +324,15 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.float32 if np.dtype(dtype) == np.float32 else torch.float64
 
 
+def restart_inits(problem: SolverProblem, n_rounds: int, seed: int,
+                  dtype) -> np.ndarray:
+    """The restart rounds' starts [n_rounds, ntid] in ``dtype``: the JAX
+    package's NumPy draws, uniform(0, 100), 0 where the denominator is."""
+    rng = np.random.default_rng(np.uint64(0x5EED_0000) + np.uint64(seed))
+    inits = rng.uniform(0.0, 100.0, size=(n_rounds, problem.n_transcripts))
+    return np.where(problem.denom[None, :] > 0, inits, 0.0).astype(dtype)
+
+
 def solve_restart_rounds(problem: SolverProblem, n_rounds: int,
                          device: torch.device, epsilon: float = 1e-9,
                          max_iters: int = 200000, block_iters: int = 8,
@@ -342,9 +348,7 @@ def solve_restart_rounds(problem: SolverProblem, n_rounds: int,
     [n_rounds, ntid] (float64)."""
     ntid = problem.n_transcripts
     n_seg = len(problem.eumaps)
-    rng = np.random.default_rng(np.uint64(0x5EED_0000) + np.uint64(seed))
-    inits = rng.uniform(0.0, 100.0, size=(n_rounds, ntid))
-    inits = np.where(problem.denom[None, :] > 0, inits, 0.0).astype(dtype)
+    inits = restart_inits(problem, n_rounds, seed, dtype)
     if n_seg == 0 or n_rounds == 0:
         return np.zeros((n_rounds, ntid), dtype=np.float64)
     if np.dtype(dtype) == np.float32:

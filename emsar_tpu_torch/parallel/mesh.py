@@ -18,13 +18,17 @@ shard:
 
 ``psum`` over an axis becomes ``all_reduce(SUM)`` on that axis's process
 group: gloo for CPU tensors, NCCL for CUDA tensors (one card a rank,
-``cuda:LOCAL_RANK``).  An EM step with tp == 1 is the fused ``em_step``
-with per-sample reads and 1 / denom; with tp > 1 the partial segment sums
-(``sum_groups``) are all-reduced before the ratio ('edges': both sums,
-'transcript': the by-cid sum only).  An all-reduce of float partials
-sums in another order than one process, so results over tp > 1 agree
-with the single-process solve to solver tolerance, not bit for bit; a
-run at the same world size repeats its bits.
+``cuda:LOCAL_RANK``).  With tp == 1 a SQUAREM cycle is the CSR solver's
+(``model/solver.py::_squarem_cycle``: the fused ``em_step`` and the
+``kernels.csr_cycle`` kernels) with per-sample reads, EUMAps and 1 /
+denom, and a block's gain that of ``csr_cycle.block_gain``; with tp > 1
+the partial segment sums (``sum_groups``) are all-reduced before the
+ratio ('edges': both sums, 'transcript': the by-cid sum only), and the
+cycle's vector work runs as torch ops between the all-reduces.  An
+all-reduce of float partials sums in another order than one process, so
+results over tp > 1 agree with the single-process solve to solver
+tolerance, not bit for bit; a run at the same world size repeats its
+bits.
 
 The solve keeps the JAX semantics: the read-attribution warm start per
 sample, one block before the loop, one stop test for the whole problem
@@ -48,8 +52,9 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
-from ..kernels.segment_sum import EdgeGroups, em_step, sum_groups
-from ..model import loop
+from ..kernels.csr_cycle import block_gain
+from ..kernels.segment_sum import EdgeGroups, sum_groups
+from ..model import loop, solver
 from ..model.solver import (SolverProblem, gain_of, group_edges,
                             inverse_denom, loglik_of,
                             read_attribution_starts, torch_dtype)
@@ -228,9 +233,8 @@ def _intensities(sp: ShardedProblem, th: torch.Tensor) -> torch.Tensor:
 
 
 def _em_iter(sp: ShardedProblem, th: torch.Tensor) -> torch.Tensor:
-    """One EM step of every local sample."""
-    if sp.mesh.tp == 1:
-        return em_step(th, sp.by_cid, sp.by_tid, sp.reads, sp.inv_denom)
+    """One EM step of every local sample, its partial sums all-reduced over
+    tp (> 1; at tp == 1 the cycle is the CSR solver's)."""
     s = _intensities(sp, th)
     pos = s > 0
     ratio = torch.where(pos, sp.reads / torch.where(pos, s, 1.0), 0.0)
@@ -249,8 +253,11 @@ def _row_norm(sp: ShardedProblem, v: torch.Tensor) -> torch.Tensor:
 
 
 def _squarem_cycle(sp: ShardedProblem, th: torch.Tensor) -> torch.Tensor:
-    """One stabilized SQUAREM cycle per local sample (as
-    ``model/solver.py::_squarem_cycle``)."""
+    """One stabilized SQUAREM cycle per local sample: at tp == 1
+    ``model/solver.py::_squarem_cycle`` itself, else its torch body with
+    the all-reduces between the pieces."""
+    if sp.mesh.tp == 1:
+        return solver._squarem_cycle(sp, th)
     t1 = _em_iter(sp, th)
     t2 = _em_iter(sp, t1)
     r = t1 - th
@@ -265,12 +272,33 @@ def _squarem_cycle(sp: ShardedProblem, th: torch.Tensor) -> torch.Tensor:
     return torch.where(better[:, None], cand, t2)
 
 
-def _block(sp: ShardedProblem, th: torch.Tensor, block_iters: int):
-    """``block_iters`` cycles: (theta, intensities, logL per sample)."""
+def _cycles(sp: ShardedProblem, th: torch.Tensor, block_iters: int
+            ) -> torch.Tensor:
     for _ in range(block_iters):
         th = _squarem_cycle(sp, th)
+    return th
+
+
+def _block(sp: ShardedProblem, th: torch.Tensor, block_iters: int):
+    """``block_iters`` cycles: (theta, intensities, logL per sample)."""
+    th = _cycles(sp, th, block_iters)
     s = _intensities(sp, th)
     return th, s, loglik_of(sp.reads, sp.eumaps, s)
+
+
+def _block_after(sp: ShardedProblem, th: torch.Tensor, s_prev: torch.Tensor,
+                 block_iters: int):
+    """``block_iters`` cycles after a block that ended at intensities
+    ``s_prev``: (theta, intensities, logL per sample, gain per sample over
+    s_prev), the intensities and gain terms in one launch at tp == 1."""
+    th = _cycles(sp, th, block_iters)
+    if sp.mesh.tp == 1:
+        s, terms = block_gain(sp.by_cid, sp.reads, sp.eumaps, s_prev, th)
+        gain = torch.sum(terms, dim=-1)
+    else:
+        s = _intensities(sp, th)
+        gain = gain_of(sp.reads, sp.eumaps, s_prev, s)
+    return th, s, loglik_of(sp.reads, sp.eumaps, s), gain
 
 
 def solve_sharded(sp: ShardedProblem, epsilon: float = 1e-6,
@@ -295,9 +323,8 @@ def solve_sharded(sp: ShardedProblem, epsilon: float = 1e-6,
     it = torch.zeros((), dtype=torch.int64, device=dev)
 
     def block():
-        th_new, s_new, ll_new = _block(sp, th, block_iters)
-        g = _psum(gain_of(sp.reads, sp.eumaps, s, s_new).sum().reshape(1),
-                  m.dp_group)
+        th_new, s_new, ll_new, gain = _block_after(sp, th, s, block_iters)
+        g = _psum(gain.sum().reshape(1), m.dp_group)
         loop.advance(active, it, ((th, th_new), (s, s_new), (ll, ll_new)))
         active.logical_and_((g[0] >= epsilon) & (it < max_blocks))
 

@@ -4,7 +4,8 @@
 // for __syncwarp (and one per group of lanes for a shuffle of width < 32),
 // the shuffles and the ballots, atomicAdd, atomicOr and atomicCAS through
 // std::atomic_ref, and the round-to-nearest float intrinsics as plain
-// IEEE operations (g++ contracts no FMA for x86-64 without -mfma).  Block-level __shared__ variables
+// IEEE operations (g++ contracts no FMA for x86-64 without -mfma); log1p
+// and log1pf are the host libm's.  Block-level __shared__ variables
 // become statics (one block runs at a time).  tests/test_torch_cuda_
 // emulated.py rewrites each `kernel<<<grid, block, smem, stream>>>(args)`
 // into emu_launch(grid, block, smem, [&] { kernel(args); }).
@@ -85,6 +86,10 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline double __dsqrt_rn(double a) { return std::sqrt(a); }
 
 struct EmuWarp {
   std::unique_ptr<std::barrier<>> bar;

@@ -8,6 +8,7 @@ every CPU run; that nvcc builds them and what they cost on the card are
 for ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``."""
 
 import ctypes
+import dataclasses
 import os
 import re
 import subprocess
@@ -19,13 +20,14 @@ import torch
 from emsar_tpu_torch.index.device_build import DeviceRef
 from emsar_tpu_torch.index.device_build_pe import rank_pass
 from emsar_tpu_torch.io.fasta import build_transcriptome
-from emsar_tpu_torch.kernels import (_build, pe_candidates, segment_sum,
-                                     squarem, window_hash)
+from emsar_tpu_torch.kernels import (_build, csr_cycle, pe_candidates,
+                                     segment_sum, squarem, window_hash)
 from emsar_tpu_torch.kernels.check import (block_agreement, block_tol,
                                            random_modules)
 from emsar_tpu_torch.model import solver
 from emsar_tpu_torch.model.dense import SIZE_CLASSES
 from emsar_tpu_torch.sim import gene_family_transcriptome
+from torch_loop_cases import gain_branch_cases
 
 EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "cuda_emu")
@@ -60,7 +62,7 @@ def emulated(tmp_path_factory):
     """{source: its library built for the CPU emulation}."""
     libs = {}
     for source in (window_hash.SOURCE, squarem.SOURCE, pe_candidates.SOURCE,
-                   segment_sum.SOURCE):
+                   segment_sum.SOURCE, csr_cycle.SOURCE):
         with open(os.path.join(_build.CSRC_DIR, source)) as fh:
             text = _emulated_source(fh.read())
         cc = tmp_path_factory.mktemp("emu") / (source + ".cc")
@@ -346,3 +348,184 @@ def test_segment_sum_source_matches_plain(emulated, dtype, lanes, per_row):
     want = segment_sum.em_step_ref(theta, p.by_cid, p.by_tid, reads,
                                    inv_denom)
     assert torch.equal(got, want) and (want > 0).any()
+
+
+def _emulated_cycle_update(lib, ratio, t1, theta, g, lanes, inv_denom,
+                           a_stride):
+    """The emulated mode-3 launch of csrc/segment_sum.cu: (t2, rr, vv)."""
+    fn = (lib.emsar_em_cycle_update_f64 if t1.dtype == torch.float64
+          else lib.emsar_em_cycle_update_f32)
+    fn.restype = ctypes.c_int
+    fn.argtypes = segment_sum.CYCLE_ARGTYPES
+    out = [torch.full_like(t1, 7.0) for _ in range(3)]
+    assert fn(ratio.data_ptr(), g.mult.data_ptr(), g.idx.data_ptr(),
+              g.offsets.data_ptr(), inv_denom.data_ptr(), t1.data_ptr(),
+              theta.data_ptr(), *(o.data_ptr() for o in out), t1.shape[0],
+              g.n_groups, g.n_x, a_stride, lanes, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["shared", "per_row"])
+@pytest.mark.parametrize("lanes", [4, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_em_cycle_update_source_matches_plain(emulated, dtype, lanes,
+                                              per_row):
+    """Mode 3 (the second EM step of a cycle): t2, r * r and v * v
+    bit-equal to ``em_step_cycle_ref``, with one row of reads and
+    inv_denom shared by the R = 3 rows or one each."""
+    rng = np.random.default_rng(lanes + 5 * per_row)
+    problem = _sum_problem(rng)
+    p = solver.problem_to_device(problem, torch.device("cpu"), dtype)
+    R, C, T = 3, len(problem.eumaps), problem.n_transcripts
+    theta = rng.uniform(0, 10, (R, T))
+    theta[:, rng.random(T) < 0.2] = 0.0
+    theta = torch.as_tensor(theta).to(dtype)
+    reads, inv_denom = p.reads, p.inv_denom
+    if per_row:
+        reads = torch.stack([reads * k for k in (1, 2, 0.5)])
+        inv_denom = torch.stack([inv_denom.roll(k) for k in range(R)])
+    t1 = segment_sum.em_step_ref(theta, p.by_cid, p.by_tid, reads,
+                                 inv_denom)
+    lib = emulated[segment_sum.SOURCE]
+    ratio = _emulated_sum(lib, t1, p.by_cid, lanes, 1, a=reads,
+                          a_stride=C if per_row else 0)
+    got = _emulated_cycle_update(lib, ratio, t1, theta, p.by_tid, lanes,
+                                 inv_denom, T if per_row else 0)
+    want = segment_sum.em_step_cycle_ref(t1, theta, p.by_cid, p.by_tid,
+                                         reads, inv_denom)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (want[1] > 0).any() and (want[2] > 0).any()
+
+
+def _log1p_tolerance(got, want, reads, s_old, s_new):
+    """The emulated gain terms against the plain version's: the same bits
+    where the term has no log1p, and where it has one within 4 ulps of
+    reads * log1p(...) plus one ulp of the term (the host libm's log1p
+    and torch's CPU log1p may differ by an ulp, and the term's last
+    rounding then by one more; on the card both are CUDA's log1p, and the
+    terms are bit-equal there)."""
+    both = (s_old > 0) & (s_new > 0)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    exact = ok & ~both
+    assert torch.equal(got[exact], want[exact])
+    eps = torch.finfo(got.dtype).eps
+    ratio = torch.log1p((s_new - s_old) / torch.where(both, s_old, 1.0))
+    tol = 4 * eps * (reads * ratio).abs() + eps * want.abs()
+    close = ok & both
+    assert ((got - want).abs()[close] <= tol[close]).all()
+
+
+def _identity_groups(n, dtype):
+    """n segments of one edge each, segment i to transcript i: the
+    intensities are the thetas."""
+    return segment_sum.prepare(torch.arange(n + 1), torch.arange(n),
+                               torch.ones(n, dtype=dtype), n)
+
+
+def _emulated_gain(lib, g, reads, eumaps, x_new, x_old=None, s_old=None):
+    """The emulated pair_gain launch: (s_out or None, terms)."""
+    fn = (lib.emsar_pair_gain_f64 if x_new.dtype == torch.float64
+          else lib.emsar_pair_gain_f32)
+    fn.restype = ctypes.c_int
+    fn.argtypes = csr_cycle.PAIR_ARGTYPES
+    R, C = x_new.shape[0], g.n_groups
+    out = torch.full((R, C), 7.0, dtype=x_new.dtype)
+    s_out = None if s_old is None else torch.full_like(out, 7.0)
+    a_stride = C if reads.dim() == 2 else 0
+    assert fn(x_new.data_ptr(), None if x_old is None else x_old.data_ptr(),
+              None if s_old is None else s_old.data_ptr(), g.mult.data_ptr(),
+              g.idx.data_ptr(), g.offsets.data_ptr(), reads.data_ptr(),
+              eumaps.data_ptr(), None if s_out is None else s_out.data_ptr(),
+              out.data_ptr(), R, C, g.n_x, a_stride, g.lanes, None) == 0
+    return s_out, out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_gain_term_source_branches(emulated, dtype):
+    """Every branch of the gain term, one segment each, through both forms
+    of pair_gain on one-edge segments (intensities = thetas), with reads
+    and eumaps a row each: NaN where the plain version has NaN, the same
+    bits elsewhere but for the log1p tolerance."""
+    s_old, s_new, reads, eumaps = gain_branch_cases(dtype)
+    g = _identity_groups(s_old.shape[1], dtype)
+    lib = emulated[csr_cycle.SOURCE]
+    want = csr_cycle.gain_terms(reads, eumaps, s_old, s_new)
+    assert torch.isnan(want).sum() >= 3 and (want.abs() == 1e30).any()
+    _, two = _emulated_gain(lib, g, reads, eumaps, s_new, x_old=s_old)
+    s_out, one = _emulated_gain(lib, g, reads, eumaps, s_new, s_old=s_old)
+    assert torch.equal(s_out.nan_to_num(), s_new.nan_to_num())
+    for got in (two, one):
+        _log1p_tolerance(got, want, reads, s_old, s_new)
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["shared", "per_row"])
+@pytest.mark.parametrize("lanes", segment_sum.LANES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_csr_cycle_source_matches_plain(emulated, dtype, lanes, per_row):
+    """The three kernels of csrc/csr_cycle.cu on one cycle of a random
+    problem at R = 3 (reads and eumaps shared or a row each; every lane
+    count): the intensities of pair_gain's one-sum form, cycle_extrap
+    and cycle_select bit-equal to their plain versions, the gain terms so
+    but for the log1p tolerance; cycle_extrap also on rows whose v is 0
+    (alpha -1) and whose alpha is NaN, cycle_select on NaN and signed-zero
+    gains."""
+    rng = np.random.default_rng(lanes + 11 * per_row)
+    problem = _sum_problem(rng)
+    p = solver.problem_to_device(problem, torch.device("cpu"), dtype)
+    g = dataclasses.replace(p.by_cid, lanes=lanes)
+    R, C, T = 3, len(problem.eumaps), problem.n_transcripts
+    reads, eumaps, inv_denom = p.reads, p.eumaps, p.inv_denom
+    if per_row:
+        reads = torch.stack([reads * k for k in (1, 2, 0.5)])
+        eumaps = torch.stack([eumaps.roll(k) for k in range(R)])
+        inv_denom = torch.stack([inv_denom.roll(k) for k in range(R)])
+    theta = rng.uniform(0, 10, (R, T))
+    theta[:, rng.random(T) < 0.2] = 0.0
+    theta = torch.as_tensor(theta).to(dtype)
+    theta[2] = 0.0  # t1 = t2 = theta: r = v = 0
+    t1 = segment_sum.em_step_ref(theta, p.by_cid, p.by_tid, reads, inv_denom)
+    t2, r_sq, v_sq = segment_sum.em_step_cycle_ref(
+        t1, theta, p.by_cid, p.by_tid, reads, inv_denom)
+    rs = torch.sum(r_sq, dim=1, keepdim=True)
+    vs = torch.sum(v_sq, dim=1, keepdim=True)
+    assert vs[2, 0] == 0
+    lib = emulated[csr_cycle.SOURCE]
+    sums = [(rs, vs), (torch.tensor([[np.nan], [np.inf], [4.0]], dtype=dtype),
+                       torch.tensor([[1.0], [np.inf], [0.0]], dtype=dtype))]
+    for r_sum, v_sum in sums:
+        fn = (lib.emsar_cycle_extrap_f64 if dtype == torch.float64
+              else lib.emsar_cycle_extrap_f32)
+        fn.restype = ctypes.c_int
+        fn.argtypes = csr_cycle.EXTRAP_ARGTYPES
+        got = torch.full_like(theta, 7.0)
+        assert fn(theta.data_ptr(), t1.data_ptr(), t2.data_ptr(),
+                  r_sum.data_ptr(), v_sum.data_ptr(), got.data_ptr(), R, T,
+                  None) == 0
+        want = csr_cycle.cycle_extrap_ref(theta, t1, t2, r_sum, v_sum)
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    x = csr_cycle.cycle_extrap_ref(theta, t1, t2, rs, vs)
+    cand = segment_sum.em_step_ref(x, p.by_cid, p.by_tid, reads, inv_denom)
+    s_t2, s_cand = (segment_sum.segment_sum_ref(a, g.mult, g.idx, g.offsets)
+                    for a in (t2, cand))
+    want = csr_cycle.gain_terms(reads, eumaps, s_t2, s_cand)
+    _, got = _emulated_gain(lib, g, reads, eumaps, cand, x_old=t2)
+    _log1p_tolerance(got, want, reads, s_t2, s_cand)
+    s_out, got = _emulated_gain(lib, g, reads, eumaps, cand, s_old=s_t2)
+    assert torch.equal(s_out, s_cand)
+    _log1p_tolerance(got, want, reads, s_t2, s_cand)
+    fn = (lib.emsar_cycle_select_f64 if dtype == torch.float64
+          else lib.emsar_cycle_select_f32)
+    fn.restype = ctypes.c_int
+    fn.argtypes = csr_cycle.SELECT_ARGTYPES
+    for gain in (torch.sum(want, dim=-1),
+                 torch.tensor([np.nan, -0.0, -1e-300], dtype=dtype),
+                 torch.tensor([0.0, 1.0, -np.inf], dtype=dtype)):
+        got = torch.full_like(cand, 7.0)
+        assert fn(gain.data_ptr(), cand.data_ptr(), t2.data_ptr(),
+                  got.data_ptr(), R, T, None) == 0
+        assert torch.equal(got, csr_cycle.cycle_select_ref(gain, cand, t2))

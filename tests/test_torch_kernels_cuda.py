@@ -6,6 +6,8 @@ kernel has no interpret mode).  This file imports neither JAX nor
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ import torch
 from emsar_tpu_torch.index.device_build import DeviceRef
 from emsar_tpu_torch.index.device_build_pe import rank_pass
 from emsar_tpu_torch.io.fasta import build_transcriptome
+from emsar_tpu_torch.kernels import csr_cycle
 from emsar_tpu_torch.kernels import pe_candidates as kpe
 from emsar_tpu_torch.kernels import segment_sum as ssum
 from emsar_tpu_torch.kernels import squarem, window_hash
@@ -21,6 +24,7 @@ from emsar_tpu_torch.kernels.check import (block_agreement, block_tol,
 from emsar_tpu_torch.model import solver
 from emsar_tpu_torch.model.dense import SIZE_CLASSES
 from emsar_tpu_torch.sim import gene_family_transcriptome
+from torch_loop_cases import gain_branch_cases, torch_body_cycle
 
 pytestmark = pytest.mark.cuda
 
@@ -282,3 +286,125 @@ def test_pe_candidates_kernel_bit_equal(cuda, unstranded, d0, nfl):
         sng = kpe.singleton_members(srank, lo, hi)
         valid = int((grid.view(-1, nfl)[sng] != kpe.INVALID_KEY).sum())
         assert (valid > int((single - start).sum())) == (nfl > 1)
+
+
+def _cycle_inputs(rng, R, dtype, dev):
+    """(DeviceProblem on ``dev``, the same on the CPU, theta [R, ntid] on
+    the CPU) of a random problem: at R 16 with reads, EUMAps and 1 / denom
+    a row each (the batched solve), else one row shared; theta's last row
+    all zero when R > 1 (r = v = 0: alpha -1)."""
+    problem = _random_problem(rng, 3000, 1200, 12000)
+    C, T = len(problem.eumaps), problem.n_transcripts
+    ps = [solver.problem_to_device(problem, d, dtype)
+          for d in (dev, torch.device("cpu"))]
+    if R == 16:
+        reads = torch.as_tensor(rng.poisson(3, (R, C)) * 1.0).to(dtype)
+        eumaps = torch.as_tensor(rng.uniform(0.1, 2, (R, C))).to(dtype)
+        inv = torch.as_tensor(rng.uniform(0.2, 2, (R, T))
+                              * (rng.random((R, T)) < 0.95)).to(dtype)
+        ps = [dataclasses.replace(p, reads=reads.to(p.reads.device),
+                                  eumaps=eumaps.to(p.reads.device),
+                                  inv_denom=inv.to(p.reads.device))
+              for p in ps]
+    theta = rng.uniform(0, 10, (R, T))
+    theta[:, rng.random(T) < 0.2] = 0.0
+    if R > 1:
+        theta[-1] = 0.0
+    return ps[0], ps[1], torch.as_tensor(theta).to(dtype)
+
+
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_csr_cycle_kernels_match_plain(cuda, dtype, R):
+    """One cycle's pieces on the card, each against its plain version on
+    the same inputs, bit for bit: em_step_cycle (t2, r * r, v * v) against
+    the CPU's; cycle_extrap, pair_gain and block_gain (their intensities
+    summed on the CPU, the gain terms by torch on the card, so CUDA's
+    log1p on both sides) and cycle_select against torch on the card; two
+    calls equal; the launch counts."""
+    rng = np.random.default_rng(R + 31)
+    pg, pc, th = _cycle_inputs(rng, R, dtype, cuda)
+    thg = th.to(cuda)
+    t1 = ssum.em_step(thg, pg.by_cid, pg.by_tid, pg.reads, pg.inv_denom)
+    before = ssum.EM_LAUNCHES
+    got = ssum.em_step_cycle(t1, thg, pg.by_cid, pg.by_tid, pg.reads,
+                             pg.inv_denom)
+    torch.cuda.synchronize()
+    assert ssum.EM_LAUNCHES == before + 2
+    want = ssum.em_step_cycle_ref(t1.cpu(), th, pc.by_cid, pc.by_tid,
+                                  pc.reads, pc.inv_denom)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    t2, r_sq, v_sq = got
+    rs = torch.sum(r_sq, dim=1, keepdim=True)
+    vs = torch.sum(v_sq, dim=1, keepdim=True)
+    before = csr_cycle.LAUNCHES
+    x = csr_cycle.cycle_extrap(thg, t1, t2, rs, vs)
+    assert torch.equal(x, csr_cycle.cycle_extrap(thg, t1, t2, rs, vs))
+    assert torch.equal(x, csr_cycle.cycle_extrap_ref(thg, t1, t2, rs, vs))
+    cand = ssum.em_step(x, pg.by_cid, pg.by_tid, pg.reads, pg.inv_denom)
+    g = pg.by_cid
+    s_t2, s_cand = (ssum.segment_sum_ref(a.cpu(), pc.by_cid.mult,
+                                         pc.by_cid.idx, pc.by_cid.offsets)
+                    .to(cuda) for a in (t2, cand))
+    terms = csr_cycle.gain_terms(pg.reads, pg.eumaps, s_t2, s_cand)
+    got = csr_cycle.pair_gain(g, pg.reads, pg.eumaps, t2, cand)
+    assert torch.equal(got, csr_cycle.pair_gain(g, pg.reads, pg.eumaps, t2,
+                                                cand))
+    assert torch.equal(got.nan_to_num(), terms.nan_to_num())
+    assert torch.equal(torch.isnan(got), torch.isnan(terms))
+    s, got = csr_cycle.block_gain(g, pg.reads, pg.eumaps, s_t2, cand)
+    assert torch.equal(s, s_cand)
+    assert torch.equal(got.nan_to_num(), terms.nan_to_num())
+    gain = torch.sum(terms, dim=-1)
+    out = csr_cycle.cycle_select(gain, cand, t2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, csr_cycle.cycle_select_ref(gain, cand, t2))
+    assert csr_cycle.LAUNCHES == before + 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_gain_term_kernel_branches(cuda, dtype):
+    """The gain term's every branch on one-edge segments (intensities =
+    thetas): NaN intensities, died, born, both zero, a read-less collapse
+    (0 * log1p(-1) = NaN): pair_gain and block_gain give torch's terms on
+    the card bit for bit; cycle_extrap keeps a NaN step length and takes
+    -1 where vnorm is 0."""
+    s_old, s_new, reads, eumaps = gain_branch_cases(dtype, cuda)
+    n = s_old.shape[1]
+    g = ssum.prepare(torch.arange(n + 1, device=cuda),
+                     torch.arange(n, device=cuda),
+                     torch.ones(n, dtype=dtype, device=cuda), n)
+    want = csr_cycle.gain_terms(reads, eumaps, s_old, s_new)
+    assert torch.isnan(want).sum() >= 3 and (want.abs() == 1e30).any()
+    for got in (csr_cycle.pair_gain(g, reads, eumaps, s_old, s_new),
+                csr_cycle.block_gain(g, reads, eumaps, s_old, s_new)[1]):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    th = torch.rand((4, 7), dtype=dtype, device=cuda)
+    t1, t2 = th * 1.5, th * 1.75
+    rs = torch.tensor([[np.nan], [np.inf], [4.0], [1.0]], dtype=dtype,
+                      device=cuda)
+    vs = torch.tensor([[1.0], [np.inf], [0.0], [1.0]], dtype=dtype,
+                      device=cuda)
+    assert torch.equal(csr_cycle.cycle_extrap(th, t1, t2, rs, vs),
+                       csr_cycle.cycle_extrap_ref(th, t1, t2, rs, vs))
+
+
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_squarem_cycle_is_the_torch_body_on_the_card(cuda, dtype, R):
+    """Eight cycles of ``solver._squarem_cycle`` (twelve launches each) give
+    the bits of the torch body they replaced, run on the card with the
+    same EM-step and intensity kernels, after every cycle."""
+    rng = np.random.default_rng(R + 41)
+    pg, _, th = _cycle_inputs(rng, R, dtype, cuda)
+    th = want = th.to(cuda)
+    for _ in range(8):
+        th = solver._squarem_cycle(pg, th)
+        want = torch_body_cycle(pg, want)
+        torch.cuda.synchronize()
+        assert torch.equal(th, want)

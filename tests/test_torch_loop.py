@@ -160,7 +160,8 @@ def test_counters_count_replays(monkeypatch, k):
     """The launch counters after a replayed solve equal the eager solve's:
     the capture's ticks are taken back and added once per replay."""
     monkeypatch.setattr(loop, "CHECK_EVERY", k)
-    per_block = (3, 4, 1)  # sum_groups, em_step, squarem_block launches
+    # sum_groups, em_step, squarem_block, csr_cycle launches
+    per_block = (3, 4, 1, 2)
 
     def solve(graph):
         for mod, attr in loop.COUNTERS:

@@ -3,7 +3,10 @@
 (the card, which has no JAX): random modules as a dense batch and as one
 CSR problem, each loop's inputs for three stops (convergence between two
 reads of the stop flag, a NaN block gain, the block cap), and the
-parent's loops as they were, with one host read of the flag per block."""
+parent's loops as they were, with one host read of the flag per block;
+the CSR loops' cycle and gain as the torch body they were before the
+cycle's kernels (``kernels/csr_cycle.py``), which
+``tests/test_torch_csr_cycle.py`` holds the kernels' path to as well."""
 
 import numpy as np
 import torch
@@ -100,10 +103,76 @@ def _cap(case):
     return CAP_BLOCKS if case == "cap" else 2048
 
 
+# ---- the CSR cycle and gain as torch ops (EM steps and intensities by
+# the segment-sum kernels), as they were before kernels/csr_cycle.py -------
+
+
+def torch_body_gain_of(reads, eumaps, s_old, s_new):
+    both = (s_old > 0) & (s_new > 0)
+    safe_old = torch.where(both, s_old, 1.0)
+    ratio = torch.log1p(torch.where(both, (s_new - s_old) / safe_old, 0.0))
+    died = (s_old > 0) & (s_new <= 0) & (reads > 0)
+    born = (s_old <= 0) & (s_new > 0) & (reads > 0)
+    # died and born exclude each other: the nested where of the JAX code
+    term = torch.where(both, reads * ratio,
+                       (born.to(s_new.dtype) - died.to(s_new.dtype)) * 1e30)
+    return torch.sum(term - eumaps * (s_new - s_old), dim=-1)
+
+
+def torch_body_cycle(p, theta):
+    """One SQUAREM cycle; ``p`` a DeviceProblem or a ShardedProblem of one
+    process (reads, eumaps, inv_denom a row each)."""
+    t1 = tsolver._em_iter(p, theta)
+    t2 = tsolver._em_iter(p, t1)
+    r = t1 - theta
+    v = t2 - t1 - r
+    rnorm = torch.sqrt(torch.sum(r * r, dim=1, keepdim=True))
+    vnorm = torch.sqrt(torch.sum(v * v, dim=1, keepdim=True))
+    alpha = torch.where(vnorm > 0, -rnorm / torch.where(vnorm > 0, vnorm, 1.0),
+                        -1.0)
+    alpha = torch.clamp(alpha, max=-1.0)  # never shorter than a plain step
+    # zero-crossing coordinates fall back to the plain double-EM value: an
+    # exact 0 is an absorbing boundary for multiplicative EM and can freeze
+    # a suboptimal KKT point
+    extrap = theta - 2.0 * alpha * r + (alpha * alpha) * v
+    cand = tsolver._em_iter(p, torch.where(extrap > 0, extrap, t2))
+    better = torch_body_gain_of(p.reads, p.eumaps,
+                                tsolver._intensities(p, t2),
+                                tsolver._intensities(p, cand)) >= 0
+    return torch.where(better[:, None], cand, t2)
+
+
+def gain_branch_cases(dtype, device=torch.device("cpu")):
+    """(s_old, s_new, reads, eumaps) [2, 12] through every branch of the
+    gain term: both positive (read-bearing and read-less), died and born
+    with and without reads, both zero, an intensity unchanged; row 0 also
+    NaN intensities and read-less segments whose intensity falls by more
+    than 1e16 (0 * log1p(-1): NaN terms), row 1 none of those (a finite
+    gain, in float32 too)."""
+    nan = np.nan
+    rows = (
+        [[2.0, 3.0, 1.0, 0.0, 1.0, 0.0, nan, 2.0, 5.0, 5.0, 7.0, 1.0],
+         [1e6, 0.5, 3.0, 0.0, 2.0, 2.0, 1.0, 2.0, 1.0, 3.0, 0.0, 1e-30]],
+        [[2.5, 3.0, 0.0, 1.0, 0.0, 2.0, 1.0, nan, 5e-17, 4.0, 7.0, 0.5],
+         [2e5, 0.0, 0.0, 2.0, 0.01, 1.0, 0.5, 2.0, 0.25, 3.5, 0.0, 1e-29]],
+        [[1.0, 0.0, 3.0, 2.0, 0.0, 0.0, 2.0, 1.0, 0.0, 4.0, 0.0, 5.0],
+         [0.0, 3.0, 1.0, 1.0, 0.0, 3.0, 1.0, 0.0, 0.0, 2.0, 1.0, 4.0]],
+        np.linspace(0.5, 2.0, 24).reshape(2, 12))
+    return [torch.as_tensor(np.asarray(a, dtype=np.float64)).to(device, dtype)
+            for a in rows]
+
+
+def _torch_body_block(sp, th, block_iters):
+    for _ in range(block_iters):
+        th = torch_body_cycle(sp, th)
+    s = tsolver._intensities(sp, th)
+    return th, s, tsolver.loglik_of(sp.reads, sp.eumaps, s)
+
+
 # ---- the parent's loops, as they were: one host read per block ---------
 
 
-def _parent_em_solve(p, theta0, epsilon, block_iters, max_iters):
+def parent_em_solve(p, theta0, epsilon, block_iters, max_iters):
     theta = theta0
     s_prev = tsolver._intensities(p, theta)
     active = torch.ones(theta.shape[0], dtype=torch.bool,
@@ -112,9 +181,9 @@ def _parent_em_solve(p, theta0, epsilon, block_iters, max_iters):
     while True:
         th = theta
         for _ in range(block_iters):
-            th = tsolver._squarem_cycle(p, th)
+            th = torch_body_cycle(p, th)
         s_new = tsolver._intensities(p, th)
-        gain = tsolver.gain_of(p.reads, p.eumaps, s_prev, s_new)
+        gain = torch_body_gain_of(p.reads, p.eumaps, s_prev, s_new)
         theta = torch.where(active[:, None], th, theta)
         s_prev = torch.where(active[:, None], s_new, s_prev)
         it += 1
@@ -161,12 +230,13 @@ def _parent_pallas(db, epsilon, block_iters, max_blocks):
     return th, it, gain
 
 
-def _parent_sharded(sp, epsilon, max_blocks, block_iters):
-    th, s, ll = tmesh._block(sp, sp.theta0, block_iters)
+def parent_sharded(sp, epsilon, max_blocks, block_iters):
+    """The sharded solve of a world of one."""
+    th, s, ll = _torch_body_block(sp, sp.theta0, block_iters)
     gain, it = float("inf"), 0
     while gain >= epsilon and it < max_blocks:
-        th_new, s_new, ll_new = tmesh._block(sp, th, block_iters)
-        gain = float(tsolver.gain_of(sp.reads, sp.eumaps, s, s_new).sum())
+        th_new, s_new, ll_new = _torch_body_block(sp, th, block_iters)
+        gain = float(torch_body_gain_of(sp.reads, sp.eumaps, s, s_new).sum())
         th, s, ll = th_new, s_new, ll_new
         it += 1
     return th, float(ll.sum()), it, torch.tensor(gain)
@@ -225,7 +295,7 @@ class Case:
         if self.name == "csr":
             th0 = torch.as_tensor(self.theta0).to(self.device)
             if parent:
-                th, ll, it, g = _parent_em_solve(d, th0, EPSILON, bi,
+                th, ll, it, g = parent_em_solve(d, th0, EPSILON, bi,
                                                  cap * bi * 3)
                 return th, ll, it, g
             th, ll, it = tsolver.em_solve(d, th0, EPSILON, bi, cap * bi * 3,
@@ -248,7 +318,7 @@ class Case:
                                                 plain=plain)
             return th, None, it, None
         if parent:
-            return _parent_sharded(d, EPSILON, cap, bi)
+            return parent_sharded(d, EPSILON, cap, bi)
         th, ll, it = tmesh.solve_sharded(d, EPSILON, cap, bi, plain=plain)
         return torch.as_tensor(th), ll, it, None
 
