@@ -8,10 +8,11 @@ imports nothing of JAX.  Phases, each of which raises on failure (non-zero
 exit, no result line):
 
 1. torch version, the card's name and power limit (nvidia-smi).
-2. Build the five hand-written CUDA kernel sources of csrc/ (one nvcc per
+2. Build the six hand-written CUDA kernel sources of csrc/ (one nvcc per
    source, all started together; sm_90a); per kernel instance ptxas'
    registers, stack, spills and static shared memory (the SQUAREM block
-   classes' dynamic shared memory is written in its source).
+   classes' and the cluster kernels' dynamic shared memory is sized at
+   launch).
 3. SQUAREM kernel against its plain PyTorch version on the card: every
    size class x {float32, float64}, on padded batches of a real
    gene-family index and on random modules; max error and times.
@@ -19,7 +20,13 @@ exit, no result line):
    on random problems (float32 and float64, R 1 and 3, every lane count,
    empty segments, one segment of >3,000 edges): the same bits, and the
    same bits on two launches; sparse.mm of the same CSR matrix timed as
-   the library yardstick.
+   the library yardstick.  Then the CSR cycle's crossover
+   (``emsar_tpu_torch.bench.cluster_sweep``): random problems of modules,
+   10,000 to 11.5 M edges at R 1 and some at R 3, R 16 and float32, eight
+   cycles on clusters and as twelve launches bit-equal and timed from
+   CUDA graphs, the cluster sizes and tile counts compared at 90,000
+   edges; and ``solver.solve`` above ``CLUSTER_MAX_EDGES``, which must
+   take the twelve launches (em_step launched).
 4. Fixture (cached under bench_cache/torch_smoke/): the SE bench workload,
    a 2000-gene family transcriptome (~12k transcripts, ~15 Mbp) as
    smoke.fa, SE l50 .rsh from the port's NumPy builder, 1M simulated reads
@@ -33,18 +40,24 @@ exit, no result line):
    FPKM) within rel 1e-9 (1e-7 for float32), gene-level inferred read
    counts within 1e-3, gene-level TPM within rel 1e-3 (5e-3 for float32)
    of max(TPM, 1), .fraglength_effect byte-equal.
-   The CSR run's logL must be CSR_LOGL.
+   The CSR run's logL must be CSR_LOGL, and its cycles must run on the
+   cluster kernels.  Then the default solve's dense batches, torch.bmm
+   and kernel path: each one's blocks and why it stopped (its last
+   gain: NaN or real), and the host f64 polish's cycles and seconds.
 6. Kernels against plain versions at the main path's shapes: the SQUAREM
    block on its dense batches (float64), the segment sums and em_step on
    its CSR problem (bit-equal to the CPU); the CSR cycle's kernels
    (em_step_cycle, cycle_extrap, pair_gain, block_gain, cycle_select and
-   a whole cycle of twelve launches) bit-equal to their plain versions at
+   a whole cycle of twelve launches) and the cluster kernels
+   (cluster_em_pair from theta and from an accept, cluster_extrap_gain,
+   eight cycles of five launches) bit-equal to their plain versions at
    the CSR shape (R 1, float64) and the CSR restart rounds' (R 3, float32
    and float64); max abs error, device and host times, bounds.  Then the
-   CSR solve, its blocks replayed from a CUDA graph (``model/loop.py``):
-   CSR_BLOCKS blocks to its end; the whole solve's ms per block, capture
-   ms, kernel launches per block run and device busy share
-   (torch.profiler).
+   CSR solve through ``solver.solve``, its blocks replayed from a CUDA
+   graph (``model/loop.py``) on clusters: CSR_BLOCKS blocks to its end;
+   the tile plan's host ms; the whole solve's ms per block, capture ms,
+   kernel launches per block run and device busy share (torch.profiler),
+   on clusters and forced to twelve launches a cycle.
 7. The SE index build on the card: ``emsar-build-torch smoke.fa 50`` must
    write the NumPy builder's smoke.rsh byte for byte (window-hash launch
    count > 0), and ``emsar-torch --solver_pallas -x smoke.fa`` must agree
@@ -94,8 +107,9 @@ exit, no result line):
    the sample axis), each twice (loop, batched, batched, loop; the lower
    wall time kept): per sample .fraglength_effect byte-equal, gene
    iReadcount within 1e-3, the two batched runs' .fpkm byte-identical,
-   em_step and csr_cycle launched in the batched solve (counted around
-   ``solve_sharded``, apart from the run's per-sample CSR restart loops);
+   the cluster kernels and csr_cycle launched in the batched solve
+   (counted around ``solve_sharded``, apart from the run's per-sample CSR
+   restart loops);
    each batched .fpkm's logL within rel 1e-9 of the
    same batched solve on the CPU (the plain versions); the loop-vs-batched
    logL and gene-TPM gaps printed (the batched solve stops on one gain
@@ -103,7 +117,7 @@ exit, no result line):
    card: blocks, ms per block.  (b) em_step at the batched shape (R = 16,
    per-sample reads and 1 / denom) against its plain version on the CPU:
    bit-equal, two calls equal; times and bound; the CSR cycle's kernels
-   there as in phase 6.  (c) ``-M
+   and the cluster kernels there as in phase 6.  (c) ``-M
    --dist_merge_shards`` in one process over 3 read-name shards of the
    smoke reads: .fpkm byte-equal to phase 5's whole-file default run.  (d)
    Two processes sharing the card (gloo over 127.0.0.1): the same over 4
@@ -119,7 +133,9 @@ exit, no result line):
    plain loop (the stop flag read after every block, as before the graph
    loop): theta, logL and block count bit-equal; ms per block both ways,
    blocks run after the stop, capture ms, device busy share and kernels
-   per block (torch.profiler); the CSR block's bound.
+   per block (torch.profiler); the CSR block's bound.  The three CSR loops
+   (the solve, its restart rounds, the batched solve) run on clusters and
+   again forced to twelve launches a cycle: bit-equal.
 
 Times on the card (``kernels/measure.py``): ``ms`` is device time per
 call, CUDA events around calls queued back to back behind a sleep kernel;
@@ -171,6 +187,12 @@ KERNELS = {
     "csr_cycle": {"name": "csr_cycle", "route": "cuda",
                   "source": "emsar_tpu_torch/csrc/csr_cycle.cu",
                   "replaces": "emsar_tpu/model/solver.py:150"},
+    "cluster_em_pair": {"name": "cluster_em_pair", "route": "cuda",
+                        "source": "emsar_tpu_torch/csrc/csr_cluster.cu",
+                        "replaces": "emsar_tpu/model/solver.py:113"},
+    "cluster_extrap_gain": {"name": "cluster_extrap_gain", "route": "cuda",
+                            "source": "emsar_tpu_torch/csrc/csr_cluster.cu",
+                            "replaces": "emsar_tpu/model/solver.py:150"},
 }
 # the PE build checks: a gene-family transcriptome the port's NumPy PE
 # builder takes ~15 s (ns) and ~9 s (ssfr) for at l101 F290-300 on one
@@ -187,11 +209,12 @@ PE_SHARD_MIN_CHUNKS = 4
 
 def kernel_modules():
     """{kernel source's name: its wrapper module} (each has build)."""
-    from emsar_tpu_torch.kernels import (csr_cycle, pe_candidates,
-                                         segment_sum, squarem, window_hash)
+    from emsar_tpu_torch.kernels import (csr_cluster, csr_cycle,
+                                         pe_candidates, segment_sum, squarem,
+                                         window_hash)
     return {"squarem_block": squarem, "segment_sum": segment_sum,
             "window_hash": window_hash, "pe_candidates": pe_candidates,
-            "csr_cycle": csr_cycle}
+            "csr_cycle": csr_cycle, "csr_cluster": csr_cluster}
 
 
 def launch_counters():
@@ -202,7 +225,10 @@ def launch_counters():
             "em_step": (mods["segment_sum"], "EM_LAUNCHES"),
             "window_hash": (mods["window_hash"], "LAUNCHES"),
             "pe_candidates": (mods["pe_candidates"], "LAUNCHES"),
-            "csr_cycle": (mods["csr_cycle"], "LAUNCHES")}
+            "csr_cycle": (mods["csr_cycle"], "LAUNCHES"),
+            "cluster_em_pair": (mods["csr_cluster"], "EM_PAIR_LAUNCHES"),
+            "cluster_extrap_gain": (mods["csr_cluster"],
+                                    "EXTRAP_GAIN_LAUNCHES")}
 
 
 def reset_launches() -> None:
@@ -470,9 +496,11 @@ def phase_main_path(rsh: str, aln: str, out_root: str):
             f"launches {launches[name]}, phases "
             + ", ".join(f"{k} {v:.3f}" for k, v in seconds[name].items()))
     for name, _ in RUNS:
+        # the CSR runs' cycles run on clusters (the smoke's problem is
+        # below CLUSTER_MAX_EDGES): em_step launches only above it
         kernels = (("squarem_block",) if name.startswith("kernel") else
-                   ("segment_sum", "em_step", "csr_cycle")
-                   if name.startswith("csr") else ())
+                   ("segment_sum", "csr_cycle", "cluster_em_pair",
+                    "cluster_extrap_gain") if name.startswith("csr") else ())
         for kernel in kernels:
             if launches[name][kernel] <= 0:
                 raise AssertionError(f"run {name} never launched {kernel}")
@@ -515,6 +543,68 @@ def phase_main_path(rsh: str, aln: str, out_root: str):
     if failed:
         raise AssertionError(f"runs {failed} disagree with {ref}")
     return launches, seconds, x
+
+
+def dense_stops(x, dev) -> dict:
+    """Why the default solve's dense batches stop, and what the host f64
+    polish then costs, on the main path's sample (f64): per size class and
+    path (torch.bmm, ``--solver_pallas``) its blocks and its last block's
+    gain (the best module's; NaN, or real below epsilon, or the cap), from
+    the same solve run once more with the cap one block short; then
+    ``quantify._solve_auto`` and the polish's cycles
+    (``solver.polish_host_f64``) and seconds.  Changes no result."""
+    import numpy as np
+    import torch
+
+    from emsar_tpu_torch.config import QuantConfig
+    from emsar_tpu_torch.model.dense import (_mt, _pad_b, _theta0,
+                                             batch_to_device,
+                                             partition_modules,
+                                             solve_dense_batch)
+    from emsar_tpu_torch.model.quantify import _solve_auto
+    from emsar_tpu_torch.model.solver import (build_problem, gain_of,
+                                              polish_host_f64)
+    cfg = QuantConfig(verbose=0)
+    eps, cap = cfg.epsilon, 2048
+    part = partition_modules(x.graph, x.modules, x.eumaps, x.read_count,
+                             dtype=np.float64)
+    out = {}
+    for pallas in (False, True):
+        path = "kernel" if pallas else "bmm"
+        for batch in part.batches:
+            cls = "x".join(map(str, batch.shape[1:]))
+            th, it = solve_dense_batch(batch, eps, dev, N_ITERS, cap,
+                                       use_pallas=pallas)
+            if it > 1:
+                prev, _ = solve_dense_batch(batch, eps, dev, N_ITERS,
+                                            it - 1, use_pallas=pallas)
+            else:  # the first block's start
+                db = batch_to_device(batch, dev, torch.float64)
+                prev = _theta0(db).cpu().numpy()
+            db = batch_to_device(batch, dev, torch.float64)
+            s_old, s_new = (_mt(db.m, torch.as_tensor(a).to(dev))
+                            for a in (prev, th))
+            gain = float(torch.max(gain_of(db.reads, db.eumaps, s_old,
+                                           s_new)))
+            stop = ("NaN" if np.isnan(gain) else "cap" if it >= cap
+                    else "real")
+            out[f"{path} {cls}"] = {"blocks": it, "gain": gain,
+                                    "stop": stop}
+    problem = build_problem(x.graph, x.modules, x.eumaps, x.read_count)
+    fpkm, _, _ = _solve_auto(x.graph, x.modules, x.eumaps, x.read_count,
+                             problem, cfg, np.float64, dev)
+    t0 = time.perf_counter()
+    _, cycles = polish_host_f64(problem, fpkm, epsilon=max(cfg.epsilon,
+                                                           1e-9),
+                                max_cycles=200)
+    out["polish"] = {"cycles": cycles, "s": time.perf_counter() - t0}
+    log("default solve's dense batches (f64, epsilon "
+        f"{eps:g}): " + "; ".join(
+            f"{k}: {v['blocks']} blocks, stop {v['stop']} (last gain "
+            f"{v['gain']!r})" for k, v in out.items() if k != "polish")
+        + f"; then the host f64 polish: {cycles} cycles in "
+        f"{out['polish']['s']:.3f} s")
+    return out
 
 
 def phase_main_path_shapes(x, dev):
@@ -856,7 +946,7 @@ def check_csr_cycle(p, theta, label: str) -> dict:
     out = cc.cycle_select(gain, cand, t2)
     if not _same_bits(out, cc.cycle_select_ref(gain, cand, t2)):
         failed.append("cycle_select")
-    whole = [_squarem_cycle(p, theta) for _ in range(2)]
+    whole = [_squarem_cycle(p, theta, clusters=False) for _ in range(2)]
     if not (_same_bits(whole[0], plain_cycle(p, theta))
             and _same_bits(whole[0], whole[1])):
         failed.append("the whole cycle")
@@ -882,7 +972,8 @@ def check_csr_cycle(p, theta, label: str) -> dict:
                                                  p.inv_denom))
     emc_ms = measure.device_ms(lambda: ss.em_step_cycle(
         t1, theta, gc, gt, p.reads, p.inv_denom))
-    cyc_ms = measure.device_ms(lambda: _squarem_cycle(p, theta))
+    cyc_ms = measure.device_ms(lambda: _squarem_cycle(p, theta,
+                                                      clusters=False))
     plain_cyc_ms = measure.device_ms(lambda: plain_cycle(p, theta), n=50)
     R, T = theta.shape
     C, E = gc.n_groups, gc.idx.shape[0]
@@ -907,6 +998,139 @@ def check_csr_cycle(p, theta, label: str) -> dict:
             "em_step_cycle_ms": emc_ms, "em_step_ms": em_ms,
             "cycle_ms": cyc_ms, "plain_cycle_ms": plain_cyc_ms,
             "nan_terms": n_nan}
+
+
+def cluster_bounds(p, plan, R: int) -> dict:
+    """{kernel: (bound ms, bound_by)} of the two cluster kernels at R rows
+    of ``p``: each input read once (theta, the tiled groupings, reads,
+    eumaps, 1 / denom, t1, t2, the two row sums), each output written once
+    (t1, t2, r * r, v * v; cand and the gain terms); the operations those
+    of em_step, counted as its row counts them (two EM steps, then the
+    squares' 5 T), and of cycle_extrap, one EM step and pair_gain."""
+    from emsar_tpu_torch.kernels import measure
+    dt = p.reads.dtype
+    item = p.reads.element_size()
+    C, T = p.by_cid.n_groups, p.by_tid.n_groups
+    E = p.by_cid.idx.shape[0]
+    groups = measure.nbytes(*(t for g in (plan.cid, plan.tid) for t in (
+        g.mult, g.idx, g.offsets, g.orig, g.tile_off)))
+    ops = {"cluster_em_pair": R * (2 * (4 * E + C + 2 * T) + 5 * T),
+           "cluster_extrap_gain": R * (10 * T + 4 * E + C + 2 * T + 4 * E
+                                       + 14 * C)}
+    vecs = {"cluster_em_pair": measure.nbytes(p.reads, p.inv_denom)
+            + item * R * 5 * T,
+            "cluster_extrap_gain": measure.nbytes(p.reads, p.eumaps,
+                                                  p.inv_denom)
+            + item * R * (4 * T + 2 + C)}
+    return {k: measure.bound_ms(groups + vecs[k], ops[k], dt) for k in ops}
+
+
+def check_csr_cluster(p, theta, label: str) -> dict:
+    """The cluster kernels (``kernels/csr_cluster.py``) on the card against
+    their plain versions on the same inputs, bit for bit: cluster_em_pair
+    from theta and from a cycle's accept (theta, t1, t2, r * r, v * v)
+    against the CPU's; cluster_extrap_gain's cand against the CPU's, its
+    gain terms against torch's on the card over intensities summed on the
+    CPU (CUDA's log1p on both sides); eight cycles on clusters (five
+    launches a cycle, the accept after the last) against eight of twelve
+    launches, and on two calls.  ``p`` is a DeviceProblem or
+    ShardedProblem on the card, theta [R, T].  Times each kernel (device
+    and host ms) and its plain version on the card, and the eight cycles
+    both ways replayed from a CUDA graph (``bench.cluster_sweep.
+    graph_ms``).  Returns {kernel: what it measured, "plan": the tile
+    plan's shape, "block": the eight cycles' times}."""
+    import torch
+
+    from emsar_tpu_torch.bench.cluster_sweep import graph_ms
+    from emsar_tpu_torch.kernels import csr_cluster as cc
+    from emsar_tpu_torch.kernels import csr_cycle
+    from emsar_tpu_torch.kernels import measure
+    from emsar_tpu_torch.kernels import segment_sum as ss
+    from emsar_tpu_torch.model.solver import _squarem_cycles, cycle_plan
+
+    theta = theta.contiguous()
+    R = theta.shape[0]
+    plan = cycle_plan(p, R, clusters=True)
+    cpu = (cpu_groups(p.by_cid), cpu_groups(p.by_tid))
+    reads_c, inv_c = p.reads.cpu(), p.inv_denom.cpu()
+    failed = []
+    got = cc.em_pair(theta, plan, p.reads, p.inv_denom)
+    again = cc.em_pair(theta, plan, p.reads, p.inv_denom)
+    torch.cuda.synchronize()
+    want = cc.em_pair_ref(theta.cpu(), *cpu, reads_c, inv_c)
+    if not all(_same_bits(a, w) and _same_bits(a, b)
+               for a, b, w in zip(got, again, want)):
+        failed.append("cluster_em_pair")
+    _, t1, t2, r_sq, v_sq = got
+    rs = torch.sum(r_sq, dim=1, keepdim=True)
+    vs = torch.sum(v_sq, dim=1, keepdim=True)
+    ex = (theta, t1, t2, rs, vs, plan, p.reads, p.eumaps, p.inv_denom)
+    cand, terms = cc.extrap_gain(*ex)
+    torch.cuda.synchronize()
+    # the extrapolation by torch on the card (CUDA's sqrt, as the
+    # kernel's: torch's CPU sqrt may be an ulp off), its EM step on the CPU
+    x = csr_cycle.cycle_extrap_ref(theta, t1, t2, rs, vs).cpu()
+    want_cand = ss.em_step_ref(x, *cpu, reads_c, inv_c)
+    s_t2, s_cand = (ss.segment_sum_ref(a.cpu(), cpu[0].mult, cpu[0].idx,
+                                       cpu[0].offsets).to(theta.device)
+                    for a in (t2, cand))
+    if not (_same_bits(cand, want_cand) and _same_bits(
+            terms, csr_cycle.gain_terms(p.reads, p.eumaps, s_t2, s_cand))):
+        failed.append("cluster_extrap_gain")
+    gain = torch.sum(terms, dim=-1)
+    src = (gain, cand, t2)
+    got = cc.em_pair(src, plan, p.reads, p.inv_denom)
+    torch.cuda.synchronize()
+    want = cc.em_pair_ref(tuple(a.cpu() for a in src), *cpu, reads_c, inv_c)
+    if not all(_same_bits(a, w) for a, w in zip(got, want)):
+        failed.append("cluster_em_pair from an accept")
+    blocks = [_squarem_cycles(p, theta, N_ITERS, plan)
+              for _ in range(2)]
+    twelve = _squarem_cycles(p, theta, N_ITERS, None)
+    if not (_same_bits(blocks[0], blocks[1])
+            and _same_bits(blocks[0], twelve)):
+        failed.append(f"{N_ITERS} cycles")
+    n_nan = int(torch.isnan(terms).sum())
+    if failed:
+        raise AssertionError(f"csr_cluster {label}: {failed} differ from "
+                             f"their plain versions")
+    bounds = cluster_bounds(p, plan, R)
+    out = {}
+    for name, fn, plain in (
+            ("cluster_em_pair",
+             lambda: cc.em_pair(theta, plan, p.reads, p.inv_denom),
+             lambda: cc.em_pair_ref(theta, p.by_cid, p.by_tid, p.reads,
+                                    p.inv_denom)),
+            ("cluster_extrap_gain", lambda: cc.extrap_gain(*ex),
+             lambda: cc.extrap_gain_ref(theta, t1, t2, rs, vs, p.by_cid,
+                                        p.by_tid, p.reads, p.eumaps,
+                                        p.inv_denom))):
+        host = measure.host_ms(fn)
+        out[name] = {"err": 0.0, "ms": measure.device_ms(
+            fn, host_per_call_ms=host), "host_ms": host,
+            "plain_ms": measure.device_ms(plain, n=20), "library_ms": None,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+    block = {"cluster_ms": graph_ms(lambda: _squarem_cycles(
+        p, theta, N_ITERS, plan)),
+        "launches_ms": graph_ms(lambda: _squarem_cycles(
+            p, theta, N_ITERS, None))}
+    C, T, E = p.by_cid.n_groups, p.by_tid.n_groups, p.by_cid.idx.shape[0]
+    log(f"csr_cluster {label} {str(theta.dtype)[6:]} R={R} C={C} T={T} "
+        f"E={E}, {plan.n_tiles} tiles of {plan.cluster} blocks, "
+        f"{plan.smem} B of shared memory a block: cluster_em_pair (from "
+        f"theta and from an accept), cluster_extrap_gain and {N_ITERS} "
+        f"cycles bit-equal to their plain versions ({n_nan} NaN gain "
+        f"terms); " + "; ".join(
+            f"{k} {m['ms']:.4f} ms on the card, {m['host_ms']:.4f} ms host, "
+            f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+            f"({m['bound_by']})" for k, m in out.items())
+        + f"; {N_ITERS} cycles from a graph {block['cluster_ms']:.4f} ms "
+        f"on clusters, {block['launches_ms']:.4f} ms as twelve launches a "
+        f"cycle")
+    out["plan"] = {"tiles": plan.n_tiles, "cluster": plan.cluster,
+                   "smem_bytes": plan.smem}
+    out["block"] = block
+    return out
 
 
 def random_problem(rng, n_seg: int, ntid: int, n_edges: int):
@@ -951,6 +1175,47 @@ def phase_segment_sum_random(dev) -> None:
             theta = rng.uniform(0, 10, (R, problem.n_transcripts))
             theta[:, rng.random(problem.n_transcripts) < 0.2] = 0.0
             check_em_step(p, torch.as_tensor(theta).to(dev, dtype), "random")
+
+
+def phase_cluster_sweep(dev) -> dict:
+    """The crossover of the CSR cycle's paths
+    (``emsar_tpu_torch.bench.cluster_sweep``): random CSR problems of
+    modules from 10,000 to 11.5 M edges at R 1 (float64), and some at R 3,
+    R 16 and in float32, each a block's eight cycles on clusters and as
+    twelve launches, bit-equal and timed from CUDA graphs.  Then the
+    launch path through ``solver.solve``, a user's entry point, on a
+    problem above ``CLUSTER_MAX_EDGES`` (four blocks): em_step launched,
+    the cluster kernels not.  Returns what it measured."""
+    import numpy as np
+    import torch
+
+    from emsar_tpu_torch.bench import cluster_sweep as cs
+    from emsar_tpu_torch.model import solver
+    out = {"sweeps": [cs.sweep(dev, R=1, log=log)]}
+    for R, dt, sizes in ((3, torch.float64, (25_000, 90_000, 360_000)),
+                         (16, torch.float64, (25_000, 90_000, 360_000)),
+                         (1, torch.float32, (90_000, 720_000))):
+        out["sweeps"].append(cs.sweep(dev, sizes, R=R, dtype=dt, log=log))
+    out["tilings"] = cs.tilings(dev, log=log)
+    log(f"cluster sweep: the cluster path faster up to "
+        f"{out['sweeps'][0]['crossover_edges']} edges at R 1 (the largest "
+        f"size measured {out['sweeps'][0]['sizes'][-1]['edges']}); "
+        f"CLUSTER_MAX_EDGES {solver.CLUSTER_MAX_EDGES}")
+    rng = np.random.default_rng(7)
+    problem = cs.random_problem(rng, solver.CLUSTER_MAX_EDGES * 101 // 100)
+    E = len(problem.edge_cid)
+    reset_launches()
+    _, ll, it = solver.solve(problem, dev, max_iters=N_ITERS * 3 * 4,
+                             dtype=np.float64)
+    launched = read_launches()
+    log(f"CSR solve above the crossover ({E} edges): {it} blocks, logL "
+        f"{ll!r}, launches {launched}")
+    if (E <= solver.CLUSTER_MAX_EDGES or launched["em_step"] <= 0
+            or launched["cluster_em_pair"] or not np.isfinite(ll)):
+        raise AssertionError("the solve above the crossover did not take "
+                             "the twelve launches")
+    out["above"] = {"edges": E, "blocks": it, "launches": launched}
+    return out
 
 
 def phase_window_hash_check(fa: str, dev):
@@ -1035,14 +1300,21 @@ def phase_segment_sum_main(x, dev):
     p32 = problem_to_device(problem, dev, torch.float32)
     check_em_step(p32, theta.float(), "main path")
     cycle = check_csr_cycle(p, theta, "main path")
+    cluster = check_csr_cluster(p, theta, "main path")
     # the restart rounds' shape: R 3 on the restricted problem
     sub = restart_problem(problem)[0]
     for np_dt, dt in ((np.float64, torch.float64),
                       (np.float32, torch.float32)):
         inits = torch.as_tensor(restart_inits(sub, 3, 0, np_dt)).to(dev)
-        check_csr_cycle(problem_to_device(sub, dev, dt), inits,
-                        "restart rounds R=3")
-    return {"segment_sum": seg, "em_step": em, "csr_cycle": cycle}, problem
+        ps = problem_to_device(sub, dev, dt)
+        check_csr_cycle(ps, inits, "restart rounds R=3")
+        check_csr_cluster(ps, inits, "restart rounds R=3")
+    measured = {"segment_sum": seg, "em_step": em, "csr_cycle": cycle,
+                "cluster_em_pair": cluster["cluster_em_pair"],
+                "cluster_extrap_gain": cluster["cluster_extrap_gain"],
+                "cluster_plan": cluster["plan"],
+                "cluster_block": cluster["block"]}
+    return measured, problem
 
 
 def _profiled(run):
@@ -1065,52 +1337,66 @@ def _profiled(run):
 
 def phase_csr_profile(problem, dev) -> dict:
     """The CSR solve of the main path on the card, its blocks replayed
-    from a CUDA graph (``model/loop.py``): it must stop after CSR_BLOCKS
-    blocks; then, after a warm solve, the whole solve timed (ms per block,
-    host clock around work that ends in a sync), counted (the port's
-    kernel launches and every kernel the profiler saw, per block run) and
-    profiled (device busy share: kernel time on the card over the wall
-    time of the solve, torch.profiler)."""
+    from a CUDA graph (``model/loop.py``) through ``solver.solve``'s own
+    dispatch (the cycles on clusters below ``CLUSTER_MAX_EDGES``): it must
+    stop after CSR_BLOCKS blocks at CSR_LOGL's solve, and launch the
+    cluster kernels; then, after a warm solve, the whole solve timed (ms
+    per block, host clock around work that ends in a sync), counted (the
+    port's kernel launches and every kernel the profiler saw, per block
+    run) and profiled (device busy share: kernel time on the card over the
+    wall time of the solve, torch.profiler), on clusters and, forced, as
+    twelve launches a cycle."""
     import numpy as np
     import torch
 
-    from emsar_tpu_torch.kernels import csr_cycle
-    from emsar_tpu_torch.kernels import segment_sum as ss
     from emsar_tpu_torch.model import loop
-    from emsar_tpu_torch.model.solver import (em_solve, problem_to_device,
+    from emsar_tpu_torch.model.solver import (cycle_plan, em_solve,
+                                              problem_to_device,
                                               read_attribution_start, solve)
+    reset_launches()
     _, ll, blocks = solve(problem, dev, dtype=np.float64)
-    log(f"CSR solve: {blocks} blocks (want {CSR_BLOCKS}), logL {ll!r}")
+    cluster_launches = {k: v for k, v in read_launches().items()
+                        if k.startswith("cluster")}
+    log(f"CSR solve: {blocks} blocks (want {CSR_BLOCKS}), logL {ll!r}, "
+        f"cluster launches {cluster_launches}")
     if blocks != CSR_BLOCKS:
         raise AssertionError(f"the CSR solve took {blocks} blocks, not "
                              f"{CSR_BLOCKS}")
+    if min(cluster_launches.values()) <= 0:
+        raise AssertionError("the CSR solve did not run on clusters")
     p = problem_to_device(problem, dev, torch.float64)
     th0 = torch.as_tensor(read_attribution_start(problem))[None].to(dev)
-
-    def run():
-        out = em_solve(p, th0, 1e-9, N_ITERS, 200000)
-        torch.cuda.synchronize()
-        return out
-
-    def ours():
-        return ss.LAUNCHES + ss.EM_LAUNCHES + csr_cycle.LAUNCHES
-
-    run()
-    n0 = ours()
+    cycle_plan(p, 1, clusters=True)
     t0 = time.perf_counter()
-    _, _, it = run()
-    wall = time.perf_counter() - t0
-    stats = loop.LAST
-    per_block = (ours() - n0) / stats.blocks_run
-    _, prof_wall, n_kernels, busy_s = _profiled(run)
-    out = {"blocks": it, "blocks_run": stats.blocks_run,
-           "ms_per_block": wall * 1e3 / it, "solve_ms": wall * 1e3,
-           "capture_ms": stats.capture_s * 1e3,
-           "port_kernel_launches_per_block": per_block,
-           "device_kernels_per_block": n_kernels / stats.blocks_run,
-           "device_busy_share": busy_s / prof_wall,
-           "profiled_wall_s": prof_wall}
-    log(f"CSR solve on the card (graph loop): {out}")
+    plan = cycle_plan(p, 1, clusters=True)
+    out = {"plan": {"host_ms": (time.perf_counter() - t0) * 1e3,
+                    "tiles": plan.n_tiles, "cluster": plan.cluster,
+                    "smem_bytes": plan.smem}}
+    log(f"CSR solve's tile plan: {out['plan']} (host ms counted in the "
+        f"cluster solve's wall)")
+    for path, clusters in (("cluster", True), ("launches", False)):
+        def run():
+            res = em_solve(p, th0, 1e-9, N_ITERS, 200000, clusters=clusters)
+            torch.cuda.synchronize()
+            return res
+
+        run()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, _, it = run()
+        wall = time.perf_counter() - t0
+        stats = loop.LAST
+        per_block = sum(read_launches().values()) / stats.blocks_run
+        _, prof_wall, n_kernels, busy_s = _profiled(run)
+        out[path] = {
+            "blocks": it, "blocks_run": stats.blocks_run,
+            "ms_per_block": wall * 1e3 / it, "solve_ms": wall * 1e3,
+            "capture_ms": stats.capture_s * 1e3,
+            "port_kernel_launches_per_block": per_block,
+            "device_kernels_per_block": n_kernels / stats.blocks_run,
+            "device_busy_share": busy_s / prof_wall,
+            "profiled_wall_s": prof_wall}
+        log(f"CSR solve on the card (graph loop, {path}): {out[path]}")
     return out
 
 
@@ -1969,9 +2255,12 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
     solve_launches = in_solve[0]
     log(f"-M batched: launches in its batched solve {solve_launches}, in "
         f"the whole run {launches['batched']}")
-    if solve_launches["em_step"] <= 0 or solve_launches["csr_cycle"] <= 0:
-        raise AssertionError("the batched solve never launched em_step and "
-                             "csr_cycle")
+    # its cycles run on clusters (a row's problem is below
+    # CLUSTER_MAX_EDGES): em_step launches only above it
+    if min(solve_launches[k] for k in ("csr_cycle", "cluster_em_pair",
+                                       "cluster_extrap_gain")) <= 0:
+        raise AssertionError("the batched solve never launched the cluster "
+                             "kernels and csr_cycle")
     res, problems = _sample_checks(index, counts, runs)
     cfg = QuantConfig(verbose=0)
 
@@ -2040,12 +2329,18 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
     em = check_em_step(sp, sp.theta0, f"batched R={MS_SAMPLES} per-sample")
     cycle = check_csr_cycle(sp, sp.theta0,
                             f"batched R={MS_SAMPLES} per-sample")
+    cluster = check_csr_cluster(sp, sp.theta0,
+                                f"batched R={MS_SAMPLES} per-sample")
     return {"loop_s": min(walls["loop"]), "batched_s": min(walls["batched"]),
             "walls_s": walls, "batched_blocks": it_g,
             "batched_ms_per_block": ms_per_block,
             "batched_nan_gain_samples": nan_samples,
             "loop_vs_batched_gaps": gaps, "em_step_batched": em,
             "csr_cycle_batched": cycle,
+            "cluster_em_pair_batched": cluster["cluster_em_pair"],
+            "cluster_extrap_gain_batched": cluster["cluster_extrap_gain"],
+            "cluster_batched_plan": cluster["plan"],
+            "cluster_batched_block": cluster["block"],
             "batched_solve_launches": solve_launches,
             "batched_run_launches": launches["batched"]}, sp
 
@@ -2209,6 +2504,30 @@ def csr_block_bound_ms(p) -> float:
     return N_ITERS * cycle + block_gain + gain_sum
 
 
+def csr_cluster_block_bound_ms(p) -> float:
+    """A CSR block's bound on clusters, as ``csr_block_bound_ms`` counts
+    it: per cycle cluster_em_pair, the two row sums, cluster_extrap_gain
+    and the gain's row sum (``cluster_bounds``); then the block's
+    cycle_select, block_gain and its row sum.  ``p`` is a DeviceProblem,
+    R = 1."""
+    from emsar_tpu_torch.kernels import measure
+    from emsar_tpu_torch.model.solver import cycle_plan
+    dt = p.reads.dtype
+    C, T = p.by_cid.n_groups, p.by_tid.n_groups
+    E = p.by_cid.idx.shape[0]
+    item = p.reads.element_size()
+    cid = measure.nbytes(p.by_cid.mult, p.by_cid.idx, p.by_cid.offsets)
+
+    def bound(n_items, n_ops, groups=0):
+        return measure.bound_ms(groups + item * n_items, n_ops, dt)[0]
+    kernels = cluster_bounds(p, cycle_plan(p, 1, clusters=True), 1)
+    cycle = (sum(b for b, _ in kernels.values()) + 2 * bound(T + 1, T)
+             + bound(C + 1, C))
+    select = bound(3 * T + 1, 0)
+    block_gain = bound(T + 5 * C, 2 * E + 14 * C, cid)
+    return N_ITERS * cycle + select + block_gain + bound(C + 1, C)
+
+
 def phase_loops(problem, x, sp, dev) -> dict:
     """Phase 14: the convergence loops on the card, each replayed from a
     CUDA graph against the plain loop (the stop flag read after every
@@ -2246,11 +2565,11 @@ def phase_loops(problem, x, sp, dev) -> dict:
     ps = problem_to_device(sub, dev, torch.float64)
     n_extra = cfg.num_round - 1
     ths = torch.as_tensor(restart_inits(sub, n_extra, 0, np.float64)).to(dev)
-    cases = [("csr", lambda plain: em_solve(p, th0, eps, N_ITERS, 200000,
-                                            plain=plain)),
-             (f"csr restarts R={n_extra}", lambda plain: em_solve(
+    cases = [("csr", lambda plain, c=None: em_solve(
+        p, th0, eps, N_ITERS, 200000, plain=plain, clusters=c)),
+             (f"csr restarts R={n_extra}", lambda plain, c=None: em_solve(
                  ps, ths, _restart_eps(cfg), N_ITERS, cfg.max_niter_mle,
-                 plain=plain))]
+                 plain=plain, clusters=c))]
     part = partition_modules(x.graph, x.modules, x.eumaps, x.read_count,
                              dtype=np.float64)
     rng = np.random.default_rng(np.uint64(0x5EED_0001))
@@ -2273,30 +2592,39 @@ def phase_loops(problem, x, sp, dev) -> dict:
                       lambda plain, d=dr, t=tr: _solve_loop(
                           d, t, _restart_eps(cfg), N_ITERS, 2048,
                           plain=plain)))
-    cases.append((f"batched S={MS_SAMPLES}", lambda plain: solve_sharded(
-        sp, epsilon=eps, block_iters=N_ITERS, plain=plain)))
+    cases.append((f"batched S={MS_SAMPLES}", lambda plain, c=None:
+                  solve_sharded(sp, epsilon=eps, block_iters=N_ITERS,
+                                plain=plain, clusters=c)))
+    # the CSR loops again, their cycles forced to twelve launches
+    csr_loops = [cases[0][0], cases[1][0], cases[-1][0]]
+    cases += [(f"{label} launches", lambda plain, fn=fn: fn(plain, False))
+              for label, fn in cases if label in csr_loops]
 
     def result(out):
         """(theta, logL or None, blocks) of a solve's return."""
         return (out[0], None, out[1]) if len(out) == 2 else out
 
-    measured, failed = {}, []
+    measured, failed, graph_out = {}, [], {}
     for label, fn in cases:
         runs = {}
         for plain in (True, False):
             fn(plain)  # warm: the graph loop builds, captures, replays
             torch.cuda.synchronize()
+            reset_launches()
             t0 = time.perf_counter()
             out = result(fn(plain))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            launched = read_launches()
             stats = loop.LAST
             _, prof_wall, n_kernels, busy_s = _profiled(lambda: fn(plain))
             runs["plain" if plain else "graph"] = (out, wall, stats, dict(
                 busy_share=busy_s / prof_wall,
-                kernels_per_block=n_kernels / stats.blocks_run))
+                kernels_per_block=n_kernels / stats.blocks_run,
+                launches=launched))
         (pl, p_wall, _, p_prof), (gr, g_wall, g_st, g_prof) = (
             runs["plain"], runs["graph"])
+        graph_out[label] = gr
         it = gr[2]
         same = (it == pl[2] and np.array_equal(_bits(gr[0]), _bits(pl[0]))
                 and (gr[1] is None or np.array_equal(_bits(gr[1]),
@@ -2310,8 +2638,10 @@ def phase_loops(problem, x, sp, dev) -> dict:
              "plain_busy_share": p_prof["busy_share"],
              "graph_kernels_per_block": g_prof["kernels_per_block"],
              "plain_kernels_per_block": p_prof["kernels_per_block"],
-             "bit_equal": same}
+             "graph_launches": g_prof["launches"], "bit_equal": same}
         if label == "csr":
+            m["bound_ms_per_block"] = csr_cluster_block_bound_ms(p)
+        if label == "csr launches":
             m["bound_ms_per_block"] = csr_block_bound_ms(p)
         measured[label] = m
         log(f"loop {label}: {it} blocks; graph {m['graph_ms_per_block']:.4f}"
@@ -2326,9 +2656,19 @@ def phase_loops(problem, x, sp, dev) -> dict:
             f"logL and blocks bit-equal {same}")
         if not same:
             failed.append(label)
+    for label in csr_loops:  # on clusters against twelve launches
+        a, b = graph_out[label], graph_out[f"{label} launches"]
+        same = (a[2] == b[2] and np.array_equal(_bits(a[0]), _bits(b[0]))
+                and (a[1] is None or np.array_equal(_bits(a[1]),
+                                                    _bits(b[1]))))
+        measured[label]["bit_equal_to_launches"] = same
+        log(f"loop {label}: on clusters and as twelve launches a cycle, "
+            f"theta, logL and blocks bit-equal {same}")
+        if not same:
+            failed.append(f"{label} on clusters")
     if failed:
-        raise AssertionError(f"graph loops differ from the plain loop: "
-                             f"{failed}")
+        raise AssertionError(f"graph loops differ from the plain loop or "
+                             f"the launch path: {failed}")
     return measured
 
 
@@ -2357,6 +2697,9 @@ def main() -> int:
     log(f"kernel check: {time.perf_counter() - t0:.1f} s, worst rel diff "
         f"{worst:.3e}")
     phase_segment_sum_random(dev)
+    t0 = time.perf_counter()
+    sweep = phase_cluster_sweep(dev)
+    log(f"cluster sweep: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     fa, rsh, aln = ensure_fixture()
@@ -2365,6 +2708,7 @@ def main() -> int:
 
     out_root = os.path.join(CACHE, "out")
     launches, seconds, sample = phase_main_path(rsh, aln, out_root)
+    stops = dense_stops(sample, dev)
     measured["squarem_block"] = phase_main_path_shapes(sample, dev)
     csr_measured, problem = phase_segment_sum_main(sample, dev)
     measured.update(csr_measured)
@@ -2402,19 +2746,33 @@ def main() -> int:
 
     main_launches = {"squarem_block": launches["kernel"]["squarem_block"],
                      "segment_sum": launches["csr"]["segment_sum"],
-                     "em_step": launches["csr"]["em_step"],
+                     "em_step": sweep["above"]["launches"]["em_step"],
                      "window_hash": build_launches["window_hash"],
                      "pe_candidates": pe_launches["pe_candidates"],
-                     "csr_cycle": launches["csr"]["csr_cycle"]}
-    rows = [(k, KERNELS[k], main_launches[k], measured[k]) for k in KERNELS]
-    # the second shape of em_step and csr_cycle: the batched multisample
-    # solve (its launches counted in the solve alone)
+                     "csr_cycle": launches["csr"]["csr_cycle"],
+                     "cluster_em_pair": launches["csr"]["cluster_em_pair"],
+                     "cluster_extrap_gain":
+                         launches["csr"]["cluster_extrap_gain"]}
+    # em_step runs on the CSR path above CLUSTER_MAX_EDGES only: its
+    # launches are those of the cluster sweep's solve there
+    paths = {"em_step": f"CSR solve above CLUSTER_MAX_EDGES "
+                        f"({sweep['above']['edges']} edges)"}
+    rows = [(k, dict(KERNELS[k], **({"path": paths[k]} if k in paths
+                                    else {})), main_launches[k], measured[k])
+            for k in KERNELS]
+    # the second shape of the CSR kernels: the batched multisample solve
+    # (its launches counted in the solve alone; em_step's in phase 14's
+    # batched loop forced to twelve launches a cycle)
     batched = f"R={MS_SAMPLES} per-sample operands"
-    for k, key in (("em_step", "em_step_batched"),
-                   ("csr_cycle", "csr_cycle_batched")):
-        rows.append((k, dict(KERNELS[k], shape=batched),
-                     multisample["batched_solve_launches"][k],
-                     multisample.pop(key)))
+    forced = loops[f"batched S={MS_SAMPLES} launches"]["graph_launches"]
+    for k in ("em_step", "csr_cycle", "cluster_em_pair",
+              "cluster_extrap_gain"):
+        row = dict(KERNELS[k], shape=batched)
+        n = multisample["batched_solve_launches"][k]
+        if k == "em_step":
+            row["path"] = "batched solve forced to twelve launches a cycle"
+            n = forced[k]
+        rows.append((k, row, n, multisample.pop(f"{k}_batched")))
     print(json.dumps({"kernels": [
         dict(row, launches=n, max_abs_err=m["err"], ms=m["ms"],
              host_ms=m["host_ms"], plain_ms=m["plain_ms"],
@@ -2422,6 +2780,7 @@ def main() -> int:
              library_ms=m["library_ms"])
         for _, row, n, m in rows]}))
     print(json.dumps({"phase_seconds": seconds, "csr_blocks": csr_blocks,
+                      "dense_stops": stops, "cluster_sweep": sweep,
                       "scale_build": scale, "scale_pe_build": scale_pe,
                       "multisample": multisample, "loops": loops,
                       "ptxas": ptxas}))

@@ -21,6 +21,10 @@ kernel path
 cycles a block.  Each side builds its own device inputs from the same
 host arrays.
 
+Since this tree runs the CSR cycles on thread-block clusters below
+``model/solver.py::CLUSTER_MAX_EDGES`` (``kernels/csr_cluster.py``), the
+CSR loops compare those with a parent's twelve launches a cycle.
+
 In turns (parent, change, change, parent): each solve's wall ms, synced,
 after a warm solve (the change's includes its capture), and its blocks
 (the batched solve's count its loop blocks, after its first).  Both sides
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from . import ORDER, batched_sample, load_parent, smoke_sample, write_result
+from .cluster_sweep import card
 from ..config import QuantConfig
 from ..model import dense, loop, quantify, solver
 from ..parallel import mesh
@@ -158,7 +163,7 @@ def main(argv=None) -> int:
                        for name, v in m.items()} for who, m in median.items()}
     for who in median:
         median[who]["total_ms"] = sum(median[who].values())
-    write_result({"card": torch.cuda.get_device_name(0), "order": ORDER,
+    write_result({"card": card(), "order": ORDER,
                   "blocks": {n: v["change"] for n, v in blocks.items()},
                   "median_ms": median, "median_ms_per_block": per_block,
                   "runs_ms": res, "check_every": sweep}, args.out)

@@ -50,7 +50,7 @@ from typing import Callable, Iterable, Tuple
 
 import torch
 
-from ..kernels import csr_cycle, segment_sum, squarem
+from ..kernels import csr_cluster, csr_cycle, segment_sum, squarem
 
 # Blocks between two reads of the stop flag.  A read drains the stream and
 # costs the host's round trip; a block run after the stop costs a block's
@@ -60,7 +60,9 @@ from ..kernels import csr_cycle, segment_sum, squarem
 CHECK_EVERY = 4
 # (wrapper module, name of its launch counter) of every kernel a block runs
 COUNTERS = ((segment_sum, "LAUNCHES"), (segment_sum, "EM_LAUNCHES"),
-            (squarem, "LAUNCHES"), (csr_cycle, "LAUNCHES"))
+            (squarem, "LAUNCHES"), (csr_cycle, "LAUNCHES"),
+            (csr_cluster, "EM_PAIR_LAUNCHES"),
+            (csr_cluster, "EXTRAP_GAIN_LAUNCHES"))
 
 
 @dataclasses.dataclass

@@ -151,7 +151,7 @@ def quantify_sample(index: RshIndex, counts: SampleCounts, cfg: QuantConfig,
             # short host f64 SQUAREM polish (C++, csrc/solver.cc)
             fpkm = polish_host_f64(problem, fpkm,
                                    epsilon=max(cfg.epsilon, 1e-9),
-                                   max_cycles=200)
+                                   max_cycles=200)[0]
         if not np.isfinite(ll):
             ll = _host_loglik(problem, fpkm)
 
@@ -442,7 +442,7 @@ def quantify_samples_batched(index: RshIndex, counts_list, cfg: QuantConfig,
                                  denom=b.denom[s])
         if dtype == np.float32:
             fpkm = polish_host_f64(ps, fpkm, epsilon=max(cfg.epsilon, 1e-9),
-                                   max_cycles=200)
+                                   max_cycles=200)[0]
         ieuma = np.zeros(ntid)
         np.add.at(ieuma, graph.ct_tids, b.adjs[s][ct_rep])
         fpkm_rounds = _make_rounds(ps, fpkm, cfg, dtype, device)

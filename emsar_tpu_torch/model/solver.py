@@ -17,7 +17,10 @@ bits on every run (``index_add_`` on CUDA sums with float atomics), and
 the card gives the CPU's bits.  The rest of a SQUAREM cycle (step length,
 extrapolation, the accept test's intensities and gain) is
 ``kernels.csr_cycle``: a cycle is twelve launches on the card, with the
-torch body's bits.
+torch body's bits.  Below a size crossover (``CLUSTER_MAX_EDGES``) a cycle
+is five launches instead (``kernels.csr_cluster``: each row's modules
+packed into tiles, a thread-block cluster a tile, its passes split by
+hardware cluster barriers), with the same bits.
 
 The convergence loop is ``model/loop.py``'s ``while_loop`` (JAX's
 ``lax.while_loop``): blocks of ``block_iters`` cycles replayed from a CUDA
@@ -35,12 +38,20 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.csr_cluster import TilePlan, em_pair, extrap_gain, plan_for
 from ..kernels.csr_cycle import (block_gain, cycle_extrap, cycle_select,
                                  gain_terms, pair_gain)
 from ..kernels.segment_sum import (EdgeGroups, em_step, em_step_cycle,
                                    prepare, sum_groups)
 from . import loop
 from .modules import ModuleDecomposition, SegmentGraph
+
+# The CSR cycle runs on thread-block clusters (``kernels.csr_cluster``: five
+# launches a cycle) while a row's problem has at most this many edges and a
+# tile plan fits, as twelve launches above.  The largest problem of
+# ``bench/cluster_sweep.py``'s sweep (R 1, float64) at which the clusters
+# were faster; no larger one was measured.
+CLUSTER_MAX_EDGES = 11_520_000
 
 
 @dataclasses.dataclass
@@ -193,16 +204,19 @@ def loglik_of(reads: torch.Tensor, eumaps: torch.Tensor, s: torch.Tensor
                      dim=-1)
 
 
-def _squarem_cycle(p: DeviceProblem, theta: torch.Tensor) -> torch.Tensor:
-    """One stabilized SQUAREM cycle (Varadhan & Roland 2008) per row: the
-    extrapolation falls back to the double-EM value whenever it loses
-    likelihood, so convergence stays monotone.  Twelve launches on the
-    card: three EM steps (the second also writes r * r and v * v), their
-    two row sums, the extrapolation, the gain terms of cand over t2, their
-    row sum and the accept test.  ``p`` is a DeviceProblem or anything
-    with its edge groupings and reads, eumaps and inv_denom of one row or
-    one per row of theta (the batched solve's ShardedProblem)."""
-    theta = theta.contiguous()
+def clusters_for(p) -> bool:
+    """Whether the CSR cycles of ``p`` (a DeviceProblem or anything with
+    its edge groupings) run on thread-block clusters: at most
+    ``CLUSTER_MAX_EDGES`` edges a row."""
+    return p.by_cid.idx.shape[0] <= CLUSTER_MAX_EDGES
+
+
+def _squarem_cycle_launches(p: DeviceProblem, theta: torch.Tensor
+                            ) -> torch.Tensor:
+    """One stabilized SQUAREM cycle as twelve launches on the card: three
+    EM steps (the second also writes r * r and v * v), their two row sums,
+    the extrapolation, the gain terms of cand over t2, their row sum and
+    the accept test."""
     t1 = _em_iter(p, theta)
     t2, r_sq, v_sq = em_step_cycle(t1, theta, p.by_cid, p.by_tid, p.reads,
                                    p.inv_denom)
@@ -214,8 +228,60 @@ def _squarem_cycle(p: DeviceProblem, theta: torch.Tensor) -> torch.Tensor:
     return cycle_select(gain, cand, t2)
 
 
+def cycle_plan(p, rows: int, clusters: Optional[bool] = None
+               ) -> Optional[TilePlan]:
+    """The tile plan of the cycles of ``rows`` rows of ``p`` on clusters
+    (``kernels.csr_cluster.plan_for``), or None for twelve launches a
+    cycle: by default on clusters when ``clusters_for(p)`` and a plan
+    fits; ``clusters`` forces the path (True raises when no plan fits)."""
+    if clusters is False or (clusters is None and not clusters_for(p)):
+        return None
+    plan = plan_for(p.by_cid, p.by_tid, rows)
+    if plan is None and clusters:
+        raise ValueError("no cluster plan fits this problem: a module's "
+                         "share overflows a block's shared memory")
+    return plan
+
+
+def _squarem_cycles(p: DeviceProblem, theta: torch.Tensor, n: int,
+                    plan: Optional[TilePlan]) -> torch.Tensor:
+    """``n`` stabilized SQUAREM cycles (Varadhan & Roland 2008) per row:
+    the extrapolation falls back to the double-EM value whenever it loses
+    likelihood, so convergence stays monotone.  ``p`` is a DeviceProblem
+    or anything with its edge groupings and reads, eumaps and inv_denom of
+    one row or one per row of theta (the batched solve's ShardedProblem).
+
+    On clusters by ``plan`` (``cycle_plan``) a cycle is ``em_pair``
+    (taking the previous cycle's accept as its theta), the two step-length
+    row sums, ``extrap_gain`` and the gain's row sum: five launches, and
+    one ``cycle_select`` after the last; with no plan twelve launches a
+    cycle (``_squarem_cycle_launches``).  Both give the same bits."""
+    theta = theta.contiguous()
+    if plan is None:
+        for _ in range(n):
+            theta = _squarem_cycle_launches(p, theta)
+        return theta
+    src = theta
+    for _ in range(n):
+        th, t1, t2, r_sq, v_sq = em_pair(src, plan, p.reads, p.inv_denom)
+        cand, terms = extrap_gain(
+            th, t1, t2, torch.sum(r_sq, dim=1, keepdim=True),
+            torch.sum(v_sq, dim=1, keepdim=True), plan, p.reads, p.eumaps,
+            p.inv_denom)
+        src = (torch.sum(terms, dim=-1), cand, t2)
+    return cycle_select(*src)
+
+
+def _squarem_cycle(p: DeviceProblem, theta: torch.Tensor, *,
+                   clusters: Optional[bool] = None) -> torch.Tensor:
+    """One cycle of ``_squarem_cycles``, its plan made here."""
+    return _squarem_cycles(p, theta, 1,
+                           cycle_plan(p, theta.shape[0], clusters))
+
+
 def em_solve(p: DeviceProblem, theta0: torch.Tensor, epsilon: float,
-             block_iters: int, max_iters: int, *, plain: bool = False
+             block_iters: int, max_iters: int, *, plain: bool = False,
+             clusters: Optional[bool] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """SQUAREM EM from ``theta0`` [R, ntid] until each row's likelihood
     gain over a block drops below ``epsilon`` or the iteration cap is hit
@@ -223,17 +289,17 @@ def em_solve(p: DeviceProblem, theta0: torch.Tensor, epsilon: float,
     (theta [R, ntid], logL [R], n_blocks of the longest row).
 
     The blocks run in ``loop.while_loop`` (a CUDA graph on the card);
-    ``plain=True`` reads the stop flag after every block instead."""
+    ``plain=True`` reads the stop flag after every block instead.
+    ``clusters`` forces the cycles' path (``cycle_plan``)."""
     theta = theta0.clone()
+    plan = cycle_plan(p, theta.shape[0], clusters)
     s_prev = _intensities(p, theta)
     active = torch.ones(theta.shape[0], dtype=torch.bool,
                         device=theta.device)
     it = torch.zeros((), dtype=torch.int64, device=theta.device)
 
     def block():
-        th = theta
-        for _ in range(block_iters):
-            th = _squarem_cycle(p, th)
+        th = _squarem_cycles(p, theta, block_iters, plan)
         s_new, terms = block_gain(p.by_cid, p.reads, p.eumaps, s_prev, th)
         gain = torch.sum(terms, dim=-1)
         # rows that already stopped keep their state (vmap'd while_loop)
@@ -247,8 +313,10 @@ def em_solve(p: DeviceProblem, theta0: torch.Tensor, epsilon: float,
 
 def polish_host_f64(problem: SolverProblem, theta: np.ndarray,
                     epsilon: float = 1e-9, max_cycles: int = 200,
-                    native: Optional[bool] = None) -> np.ndarray:
-    """Short float64 SQUAREM polish on the host.
+                    native: Optional[bool] = None
+                    ) -> Tuple[np.ndarray, int]:
+    """Short float64 SQUAREM polish on the host; returns (theta, the cycles
+    it ran, the last one that met ``epsilon`` included).
 
     Closes the float32 convergence floor and the dense/CSR seams; starts at
     the device solution so only a handful of cycles run.  Runs in the C++
@@ -261,11 +329,11 @@ def polish_host_f64(problem: SolverProblem, theta: np.ndarray,
             denom = problem.denom.astype(np.float64)
             inv_denom = np.where(denom > 0, 1.0 /
                                  np.where(denom > 0, denom, 1.0), 0.0)
-            native_mod.polish_squarem(
+            cycles = native_mod.polish_squarem(
                 problem.edge_cid, problem.edge_tid, problem.edge_mult,
                 problem.eumaps, problem.reads, inv_denom, th,
                 epsilon, max_cycles)
-            return th
+            return th, cycles
         except RuntimeError:
             if native:
                 raise
@@ -301,7 +369,7 @@ def polish_host_f64(problem: SolverProblem, theta: np.ndarray,
 
     th = theta.astype(np.float64)
     s_prev = intens(th)
-    for _ in range(max_cycles):
+    for cycle in range(max_cycles):
         t1 = em(th)
         t2 = em(t1)
         r = t1 - th
@@ -314,9 +382,9 @@ def polish_host_f64(problem: SolverProblem, theta: np.ndarray,
         th = cand if gain(intens(t2), intens(cand)) >= 0 else t2
         s_new = intens(th)
         if gain(s_prev, s_new) < epsilon:
-            break
+            return th, cycle + 1
         s_prev = s_new
-    return th
+    return th, max_cycles
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -362,7 +430,7 @@ def solve_restart_rounds(problem: SolverProblem, n_rounds: int,
     if polish and np.dtype(dtype) == np.float32:
         for r in range(n_rounds):
             theta[r] = polish_host_f64(problem, theta[r],
-                                       epsilon=1e-9, max_cycles=200)
+                                       epsilon=1e-9, max_cycles=200)[0]
     return theta
 
 

@@ -19,8 +19,9 @@ shard:
 ``psum`` over an axis becomes ``all_reduce(SUM)`` on that axis's process
 group: gloo for CPU tensors, NCCL for CUDA tensors (one card a rank,
 ``cuda:LOCAL_RANK``).  With tp == 1 a SQUAREM cycle is the CSR solver's
-(``model/solver.py::_squarem_cycle``: the fused ``em_step`` and the
-``kernels.csr_cycle`` kernels) with per-sample reads, EUMAps and 1 /
+(``model/solver.py::_squarem_cycles``: on thread-block clusters below its
+size crossover, else the fused ``em_step`` and the ``kernels.csr_cycle``
+kernels) with per-sample reads, EUMAps and 1 /
 denom, and a block's gain that of ``csr_cycle.block_gain``; with tp > 1
 the partial segment sums (``sum_groups``) are all-reduced before the
 ratio ('edges': both sums, 'transcript': the by-cid sum only), and the
@@ -52,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..kernels.csr_cluster import TilePlan
 from ..kernels.csr_cycle import block_gain
 from ..kernels.segment_sum import EdgeGroups, sum_groups
 from ..model import loop, solver
@@ -258,6 +260,11 @@ def _squarem_cycle(sp: ShardedProblem, th: torch.Tensor) -> torch.Tensor:
     the all-reduces between the pieces."""
     if sp.mesh.tp == 1:
         return solver._squarem_cycle(sp, th)
+    return _cycle_tp(sp, th)
+
+
+def _cycle_tp(sp: ShardedProblem, th: torch.Tensor) -> torch.Tensor:
+    """One cycle of ``_squarem_cycle`` at tp > 1."""
     t1 = _em_iter(sp, th)
     t2 = _em_iter(sp, t1)
     r = t1 - th
@@ -272,26 +279,31 @@ def _squarem_cycle(sp: ShardedProblem, th: torch.Tensor) -> torch.Tensor:
     return torch.where(better[:, None], cand, t2)
 
 
-def _cycles(sp: ShardedProblem, th: torch.Tensor, block_iters: int
-            ) -> torch.Tensor:
+def _cycles(sp: ShardedProblem, th: torch.Tensor, block_iters: int,
+            plan: Optional[TilePlan] = None) -> torch.Tensor:
+    """``block_iters`` cycles: at tp == 1 ``model/solver.py::
+    _squarem_cycles``, on clusters by ``plan`` when one is given."""
+    if sp.mesh.tp == 1:
+        return solver._squarem_cycles(sp, th, block_iters, plan)
     for _ in range(block_iters):
-        th = _squarem_cycle(sp, th)
+        th = _cycle_tp(sp, th)
     return th
 
 
-def _block(sp: ShardedProblem, th: torch.Tensor, block_iters: int):
+def _block(sp: ShardedProblem, th: torch.Tensor, block_iters: int,
+           plan: Optional[TilePlan] = None):
     """``block_iters`` cycles: (theta, intensities, logL per sample)."""
-    th = _cycles(sp, th, block_iters)
+    th = _cycles(sp, th, block_iters, plan)
     s = _intensities(sp, th)
     return th, s, loglik_of(sp.reads, sp.eumaps, s)
 
 
 def _block_after(sp: ShardedProblem, th: torch.Tensor, s_prev: torch.Tensor,
-                 block_iters: int):
+                 block_iters: int, plan: Optional[TilePlan] = None):
     """``block_iters`` cycles after a block that ended at intensities
     ``s_prev``: (theta, intensities, logL per sample, gain per sample over
     s_prev), the intensities and gain terms in one launch at tp == 1."""
-    th = _cycles(sp, th, block_iters)
+    th = _cycles(sp, th, block_iters, plan)
     if sp.mesh.tp == 1:
         s, terms = block_gain(sp.by_cid, sp.reads, sp.eumaps, s_prev, th)
         gain = torch.sum(terms, dim=-1)
@@ -303,7 +315,8 @@ def _block_after(sp: ShardedProblem, th: torch.Tensor, s_prev: torch.Tensor,
 
 def solve_sharded(sp: ShardedProblem, epsilon: float = 1e-6,
                   max_blocks: int = 4096, block_iters: int = 32, *,
-                  plain: bool = False) -> Tuple[np.ndarray, float, int]:
+                  plain: bool = False, clusters: Optional[bool] = None
+                  ) -> Tuple[np.ndarray, float, int]:
     """The sharded EM solve: one block from the warm start, then blocks
     while the gain of the last one, summed over every sample, is at least
     ``epsilon`` and fewer than ``max_blocks`` ran.  Returns (theta [S, T]
@@ -313,9 +326,12 @@ def solve_sharded(sp: ShardedProblem, epsilon: float = 1e-6,
     stop flag for the batch (a CUDA graph on the card) when the mesh has
     no process groups; a mesh of several processes reads the all-reduced
     gain after every block (``plain``), as every rank must take the same
-    collectives."""
+    collectives.  ``clusters`` forces the path of the cycles at tp == 1
+    (``model/solver.py::_squarem_cycles``)."""
     m = sp.mesh
-    th, s, ll = _block(sp, sp.theta0, block_iters)
+    plan = (solver.cycle_plan(sp, sp.theta0.shape[0], clusters)
+            if m.tp == 1 else None)
+    th, s, ll = _block(sp, sp.theta0, block_iters, plan)
     th = th.clone()  # the state is updated in place; theta0 stays
     dev = th.device
     # JAX's first cond, the initial gain being +inf
@@ -323,7 +339,8 @@ def solve_sharded(sp: ShardedProblem, epsilon: float = 1e-6,
     it = torch.zeros((), dtype=torch.int64, device=dev)
 
     def block():
-        th_new, s_new, ll_new, gain = _block_after(sp, th, s, block_iters)
+        th_new, s_new, ll_new, gain = _block_after(sp, th, s, block_iters,
+                                                   plan)
         g = _psum(gain.sum().reshape(1), m.dp_group)
         loop.advance(active, it, ((th, th_new), (s, s_new), (ll, ll_new)))
         active.logical_and_((g[0] >= epsilon) & (it < max_blocks))

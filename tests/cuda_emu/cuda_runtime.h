@@ -1,14 +1,20 @@
 // The CUDA the port's kernels use, emulated on the CPU so that g++ can
-// build a kernel source and run it: one std::thread per CUDA thread,
-// blocks one after another, a barrier for __syncthreads and one per warp
-// for __syncwarp (and one per group of lanes for a shuffle of width < 32),
-// the shuffles and the ballots, atomicAdd, atomicOr and atomicCAS through
-// std::atomic_ref, and the round-to-nearest float intrinsics as plain
-// IEEE operations (g++ contracts no FMA for x86-64 without -mfma); log1p
-// and log1pf are the host libm's.  Block-level __shared__ variables
-// become statics (one block runs at a time).  tests/test_torch_cuda_
-// emulated.py rewrites each `kernel<<<grid, block, smem, stream>>>(args)`
-// into emu_launch(grid, block, smem, [&] { kernel(args); }).
+// build a kernel source and run it: one std::thread per CUDA thread, a
+// barrier for __syncthreads and one per warp for __syncwarp (and one per
+// group of lanes for a shuffle of width < 32), the shuffles and the
+// ballots, atomicAdd, atomicOr and atomicCAS through std::atomic_ref, and
+// the round-to-nearest float intrinsics as plain IEEE operations (g++
+// contracts no FMA for x86-64 without -mfma); log1p and log1pf are the host
+// libm's.  Blocks run one cluster at a time: the blocks of a cluster
+// together (their threads all at once, each block with its own warps,
+// barrier and dynamic shared memory, cooperative_groups.h's
+// this_cluster().sync() a barrier across them), clusters one after another.
+// A kernel's cluster size is its __cluster_dims__ (a no-op attribute here):
+// tests/test_torch_cuda_emulated.py rewrites each `kernel<<<grid, block,
+// smem, stream>>>(args)` into emu_launch(grid, block, smem, [&] {
+// kernel(args); }, cluster), cluster 1 unless the kernel declares one.
+// Block-level __shared__ variables become statics, so only a kernel of
+// clusters of one block may have them (one block runs at a time).
 #pragma once
 #include <atomic>
 #include <barrier>
@@ -22,6 +28,7 @@
 
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
+  dim3(unsigned a = 0, unsigned b = 0, unsigned c = 0) : x(a), y(b), z(c) {}
 };
 inline thread_local dim3 threadIdx;
 inline thread_local dim3 blockIdx;
@@ -35,12 +42,23 @@ template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes = 0;
+};
+// one cluster at a time, as the emulator runs them
+inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, const void*,
+                                                  const cudaLaunchConfig_t*) {
+  *n = 1;
+  return cudaSuccess;
+}
 
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __cluster_dims__(...)
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
 
@@ -97,9 +115,13 @@ struct EmuWarp {
   std::unique_ptr<std::barrier<>> sub[5][16];
   unsigned char slot[32][8];
 };
-inline std::vector<EmuWarp>* emu_warps;
-inline std::barrier<>* emu_block_bar;
-inline unsigned char* emu_dyn_smem;
+// the running thread's block: its warps, its barrier, its dynamic shared
+// memory; and its cluster's size and barrier
+inline thread_local std::vector<EmuWarp>* emu_warps;
+inline thread_local std::barrier<>* emu_block_bar;
+inline thread_local unsigned char* emu_dyn_smem;
+inline thread_local unsigned emu_cluster_size = 1;
+inline thread_local std::barrier<>* emu_cluster_bar;
 
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
@@ -149,30 +171,50 @@ inline bool __all_sync(unsigned m, int pred) {
   return __ballot_sync(m, pred) == 0xffffffffu;
 }
 
-inline void emu_launch(long long grid, int block, size_t smem,
-                       std::function<void()> body) {
-  blockDim.x = block;
-  gridDim.x = (unsigned)grid;
-  std::vector<unsigned char> dyn(smem + 16);
-  emu_dyn_smem = dyn.data() + (16 - ((uintptr_t)dyn.data() & 15)) % 16;
-  for (long long b = 0; b < grid; ++b) {
-    std::barrier<> bar(block);
-    emu_block_bar = &bar;
-    std::vector<EmuWarp> warps((block + 31) / 32);
+// The state of one emulated block.
+struct EmuBlock {
+  std::vector<EmuWarp> warps;
+  std::unique_ptr<std::barrier<>> bar;
+  std::vector<unsigned char> dyn;
+  EmuBlock(int block, size_t smem)
+      : warps((block + 31) / 32), bar(new std::barrier<>(block)),
+        dyn(smem + 16) {
     for (auto& w : warps) {
       w.bar = std::make_unique<std::barrier<>>(32);
       for (int k = 1; k < 5; ++k)
         for (int i = 0; i < (32 >> k); ++i)
           w.sub[k][i] = std::make_unique<std::barrier<>>(1 << k);
     }
-    emu_warps = &warps;
+  }
+  unsigned char* smem() {
+    return dyn.data() + (16 - ((uintptr_t)dyn.data() & 15)) % 16;
+  }
+};
+
+inline void emu_launch(long long grid, int block, size_t smem,
+                       std::function<void()> body, int cluster = 1) {
+  blockDim.x = block;
+  gridDim.x = (unsigned)grid;
+  if (cluster < 1 || grid % cluster) std::abort();  // as the card refuses
+  for (long long c0 = 0; c0 < grid; c0 += cluster) {
+    std::vector<std::unique_ptr<EmuBlock>> blocks;
+    for (int b = 0; b < cluster; ++b)
+      blocks.push_back(std::make_unique<EmuBlock>(block, smem));
+    std::barrier<> cluster_bar(cluster * block);
     std::vector<std::thread> threads;
-    for (int t = 0; t < block; ++t)
-      threads.emplace_back([&, t, b] {
-        threadIdx.x = t;
-        blockIdx.x = (unsigned)b;
-        body();
-      });
+    for (int b = 0; b < cluster; ++b)
+      for (int t = 0; t < block; ++t)
+        threads.emplace_back([&, t, b] {
+          EmuBlock& eb = *blocks[b];
+          threadIdx.x = t;
+          blockIdx.x = (unsigned)(c0 + b);
+          emu_warps = &eb.warps;
+          emu_block_bar = eb.bar.get();
+          emu_dyn_smem = eb.smem();
+          emu_cluster_size = (unsigned)cluster;
+          emu_cluster_bar = &cluster_bar;
+          body();
+        });
     for (auto& th : threads) th.join();
   }
 }

@@ -20,8 +20,9 @@ import torch
 from emsar_tpu_torch.index.device_build import DeviceRef
 from emsar_tpu_torch.index.device_build_pe import rank_pass
 from emsar_tpu_torch.io.fasta import build_transcriptome
-from emsar_tpu_torch.kernels import (_build, csr_cycle, pe_candidates,
-                                     segment_sum, squarem, window_hash)
+from emsar_tpu_torch.kernels import (_build, csr_cluster, csr_cycle,
+                                     pe_candidates, segment_sum, squarem,
+                                     window_hash)
 from emsar_tpu_torch.kernels.check import (block_agreement, block_tol,
                                            random_modules)
 from emsar_tpu_torch.model import solver
@@ -34,11 +35,50 @@ EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 TILE = 2048  # window starts per thread block (csrc/window_hash.cu kTile)
 
 
+def _top_level_split(text: str) -> list:
+    """``text`` split at the commas outside any brackets."""
+    parts, depth, start = [], 0, 0
+    for i, c in enumerate(text):
+        depth += {"(": 1, "<": 1, ")": -1, ">": -1}.get(c, 0)
+        if c == "," and depth == 0:
+            parts.append(text[start:i].strip())
+            start = i + 1
+    return parts + [text[start:].strip()]
+
+
+def _cluster_dims(text: str) -> dict:
+    """{kernel: (its template parameters' names, the expression of its
+    __cluster_dims__' first size)} of the source's cluster kernels."""
+    found = {}
+    for m in re.finditer(
+            r"template\s*<([^<>]*)>\s*__global__\s+void\s+"
+            r"__cluster_dims__\(([^,()]+),[^)]*\)\s*"
+            r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", text):
+        params = [p.split()[-1] for p in _top_level_split(m.group(1))]
+        found[m.group(3)] = (params, m.group(2).strip())
+    return found
+
+
+def _cluster_of(kernel: str, clusters: dict) -> str:
+    """The cluster size of a launch of ``kernel`` (``name<args>``): its
+    __cluster_dims__ expression with the template's arguments put in,
+    "1" for a kernel without one."""
+    m = re.fullmatch(r"(\w+)\s*(?:<(.*)>)?", kernel, re.S)
+    if m is None or m.group(1) not in clusters:
+        return "1"
+    params, expr = clusters[m.group(1)]
+    args = dict(zip(params, _top_level_split(m.group(2) or "")))
+    return "(" + re.sub(r"\w+", lambda w: f"({args[w.group(0)]})"
+                        if w.group(0) in args else w.group(0), expr) + ")"
+
+
 def _emulated_source(text: str) -> str:
-    """The CUDA source with each launch as a call of emu_launch."""
+    """The CUDA source with each launch as a call of emu_launch, with the
+    kernel's cluster size (``__cluster_dims__``) when it has one."""
     text = text.replace(
         "extern __shared__ __align__(16) unsigned char smem_raw[];",
         "unsigned char* smem_raw = emu_dyn_smem;")
+    clusters = _cluster_dims(text)
     out, i = [], 0
     while (j := text.find("<<<", i)) >= 0:
         k = max(text.rfind(c, 0, j) for c in ";{}") + 1
@@ -50,11 +90,18 @@ def _emulated_source(text: str) -> str:
             p += 1
             if depth == 0:
                 break
+        kernel = text[k:j].strip()
         out.append(f"{text[i:k]}\n    emu_launch({cfg[0]}, {cfg[1]}, "
                    f"{cfg[2] if len(cfg) > 2 else 0}, [&] {{ "
-                   f"{text[k:j].strip()}({text[e + 4:p - 1]}); }})")
+                   f"{kernel}({text[e + 4:p - 1]}); }}, "
+                   f"{_cluster_of(kernel, clusters)})")
         i = p
     return "".join(out) + text[i:]
+
+
+# threads a block of csrc/csr_cluster.cu's emulated clusters: few, so that
+# a cluster's threads all run at once on the CPU
+CLUSTER_THREADS = 64
 
 
 @pytest.fixture(scope="module")
@@ -62,26 +109,37 @@ def emulated(tmp_path_factory):
     """{source: its library built for the CPU emulation}."""
     libs = {}
     for source in (window_hash.SOURCE, squarem.SOURCE, pe_candidates.SOURCE,
-                   segment_sum.SOURCE, csr_cycle.SOURCE):
+                   segment_sum.SOURCE, csr_cycle.SOURCE, csr_cluster.SOURCE):
         with open(os.path.join(_build.CSRC_DIR, source)) as fh:
             text = _emulated_source(fh.read())
         cc = tmp_path_factory.mktemp("emu") / (source + ".cc")
         cc.write_text(text)
         so = str(cc) + ".so"
         subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
-                        "-pthread", "-I", EMU_DIR, "-o", so, str(cc)],
-                       check=True)
+                        "-pthread", f"-DEMSAR_CLUSTER_THREADS="
+                        f"{CLUSTER_THREADS}", "-I", EMU_DIR, "-o", so,
+                        str(cc)], check=True)
         libs[source] = ctypes.CDLL(so)
     return libs
 
 
 def test_launches_are_rewritten():
+    """A launch becomes emu_launch with cluster 1, a launch of a kernel
+    with __cluster_dims__ carries that size, its template's arguments put
+    in."""
     src = ("  k<F, 1><<<(unsigned)B, 128, smem,\n stream>>>(a, f(b), c);\n"
            "  return 0;")
     got = _emulated_source(src)
     assert "<<<" not in got
     assert re.search(r"emu_launch\(\(unsigned\)B, 128, smem, \[&\] \{ "
-                     r"k<F, 1>\(a, f\(b\), c\); \}\)", got)
+                     r"k<F, 1>\(a, f\(b\), c\); \}, 1\)", got)
+    src = ("template <typename F, int CL>\n__global__ void "
+           "__cluster_dims__(CL, 1, 1) __launch_bounds__(kThreads, 1)\n"
+           "    ck(A<F> a) {}\nint f() {\n  ck<float, 2 * N><<<R * 8, "
+           "kThreads, 0, s>>>(a);\n  return 0;\n}")
+    got = _emulated_source(src)
+    assert re.search(r"emu_launch\(R \* 8, kThreads, 0, \[&\] \{ "
+                     r"ck<float, 2 \* N>\(a\); \}, \(\(2 \* N\)\)\)", got)
 
 
 def _hash_input(rng, n_genes, extra=()):
@@ -529,3 +587,227 @@ def test_csr_cycle_source_matches_plain(emulated, dtype, lanes, per_row):
         assert fn(gain.data_ptr(), cand.data_ptr(), t2.data_ptr(),
                   got.data_ptr(), R, T, None) == 0
         assert torch.equal(got, csr_cycle.cycle_select_ref(gain, cand, t2))
+
+
+def _collapse_problem(rng):
+    """``_sum_problem`` with one more module: segments A = {a, b} (100
+    reads) and B = {b} (no reads, EUMAp 1e4).  From b at 1 and a at 1e15
+    (1e7 in float32) one EM step takes B's intensity below the float's
+    resolution of 1 (its gain term is then 0 * log1p(-1) = NaN) and A's
+    to 100 / a of its level (a finite term)."""
+    base = _sum_problem(rng)
+    C, T = len(base.eumaps), base.n_transcripts
+    cid = np.concatenate([base.edge_cid, [C, C, C + 1]]).astype(np.int32)
+    tid = np.concatenate([base.edge_tid, [T, T + 1, T + 1]]).astype(np.int32)
+    mult = np.concatenate([base.edge_mult, np.ones(3)])
+    eumaps = np.concatenate([base.eumaps, [1.0, 1e4]])
+    reads = np.concatenate([base.reads, [100.0, 0.0]]).astype(np.float64)
+    denom = np.concatenate([base.denom, [1.0, 1.0 + 1e4]])
+    return solver.SolverProblem(n_transcripts=T + 2, edge_cid=cid,
+                                edge_tid=tid, edge_mult=mult, eumaps=eumaps,
+                                reads=reads, denom=denom)
+
+
+def _cluster_inputs(R, dtype, per_row, seed, tiles=(1, 8)):
+    """(TilePlan on the CPU of ``tiles`` (tiles a row, blocks a cluster),
+    theta [R, T], reads, eumaps, inv_denom): one shared row of the
+    operands, or a row each; theta with zeros, its last row all zero when
+    R > 1 (r = v = 0: alpha -1)."""
+    rng = np.random.default_rng(R + 7 * seed + 3 * per_row)
+    problem = _collapse_problem(rng)
+    p = solver.problem_to_device(problem, torch.device("cpu"), dtype)
+    plan = csr_cluster.tile_plan(p.by_cid, p.by_tid, *tiles)
+    C, T = len(problem.eumaps), problem.n_transcripts
+    reads, eumaps, inv_denom = p.reads, p.eumaps, p.inv_denom
+    if per_row:
+        k = torch.as_tensor(rng.uniform(0.5, 2, (R, 1))).to(dtype)
+        reads = (reads * k).contiguous()
+        eumaps = torch.stack([eumaps.roll(i) for i in range(R)])
+        inv_denom = torch.stack([inv_denom.roll(i) for i in range(R)])
+    theta = rng.uniform(0, 10, (R, T))
+    theta[:, rng.random(T) < 0.2] = 0.0
+    if R > 1:
+        theta[-1] = 0.0
+    return plan, torch.as_tensor(theta).to(dtype), reads, eumaps, inv_denom
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _cluster_fn(lib, name, dtype, argtypes):
+    fn = getattr(lib, f"emsar_cluster_{name}_"
+                 + ("f64" if dtype == torch.float64 else "f32"))
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn
+
+
+def emulated_em_pair(lib, src, plan, reads, inv_denom):
+    """The emulated cluster_em_pair: (theta, t1, t2, r * r, v * v)."""
+    like = src if isinstance(src, torch.Tensor) else src[1]
+    theta, (gain, cand, t2p) = ((src, (None,) * 3)
+                                if isinstance(src, torch.Tensor)
+                                else (None, src))
+    R, T = like.shape
+    C = plan.by_cid.n_groups
+    theta_out, t1, t2, rr, vv = (torch.full_like(like, 7.0)
+                                 for _ in range(5))
+    ratio1, ratio2 = (torch.full((R, C), 7.0, dtype=like.dtype)
+                      for _ in range(2))
+    fn = _cluster_fn(lib, "em_pair", like.dtype,
+                     csr_cluster.EM_PAIR_ARGTYPES)
+    assert fn(_ptr(theta), _ptr(gain), _ptr(cand), _ptr(t2p),
+              plan.cid.pointers(), plan.tid.pointers(), reads.data_ptr(),
+              inv_denom.data_ptr(), theta_out.data_ptr(), ratio1.data_ptr(),
+              t1.data_ptr(), ratio2.data_ptr(), t2.data_ptr(),
+              rr.data_ptr(), vv.data_ptr(), R, C, T, plan.n_tiles, plan.smem,
+              C if reads.dim() == 2 else 0, T if inv_denom.dim() == 2 else 0,
+              plan.cluster, None) == 0
+    if theta is not None:
+        assert torch.all(theta_out == 7.0)  # not written
+    return (theta if theta is not None else theta_out), t1, t2, rr, vv
+
+
+def emulated_extrap_gain(lib, theta, t1, t2, rs, vs, plan, reads, eumaps,
+                         inv_denom):
+    """The emulated cluster_extrap_gain: (cand, gain terms)."""
+    R, T = theta.shape
+    C = plan.by_cid.n_groups
+    cand = torch.full_like(theta, 7.0)
+    ratio, terms = (torch.full((R, C), 7.0, dtype=theta.dtype)
+                    for _ in range(2))
+    fn = _cluster_fn(lib, "extrap_gain", theta.dtype,
+                     csr_cluster.EXTRAP_GAIN_ARGTYPES)
+    assert fn(theta.data_ptr(), t1.data_ptr(), t2.data_ptr(), rs.data_ptr(),
+              vs.data_ptr(), plan.cid.pointers(), plan.tid.pointers(),
+              reads.data_ptr(), eumaps.data_ptr(), inv_denom.data_ptr(),
+              ratio.data_ptr(), cand.data_ptr(), terms.data_ptr(), R, C, T,
+              plan.n_tiles, plan.smem, C if reads.dim() == 2 else 0,
+              T if inv_denom.dim() == 2 else 0, plan.cluster, None) == 0
+    return cand, terms
+
+
+def _extrap_gain_ieee(theta, t1, t2, rs, vs, p, reads, eumaps, inv_denom):
+    """``csr_cluster.extrap_gain_ref`` with the step length's square roots
+    correctly rounded (NumPy's), as CUDA's and the emulated kernel's are:
+    torch's CPU sqrt may be an ulp off.  The rest is the plain version's
+    own lines."""
+    rnorm, vnorm = (torch.as_tensor(np.sqrt(a.numpy())) for a in (rs, vs))
+    alpha = torch.clamp(torch.where(
+        vnorm > 0, -rnorm / torch.where(vnorm > 0, vnorm, 1.0), -1.0),
+        max=-1.0)
+    r = t1 - theta
+    v = t2 - t1 - r
+    extrap = theta - 2.0 * alpha * r + (alpha * alpha) * v
+    cand = segment_sum.em_step_ref(torch.where(extrap > 0, extrap, t2),
+                                   p.by_cid, p.by_tid, reads, inv_denom)
+    return cand, csr_cycle.pair_gain_ref(p.by_cid, reads, eumaps, t2, cand)
+
+
+CLUSTER_CASES = [(1, torch.float64, False), (3, torch.float32, False),
+                 (3, torch.float64, False), (16, torch.float64, True)]
+CLUSTER_IDS = ["R1-f64", "R3-f32", "R3-f64", "R16-f64-per_row"]
+
+
+# (tiles a row, blocks a cluster): one tile of a cluster of 8 (a whole
+# row), and three tiles of clusters of 2
+TILINGS = [(1, 8), (3, 2)]
+TILING_IDS = ["1x8", "3x2"]
+
+
+@pytest.mark.parametrize("tiles", TILINGS, ids=TILING_IDS)
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("R,dtype,per_row", CLUSTER_CASES, ids=CLUSTER_IDS)
+def test_cluster_em_pair_source_matches_plain(emulated, R, dtype, per_row,
+                                              seed, tiles):
+    """cluster_em_pair, its clusters' blocks run together behind the
+    emulated cluster barrier: theta, t1, t2, r * r and v * v bit-equal to
+    ``em_pair_ref``, from theta and from a previous cycle's accept with
+    NaN, -0, negative and positive gains."""
+    p, theta, reads, eumaps, inv_denom = _cluster_inputs(R, dtype, per_row,
+                                                         seed, tiles)
+    lib = emulated[csr_cluster.SOURCE]
+    want = csr_cluster.em_pair_ref(theta, p.by_cid, p.by_tid, reads,
+                                   inv_denom)
+    got = emulated_em_pair(lib, theta, p, reads, inv_denom)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (want[3] > 0).any() and (want[4] > 0).any()
+    rng = np.random.default_rng(R)
+    cand = torch.as_tensor(rng.uniform(0, 5, theta.shape)).to(dtype)
+    gain = torch.tensor([np.nan, -0.0, -1e-300, 2.0] * 4,
+                        dtype=dtype)[:R].contiguous()
+    src = (gain, cand, want[2])
+    want = csr_cluster.em_pair_ref(src, p.by_cid, p.by_tid, reads, inv_denom)
+    got = emulated_em_pair(lib, src, p, reads, inv_denom)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("tiles", TILINGS, ids=TILING_IDS)
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("R,dtype,per_row", CLUSTER_CASES, ids=CLUSTER_IDS)
+def test_cluster_extrap_gain_source_matches_plain(emulated, R, dtype,
+                                                  per_row, seed, tiles):
+    """cluster_extrap_gain on one cycle's t1, t2 and step-length sums: cand
+    bit-equal to the plain version's (``_extrap_gain_ieee``: its square
+    roots correctly rounded), the gain terms so but for the log1p
+    tolerance; also on rows whose step length is NaN (kept by the clamp),
+    inf / inf, or whose v is 0 (alpha -1)."""
+    p, theta, reads, eumaps, inv_denom = _cluster_inputs(R, dtype, per_row,
+                                                         seed, tiles)
+    lib = emulated[csr_cluster.SOURCE]
+    _, t1, t2, r_sq, v_sq = csr_cluster.em_pair_ref(
+        theta, p.by_cid, p.by_tid, reads, inv_denom)
+    rs = torch.sum(r_sq, dim=1, keepdim=True)
+    vs = torch.sum(v_sq, dim=1, keepdim=True)
+    odd = torch.tensor([[np.nan, 1.0], [np.inf, np.inf], [4.0, 0.0]] * 6,
+                       dtype=dtype)[:R]
+    for r_sum, v_sum in ((rs, vs), (odd[:, :1].contiguous(),
+                                    odd[:, 1:].contiguous())):
+        args = (theta, t1, t2, r_sum, v_sum)
+        want = _extrap_gain_ieee(*args, p, reads, eumaps, inv_denom)
+        got = emulated_extrap_gain(lib, *args, p, reads, eumaps, inv_denom)
+        assert torch.equal(got[0].nan_to_num(), want[0].nan_to_num())
+        assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
+        s_t2, s_cand = (segment_sum.segment_sum_ref(
+            a, p.by_cid.mult, p.by_cid.idx, p.by_cid.offsets)
+            for a in (t2, want[0]))
+        _log1p_tolerance(got[1], want[1], reads, s_t2, s_cand)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_cluster_kernels_nan_branches(emulated, dtype):
+    """The NaN cases the CSR stop depends on, through both cluster
+    kernels: a read-less segment whose intensity collapses from t2 to cand
+    (0 * log1p(-1)) makes a NaN gain term and a NaN gain, and the next
+    cycle's em_pair then takes t2 in that row, as cycle_select does."""
+    p, theta, reads, eumaps, inv_denom = _cluster_inputs(3, dtype, False, 2,
+                                                         (2, 4))
+    T = theta.shape[1]
+    big = 1e15 if dtype == torch.float64 else 1e7
+    theta[0, T - 2:] = torch.tensor([big, 1.0], dtype=dtype)
+    theta[1, T - 2:] = torch.tensor([1.0, 1.0], dtype=dtype)
+    zero = torch.zeros((3, 1), dtype=dtype)
+    lib = emulated[csr_cluster.SOURCE]
+    args = (theta, theta, theta, zero, zero)  # alpha -1: x = theta
+    want = csr_cluster.extrap_gain_ref(*args, p.by_cid, p.by_tid, reads,
+                                       eumaps, inv_denom)
+    got = emulated_extrap_gain(lib, *args, p, reads, eumaps, inv_denom)
+    assert torch.equal(got[0], want[0])
+    nan = torch.isnan(want[1])
+    assert nan[0, -1] and not nan[1:].any()
+    s_old, s_new = (segment_sum.segment_sum_ref(
+        a, p.by_cid.mult, p.by_cid.idx, p.by_cid.offsets)
+        for a in (theta, want[0]))
+    _log1p_tolerance(got[1], want[1], reads, s_old, s_new)
+    gain = torch.sum(got[1], dim=-1)
+    assert torch.isnan(gain[0]) and not torch.isnan(gain[1:]).any()
+    src = (gain, got[0], theta * 2)
+    want = csr_cluster.em_pair_ref(src, p.by_cid, p.by_tid, reads, inv_denom)
+    out = emulated_em_pair(lib, src, p, reads, inv_denom)
+    assert torch.equal(out[0][0], theta[0] * 2)
+    for g, w in zip(out, want):
+        assert torch.equal(g, w)

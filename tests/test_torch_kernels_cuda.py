@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from emsar_tpu_torch.bench import cluster_sweep
 from emsar_tpu_torch.index.device_build import DeviceRef
 from emsar_tpu_torch.index.device_build_pe import rank_pass
 from emsar_tpu_torch.io.fasta import build_transcriptome
-from emsar_tpu_torch.kernels import csr_cycle
+from emsar_tpu_torch.kernels import csr_cluster, csr_cycle
 from emsar_tpu_torch.kernels import pe_candidates as kpe
 from emsar_tpu_torch.kernels import segment_sum as ssum
 from emsar_tpu_torch.kernels import squarem, window_hash
@@ -408,3 +409,136 @@ def test_squarem_cycle_is_the_torch_body_on_the_card(cuda, dtype, R):
         want = torch_body_cycle(pg, want)
         torch.cuda.synchronize()
         assert torch.equal(th, want)
+
+
+def _same(a, b):
+    """Equal bits, NaN where the other has NaN."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_cluster_kernels_match_plain(cuda, dtype, R):
+    """cluster_em_pair (from theta, and from a cycle's accept) and
+    cluster_extrap_gain on the card against their plain versions on the
+    same inputs: theta, t1, t2, r * r, v * v and cand bit for bit against
+    the CPU's, the gain terms against torch's on the card over
+    intensities summed on the CPU (CUDA's log1p on both sides); two calls
+    equal; one launch each."""
+    rng = np.random.default_rng(R + 51)
+    pg, pc, th = _cycle_inputs(rng, R, dtype, cuda)
+    thg = th.to(cuda)
+    plan = csr_cluster.plan_for(pg.by_cid, pg.by_tid, R)
+    args_g = (plan, pg.reads, pg.inv_denom)
+    args_c = (pc.by_cid, pc.by_tid, pc.reads, pc.inv_denom)
+    before = (csr_cluster.EM_PAIR_LAUNCHES, csr_cluster.EXTRAP_GAIN_LAUNCHES)
+    got = csr_cluster.em_pair(thg, *args_g)
+    again = csr_cluster.em_pair(thg, *args_g)
+    torch.cuda.synchronize()
+    want = csr_cluster.em_pair_ref(th, *args_c)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), w)
+    _, t1, t2, r_sq, v_sq = got
+    rs = torch.sum(r_sq, dim=1, keepdim=True)
+    vs = torch.sum(v_sq, dim=1, keepdim=True)
+    ex = (thg, t1, t2, rs, vs, plan, pg.reads, pg.eumaps, pg.inv_denom)
+    cand, terms = csr_cluster.extrap_gain(*ex)
+    cand2, terms2 = csr_cluster.extrap_gain(*ex)
+    torch.cuda.synchronize()
+    # the extrapolation by torch on the card (CUDA's sqrt, as the
+    # kernel's: torch's CPU sqrt may be an ulp off), its EM step on the CPU
+    x = csr_cycle.cycle_extrap_ref(thg, t1, t2, rs, vs).cpu()
+    want_cand = ssum.em_step_ref(x, pc.by_cid, pc.by_tid, pc.reads,
+                                 pc.inv_denom)
+    assert torch.equal(cand, cand2) and _same(terms, terms2)
+    assert torch.equal(cand.cpu(), want_cand)
+    s_t2, s_cand = (ssum.segment_sum_ref(a.cpu(), pc.by_cid.mult,
+                                         pc.by_cid.idx, pc.by_cid.offsets)
+                    .to(cuda) for a in (t2, cand))
+    assert _same(terms, csr_cycle.gain_terms(pg.reads, pg.eumaps, s_t2,
+                                             s_cand))
+    gain = torch.sum(terms, dim=-1)
+    gain[0] = np.nan  # the accept's NaN branch: t2
+    src = (gain, cand, t2)
+    got = csr_cluster.em_pair(src, *args_g)
+    torch.cuda.synchronize()
+    want = csr_cluster.em_pair_ref(tuple(a.cpu() for a in src), *args_c)
+    assert torch.equal(got[0][0], t2[0])
+    for a, w in zip(got, want):
+        assert torch.equal(a.cpu(), w)
+    assert (csr_cluster.EM_PAIR_LAUNCHES, csr_cluster.EXTRAP_GAIN_LAUNCHES
+            ) == (before[0] + 3, before[1] + 2)
+
+
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_cluster_cycles_are_the_launch_cycles_on_the_card(cuda, dtype, R):
+    """Eight cycles on clusters (five launches a cycle) give the bits of
+    the twelve-launch cycles on the card, and launch each cluster kernel
+    once a cycle."""
+    rng = np.random.default_rng(R + 61)
+    pg, _, th = _cycle_inputs(rng, R, dtype, cuda)
+    th = th.to(cuda)
+    before = (csr_cluster.EM_PAIR_LAUNCHES, csr_cluster.EXTRAP_GAIN_LAUNCHES)
+    got = solver._squarem_cycles(pg, th, 8,
+                                 solver.cycle_plan(pg, R, clusters=True))
+    assert (csr_cluster.EM_PAIR_LAUNCHES, csr_cluster.EXTRAP_GAIN_LAUNCHES
+            ) == (before[0] + 8, before[1] + 8)
+    want = solver._squarem_cycles(pg, th, 8, None)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and not torch.equal(got, th)
+
+
+def test_cluster_cycles_replay_from_a_cuda_graph(cuda):
+    """A block of eight cycles on clusters captured into a CUDA graph and
+    replayed gives the eager block's bits, twice."""
+    rng = np.random.default_rng(71)
+    pg, _, th = _cycle_inputs(rng, 3, torch.float64, cuda)
+    static = th.to(cuda)
+    plan = solver.cycle_plan(pg, 3, clusters=True)  # host work: not captured
+    want = solver._squarem_cycles(pg, static, 8, plan)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        solver._squarem_cycles(pg, static, 8, plan)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = solver._squarem_cycles(pg, static, 8, plan)
+    for _ in range(2):
+        out.fill_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_clusters_fit_on_the_card(cuda, dtype):
+    """cudaOccupancyMaxActiveClusters finds room for at least one cluster
+    of each kernel at every size the source is built for (the wrappers
+    raise otherwise), fewer the larger they are."""
+    fit = [min(csr_cluster.max_active_clusters(dtype, which, cl,
+                                               cuda.index or 0)
+               for which in (0, 1)) for cl in csr_cluster.CLUSTERS]
+    assert fit[-1] >= 1 and fit == sorted(fit, reverse=True)
+
+
+@pytest.mark.parametrize("tiles", [(1, 8), (5, 4), (9, 2), (17, 1)])
+def test_cluster_kernels_on_every_tiling(cuda, tiles):
+    """Eight cycles at R 3 on clusters of each size, in one to 17 tiles a
+    row, give the twelve launches' bits, on a problem of many modules (the
+    cluster sweep's, ~12,000 edges)."""
+    rng = np.random.default_rng(81)
+    problem = cluster_sweep.random_problem(rng, 12_000)
+    pg = solver.problem_to_device(problem, cuda, torch.float64)
+    th = torch.as_tensor(cluster_sweep.rows(problem, 3, rng)).to(cuda)
+    plan = csr_cluster.tile_plan(pg.by_cid, pg.by_tid, *tiles)
+    assert plan.smem <= csr_cluster.SMEM_BYTES
+    got = solver._squarem_cycles(pg, th, 8, plan)
+    want = solver._squarem_cycles(pg, th, 8, None)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

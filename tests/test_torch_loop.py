@@ -160,8 +160,10 @@ def test_counters_count_replays(monkeypatch, k):
     """The launch counters after a replayed solve equal the eager solve's:
     the capture's ticks are taken back and added once per replay."""
     monkeypatch.setattr(loop, "CHECK_EVERY", k)
-    # sum_groups, em_step, squarem_block, csr_cycle launches
-    per_block = (3, 4, 1, 2)
+    # sum_groups, em_step, squarem_block, csr_cycle, cluster_em_pair,
+    # cluster_extrap_gain launches
+    per_block = (3, 4, 1, 2, 8, 8)
+    assert len(per_block) == len(loop.COUNTERS)
 
     def solve(graph):
         for mod, attr in loop.COUNTERS:

@@ -123,8 +123,17 @@ def test_polish_matches_jax(native):
     problem = _gene_family_problem()
     theta, _, _ = jsolver.solve(problem, dtype=np.float32)
     want = jsolver.polish_host_f64(problem, theta, native=native)
-    got = tsolver.polish_host_f64(problem, theta, native=native)
+    got, cycles = tsolver.polish_host_f64(problem, theta, native=native)
     np.testing.assert_array_equal(got, want)
+    # the cycles run: the same count from both implementations, and a
+    # polish capped one cycle short of it ends elsewhere
+    other = tsolver.polish_host_f64(problem, theta, native=not native)
+    assert other[1] == cycles >= 1
+    if cycles > 1:
+        short = tsolver.polish_host_f64(problem, theta, max_cycles=cycles - 1,
+                                        native=native)
+        assert short[1] == cycles - 1
+        assert not np.array_equal(short[0], got)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
