@@ -25,8 +25,10 @@ exit, no result line):
    10,000 to 11.5 M edges at R 1 and some at R 3, R 16 and float32, eight
    cycles on clusters and as twelve launches bit-equal and timed from
    CUDA graphs, the cluster sizes and tile counts compared at 90,000
-   edges; and ``solver.solve`` above ``CLUSTER_MAX_EDGES``, which must
-   take the twelve launches (em_step launched).
+   edges, the two row layouts (a cluster a row, a cluster over all rows)
+   at R 3 and 16, and the largest module an 8-block cluster stages; and
+   ``solver.solve`` above ``CLUSTER_MAX_EDGES``, which must take the
+   twelve launches (em_step launched).
 4. Fixture (cached under bench_cache/torch_smoke/): the SE bench workload,
    a 2000-gene family transcriptome (~12k transcripts, ~15 Mbp) as
    smoke.fa, SE l50 .rsh from the port's NumPy builder, 1M simulated reads
@@ -52,10 +54,12 @@ exit, no result line):
    (cluster_em_pair from theta and from an accept, cluster_extrap_gain,
    eight cycles of five launches) bit-equal to their plain versions at
    the CSR shape (R 1, float64) and the CSR restart rounds' (R 3, float32
-   and float64); max abs error, device and host times, bounds.  Then the
-   CSR solve through ``solver.solve``, its blocks replayed from a CUDA
-   graph (``model/loop.py``) on clusters: CSR_BLOCKS blocks to its end;
-   the tile plan's host ms; the whole solve's ms per block, capture ms,
+   and float64); max abs error, device and host times, bounds, each
+   cluster kernel's share of its bound and its plan's tiles and cluster
+   size.  Then the CSR solve through ``solver.solve``, its blocks
+   replayed from a CUDA graph (``model/loop.py``) on clusters:
+   CSR_BLOCKS blocks to its end; the tile plan's host ms, made and taken
+   from the plan cache; the whole solve's ms per block, capture ms,
    kernel launches per block run and device busy share (torch.profiler),
    on clusters and forced to twelve launches a cycle.
 7. The SE index build on the card: ``emsar-build-torch smoke.fa 50`` must
@@ -109,7 +113,8 @@ exit, no result line):
    iReadcount within 1e-3, the two batched runs' .fpkm byte-identical,
    the cluster kernels and csr_cycle launched in the batched solve
    (counted around ``solve_sharded``, apart from the run's per-sample CSR
-   restart loops);
+   restart loops); the tile plans each run made (the plan cache emptied
+   before it): the 16 samples' restart loops must make one between them;
    each batched .fpkm's logL within rel 1e-9 of the
    same batched solve on the CPU (the plain versions); the loop-vs-batched
    logL and gene-TPM gaps printed (the batched solve stops on one gain
@@ -1116,19 +1121,20 @@ def check_csr_cluster(p, theta, label: str) -> dict:
             p, theta, N_ITERS, None))}
     C, T, E = p.by_cid.n_groups, p.by_tid.n_groups, p.by_cid.idx.shape[0]
     log(f"csr_cluster {label} {str(theta.dtype)[6:]} R={R} C={C} T={T} "
-        f"E={E}, {plan.n_tiles} tiles of {plan.cluster} blocks, "
-        f"{plan.smem} B of shared memory a block: cluster_em_pair (from "
-        f"theta and from an accept), cluster_extrap_gain and {N_ITERS} "
-        f"cycles bit-equal to their plain versions ({n_nan} NaN gain "
-        f"terms); " + "; ".join(
-            f"{k} {m['ms']:.4f} ms on the card, {m['host_ms']:.4f} ms host, "
-            f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-            f"({m['bound_by']})" for k, m in out.items())
+        f"E={E}, {plan.n_tiles} tiles of clusters of {plan.cluster} "
+        f"blocks, {plan.rows} row(s) a cluster, {plan.smem} B of shared "
+        f"memory a block: cluster_em_pair (from theta and from an accept), "
+        f"cluster_extrap_gain and {N_ITERS} cycles bit-equal to their "
+        f"plain versions ({n_nan} NaN gain terms); " + "; ".join(
+            f"{k} {m['ms']:.5f} ms on the card ({m['bound_ms'] / m['ms']:.1%}"
+            f" of its bound {m['bound_ms']:.5f} ms, {m['bound_by']}), "
+            f"{m['host_ms']:.4f} ms host, plain {m['plain_ms']:.4f} ms"
+            for k, m in out.items())
         + f"; {N_ITERS} cycles from a graph {block['cluster_ms']:.4f} ms "
         f"on clusters, {block['launches_ms']:.4f} ms as twelve launches a "
         f"cycle")
     out["plan"] = {"tiles": plan.n_tiles, "cluster": plan.cluster,
-                   "smem_bytes": plan.smem}
+                   "rows": plan.rows, "smem_bytes": plan.smem}
     out["block"] = block
     return out
 
@@ -1197,6 +1203,11 @@ def phase_cluster_sweep(dev) -> dict:
                          (1, torch.float32, (90_000, 720_000))):
         out["sweeps"].append(cs.sweep(dev, sizes, R=R, dtype=dt, log=log))
     out["tilings"] = cs.tilings(dev, log=log)
+    out["row_layouts"] = cs.row_layouts(dev, log=log)
+    out["largest_module"] = [cs.largest_module(dt) for dt in (
+        torch.float64, torch.float32)]
+    log(f"the largest module of the sweep's shape a cluster of 8 blocks "
+        f"stages: {out['largest_module']}")
     log(f"cluster sweep: the cluster path faster up to "
         f"{out['sweeps'][0]['crossover_edges']} edges at R 1 (the largest "
         f"size measured {out['sweeps'][0]['sizes'][-1]['edges']}); "
@@ -1350,8 +1361,8 @@ def phase_csr_profile(problem, dev) -> dict:
     import torch
 
     from emsar_tpu_torch.model import loop
-    from emsar_tpu_torch.model.solver import (cycle_plan, em_solve,
-                                              problem_to_device,
+    from emsar_tpu_torch.model.solver import (clear_plans, cycle_plan,
+                                              em_solve, problem_to_device,
                                               read_attribution_start, solve)
     reset_launches()
     _, ll, blocks = solve(problem, dev, dtype=np.float64)
@@ -1367,13 +1378,19 @@ def phase_csr_profile(problem, dev) -> dict:
     p = problem_to_device(problem, dev, torch.float64)
     th0 = torch.as_tensor(read_attribution_start(problem))[None].to(dev)
     cycle_plan(p, 1, clusters=True)
+    clear_plans()
     t0 = time.perf_counter()
     plan = cycle_plan(p, 1, clusters=True)
-    out = {"plan": {"host_ms": (time.perf_counter() - t0) * 1e3,
+    made = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cycle_plan(p, 1, clusters=True)
+    out = {"plan": {"host_ms": made,
+                    "cached_host_ms": (time.perf_counter() - t0) * 1e3,
                     "tiles": plan.n_tiles, "cluster": plan.cluster,
-                    "smem_bytes": plan.smem}}
-    log(f"CSR solve's tile plan: {out['plan']} (host ms counted in the "
-        f"cluster solve's wall)")
+                    "rows": plan.rows, "smem_bytes": plan.smem,
+                    "bytes": plan.nbytes()}}
+    log(f"CSR solve's tile plan: {out['plan']} (host ms to make it, and to "
+        f"take it from the plan cache as the timed solves below do)")
     for path, clusters in (("cluster", True), ("launches", False)):
         def run():
             res = em_solve(p, th0, 1e-9, N_ITERS, 200000, clusters=clusters)
@@ -2202,6 +2219,7 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
     from emsar_tpu_torch.bench import MS_SAMPLES, batched_sample
     from emsar_tpu_torch.cli import emsar as cli
     from emsar_tpu_torch.config import QuantConfig
+    from emsar_tpu_torch.model import solver
     from emsar_tpu_torch.model.quantify import _host_loglik
     from emsar_tpu_torch.model.solver import gain_of
     from emsar_tpu_torch.parallel import mesh
@@ -2215,16 +2233,18 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
     log(f"multisample: {MS_SAMPLES} samples split by read name, collapsed "
         f"and batched in {time.perf_counter() - t0:.1f} s")
     walls = {"loop": [], "batched": []}
-    runs, launches = {}, {}
+    runs, launches, plans_made = {}, {}, {}
     # the batched solve's own launches, apart from the per-sample CSR
     # restart loops of the same run
     in_solve = []
 
     def counted_solve(*args, **kwargs):
         before = read_launches()
+        plans = solver.PLANS_MADE
         out = solve_sharded(*args, **kwargs)
         in_solve.append({k: v - before[k] for k, v in
                          read_launches().items()})
+        in_solve[-1]["plans_made"] = solver.PLANS_MADE - plans
         return out
 
     for name, rep in (("loop", 0), ("batched", 0), ("batched", 1),
@@ -2233,6 +2253,8 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
         flags = ["--batch_samples"] if name == "batched" else []
         reset_phases()
         reset_launches()
+        solver.clear_plans()  # each run makes its own plans
+        plans = solver.PLANS_MADE
         t0 = time.perf_counter()
         mesh.solve_sharded = counted_solve
         try:
@@ -2245,16 +2267,25 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
             raise AssertionError(f"-M {name} run exited {rc}")
         runs[f"{name}{rep}"] = out
         launches.setdefault(name, read_launches())
+        plans_made.setdefault(name, []).append(solver.PLANS_MADE - plans)
         phases = {}
         for k, v in phase_times().items():  # summed over the samples' files
             k = k.split(" /")[0]
             phases[k] = phases.get(k, 0.0) + v
         log(f"-M {name} run {rep}: {walls[name][-1]:.2f} s, launches "
-            f"{read_launches()}; phases " + ", ".join(
+            f"{read_launches()}, tile plans made {plans_made[name][-1]}; "
+            f"phases " + ", ".join(
                 f"{k} {v:.3f}" for k, v in phases.items()))
     solve_launches = in_solve[0]
+    restart_plans = plans_made["batched"][0] - solve_launches.pop(
+        "plans_made")
     log(f"-M batched: launches in its batched solve {solve_launches}, in "
-        f"the whole run {launches['batched']}")
+        f"the whole run {launches['batched']}; tile plans made: "
+        f"{plans_made['batched'][0] - restart_plans} by the batched solve, "
+        f"{restart_plans} by the {MS_SAMPLES} samples' CSR restart loops")
+    if restart_plans != 1:
+        raise AssertionError(f"the {MS_SAMPLES} restart loops made "
+                             f"{restart_plans} tile plans, not one")
     # its cycles run on clusters (a row's problem is below
     # CLUSTER_MAX_EDGES): em_step launches only above it
     if min(solve_launches[k] for k in ("csr_cycle", "cluster_em_pair",
@@ -2342,7 +2373,8 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
             "cluster_batched_plan": cluster["plan"],
             "cluster_batched_block": cluster["block"],
             "batched_solve_launches": solve_launches,
-            "batched_run_launches": launches["batched"]}, sp
+            "batched_run_launches": launches["batched"],
+            "plans_made": plans_made, "restart_plans": restart_plans}, sp
 
 
 def _launch_world(argvs, label: str, dev, timeout: float = 300.0) -> list:

@@ -26,7 +26,10 @@ Since this tree runs the CSR cycles on thread-block clusters below
 CSR loops compare those with a parent's twelve launches a cycle.
 
 In turns (parent, change, change, parent): each solve's wall ms, synced,
-after a warm solve (the change's includes its capture), and its blocks
+after a warm solve (the change's includes its capture; its CSR loops take
+their tile plans from the plan cache the warm solve filled, where the
+parent makes them anew, so each of those is timed once more with the
+cache emptied first: ``change_plan_made_ms``), and its blocks
 (the batched solve's count its loop blocks, after its first).  Both sides
 must give the same blocks and theta bits; the script raises otherwise.
 Then the change alone at each ``CHECK_EVERY`` of ``--every``: the
@@ -148,6 +151,18 @@ def main(argv=None) -> int:
                 not np.array_equal(theta[name]["parent"],
                                    theta[name]["change"]):
             raise AssertionError(f"{name}: parent and change differ")
+    # the change's CSR loops with their tile plans made anew (the plan
+    # cache emptied before the timed solve), as a solve of new edges pays
+    cold = {}
+    for name, fn in fns["change"].items():
+        if name.startswith(("csr", "batched")):
+            fn()
+            solver.clear_plans()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            cold[name] = (time.perf_counter() - t0) * 1e3
     sweep = {}
     for k in (int(v) for v in args.every.split(",")):
         loop.CHECK_EVERY = k
@@ -166,7 +181,8 @@ def main(argv=None) -> int:
     write_result({"card": card(), "order": ORDER,
                   "blocks": {n: v["change"] for n, v in blocks.items()},
                   "median_ms": median, "median_ms_per_block": per_block,
-                  "runs_ms": res, "check_every": sweep}, args.out)
+                  "runs_ms": res, "change_plan_made_ms": cold,
+                  "check_every": sweep}, args.out)
     return 0
 
 

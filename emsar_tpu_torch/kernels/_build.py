@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -35,9 +36,14 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    """Where the library built from ``csrc/<source>`` lives."""
+    """Where the library built from ``csrc/<source>`` lives (keyed by the
+    source, the headers of csrc/ it includes and the flags)."""
     with open(os.path.join(CSRC_DIR, source), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+        text = fh.read()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
+    for header in re.findall(rb'#include\s+"([^"]+)"', text):
+        with open(os.path.join(CSRC_DIR, header.decode()), "rb") as fh:
+            digest.update(fh.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 

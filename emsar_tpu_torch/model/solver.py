@@ -20,7 +20,9 @@ extrapolation, the accept test's intensities and gain) is
 torch body's bits.  Below a size crossover (``CLUSTER_MAX_EDGES``) a cycle
 is five launches instead (``kernels.csr_cluster``: each row's modules
 packed into tiles, a thread-block cluster a tile, its passes split by
-hardware cluster barriers), with the same bits.
+hardware cluster barriers), with the same bits; its tile plan is made
+once per edge structure (``cycle_plan``'s cache: the restart loops of
+every sample of a ``-M --batch_samples`` run share one).
 
 The convergence loop is ``model/loop.py``'s ``while_loop`` (JAX's
 ``lax.while_loop``): blocks of ``block_iters`` cycles replayed from a CUDA
@@ -52,6 +54,16 @@ from .modules import ModuleDecomposition, SegmentGraph
 # ``bench/cluster_sweep.py``'s sweep (R 1, float64) at which the clusters
 # were faster; no larger one was measured.
 CLUSTER_MAX_EDGES = 11_520_000
+# ``cycle_plan``'s cache of tile plans: at most PLAN_CACHE plans and
+# PLAN_CACHE_BYTES of their tensors (``TilePlan.nbytes``: the tiled
+# groupings, the blocks' images and the problem's groupings they were
+# made for, ~80 B an edge in float64; on the card for a card plan), or
+# the newest plan alone when it is larger (a problem of ~13 M edges);
+# PLANS_MADE counts the plans made (``plan_for`` calls)
+PLAN_CACHE = 4
+PLAN_CACHE_BYTES = 1 << 30
+PLANS_MADE = 0
+_PLANS: list = []  # [(rows, by_cid, by_tid, plan, bytes)], newest last
 
 
 @dataclasses.dataclass
@@ -228,15 +240,54 @@ def _squarem_cycle_launches(p: DeviceProblem, theta: torch.Tensor
     return cycle_select(gain, cand, t2)
 
 
+def _same_groups(a: EdgeGroups, b: EdgeGroups) -> bool:
+    """Whether two edge groupings hold the same edges (content, not
+    identity: on one device, in one dtype, equal tensors)."""
+    return a is b or (
+        a.n_x == b.n_x and a.mult.dtype == b.mult.dtype
+        and a.mult.device == b.mult.device
+        and a.offsets.shape == b.offsets.shape
+        and a.idx.shape == b.idx.shape and torch.equal(a.offsets, b.offsets)
+        and torch.equal(a.idx, b.idx) and torch.equal(a.mult, b.mult))
+
+
+def _cached_plan(p, rows: int) -> Optional[TilePlan]:
+    """``plan_for``'s plan of ``rows`` rows of ``p``'s edges, from the
+    cache when a plan of the same edge groupings (by content), rows, dtype
+    and device is there; else made (``PLANS_MADE``) and kept, the oldest
+    plans dropped while the cache holds more than ``PLAN_CACHE`` of them
+    or ``PLAN_CACHE_BYTES`` (the newest always kept)."""
+    global PLANS_MADE
+    for i, (r, by_cid, by_tid, plan, _) in enumerate(_PLANS):
+        if (r == rows and _same_groups(by_cid, p.by_cid)
+                and _same_groups(by_tid, p.by_tid)):
+            _PLANS.append(_PLANS.pop(i))
+            return plan
+    plan = plan_for(p.by_cid, p.by_tid, rows)
+    PLANS_MADE += 1
+    size = plan.nbytes() if plan is not None else 0
+    _PLANS.append((rows, p.by_cid, p.by_tid, plan, size))
+    while len(_PLANS) > 1 and (len(_PLANS) > PLAN_CACHE or sum(
+            e[-1] for e in _PLANS) > PLAN_CACHE_BYTES):
+        _PLANS.pop(0)
+    return plan
+
+
+def clear_plans() -> None:
+    """Empty ``cycle_plan``'s cache."""
+    _PLANS.clear()
+
+
 def cycle_plan(p, rows: int, clusters: Optional[bool] = None
                ) -> Optional[TilePlan]:
     """The tile plan of the cycles of ``rows`` rows of ``p`` on clusters
-    (``kernels.csr_cluster.plan_for``), or None for twelve launches a
-    cycle: by default on clusters when ``clusters_for(p)`` and a plan
-    fits; ``clusters`` forces the path (True raises when no plan fits)."""
+    (``kernels.csr_cluster.plan_for``, made once per edge structure: see
+    ``_cached_plan``), or None for twelve launches a cycle: by default on
+    clusters when ``clusters_for(p)`` and a plan fits; ``clusters`` forces
+    the path (True raises when no plan fits)."""
     if clusters is False or (clusters is None and not clusters_for(p)):
         return None
-    plan = plan_for(p.by_cid, p.by_tid, rows)
+    plan = _cached_plan(p, rows)
     if plan is None and clusters:
         raise ValueError("no cluster plan fits this problem: a module's "
                          "share overflows a block's shared memory")

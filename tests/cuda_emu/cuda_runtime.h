@@ -8,7 +8,10 @@
 // libm's.  Blocks run one cluster at a time: the blocks of a cluster
 // together (their threads all at once, each block with its own warps,
 // barrier and dynamic shared memory, cooperative_groups.h's
-// this_cluster().sync() a barrier across them), clusters one after another.
+// this_cluster().sync() a barrier across them and map_shared_rank() a
+// pointer into another block's dynamic shared memory), clusters one after
+// another.  bulk_copy.cuh stands in for the package's bulk copies and
+// mbarriers.
 // A kernel's cluster size is its __cluster_dims__ (a no-op attribute here):
 // tests/test_torch_cuda_emulated.py rewrites each `kernel<<<grid, block,
 // smem, stream>>>(args)` into emu_launch(grid, block, smem, [&] {
@@ -122,6 +125,9 @@ inline thread_local std::barrier<>* emu_block_bar;
 inline thread_local unsigned char* emu_dyn_smem;
 inline thread_local unsigned emu_cluster_size = 1;
 inline thread_local std::barrier<>* emu_cluster_bar;
+// the dynamic shared memory of each block of the running thread's cluster,
+// by rank
+inline thread_local unsigned char* const* emu_cluster_smem;
 
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
@@ -201,6 +207,8 @@ inline void emu_launch(long long grid, int block, size_t smem,
     for (int b = 0; b < cluster; ++b)
       blocks.push_back(std::make_unique<EmuBlock>(block, smem));
     std::barrier<> cluster_bar(cluster * block);
+    std::vector<unsigned char*> cluster_smem;
+    for (auto& eb : blocks) cluster_smem.push_back(eb->smem());
     std::vector<std::thread> threads;
     for (int b = 0; b < cluster; ++b)
       for (int t = 0; t < block; ++t)
@@ -213,6 +221,7 @@ inline void emu_launch(long long grid, int block, size_t smem,
           emu_dyn_smem = eb.smem();
           emu_cluster_size = (unsigned)cluster;
           emu_cluster_bar = &cluster_bar;
+          emu_cluster_smem = cluster_smem.data();
           body();
         });
     for (auto& th : threads) th.join();

@@ -307,3 +307,186 @@ def test_cluster_wrappers_refuse():
     with pytest.raises(ValueError, match="device"):
         csr_cluster.extrap_gain(meta, meta, meta, meta[:, :1], meta[:, :1],
                                 plan, meta[0], meta[0], meta[0])
+
+
+def _tiled_plan(n_tiles, cluster, seed=0):
+    problem = _module_problem(np.random.default_rng(100 + seed), 14)
+    p = tsolver.problem_to_device(problem, CPU, torch.float64)
+    return p, csr_cluster.tile_plan(p.by_cid, p.by_tid, n_tiles, cluster)
+
+
+CLUSTER_SIZES = [1, 2, 4, 8]
+
+
+@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
+@pytest.mark.parametrize("n_tiles", [1, 3, 7])
+def test_local_endpoints_map_back(n_tiles, cluster):
+    """Every edge's tile-local endpoint (rank << RANK_SHIFT | slot) names
+    the block of its own tile's cluster whose share of the other grouping
+    holds the edge's other end, at that slot: the id there is the edge's
+    problem id, in both groupings."""
+    _, plan = _tiled_plan(n_tiles, cluster, n_tiles)
+    cc = csr_cluster
+    desc = plan.blocks.numpy()
+    for g, other, s0 in ((plan.cid, plan.tid, cc.T_S0),
+                         (plan.tid, plan.cid, cc.C_S0)):
+        deg = np.diff(g.offsets.numpy())
+        tile = np.repeat(np.repeat(np.arange(n_tiles),
+                                   np.diff(g.tile_off.numpy())), deg)
+        local = g.local.numpy().astype(np.int64)
+        rank, slot = local >> cc.RANK_SHIFT, local & ((1 << cc.RANK_SHIFT)
+                                                       - 1)
+        assert rank.max(initial=0) < cluster
+        block = tile * cluster + rank
+        at = desc[block, s0] + slot
+        assert np.array_equal(other.orig.numpy()[at], g.idx.numpy())
+        # the slot lies within the block's share
+        n = desc[block, cc.T_N if s0 == cc.T_S0 else cc.C_N]
+        assert np.all(slot < n)
+        # some gathers cross blocks: distributed shared memory reads
+        own_s0 = desc[:, cc.C_S0 if s0 == cc.T_S0 else cc.T_S0]
+        own = np.searchsorted(own_s0, np.arange(len(deg)), "right") - 1
+        crossing = np.repeat(own % cluster, deg) != rank
+        assert crossing.any() == (cluster > 1)
+
+
+@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
+@pytest.mark.parametrize("n_tiles", [1, 3, 7])
+def test_block_descriptors_are_the_shares(n_tiles, cluster):
+    """A block's descriptor holds its shares as ``_shares`` counts them
+    (groups, edges; first group and edge their running sums), and its
+    image, at its place, holds its groups' ends, its edges' tile-local
+    endpoints and weights, laid out at the descriptor's offsets."""
+    p, plan = _tiled_plan(n_tiles, cluster, n_tiles)
+    cc = csr_cluster
+    desc = plan.blocks.numpy()
+    assert desc.shape == (n_tiles * cluster, cc.DESC_FIELDS)
+    label_c, label_t, _ = cc.module_labels(p.by_cid, p.by_tid.n_groups)
+    tile_c, tile_t = cc._tiles_of((label_c, label_t, _), n_tiles)
+    image = plan.image.numpy()
+    for g, tg, tile, (s0, n, e0, m), (ends, local, w) in (
+            (p.by_cid, plan.cid, tile_c, (cc.C_S0, cc.C_N, cc.C_E0, cc.C_M),
+             (None, cc.C_LOCAL, cc.C_W)),
+            (p.by_tid, plan.tid, tile_t, (cc.T_S0, cc.T_N, cc.T_E0, cc.T_M),
+             (cc.T_ENDS, cc.T_LOCAL, cc.T_W))):
+        groups, edges = cc._shares(torch.diff(g.offsets), tile, n_tiles,
+                                   cluster)
+        assert np.array_equal(desc[:, n], groups.reshape(-1).numpy())
+        assert np.array_equal(desc[:, m], edges.reshape(-1).numpy())
+        assert np.array_equal(desc[:, s0], np.cumsum(desc[:, n]) - desc[:, n])
+        assert np.array_equal(desc[:, e0], np.cumsum(desc[:, m]) - desc[:, m])
+        off = tg.offsets.numpy()
+        for b in range(desc.shape[0]):
+            at = 16 * int(desc[b, cc.IMG16])
+            a, k = desc[b, s0], desc[b, n]
+            q, j = desc[b, e0], desc[b, m]
+            part = 0 if ends is None else desc[b, ends]
+            got = image[at + part:at + part + 4 * k].view(np.int32)
+            assert np.array_equal(got, off[a + 1:a + k + 1] - q)
+            got = image[at + desc[b, local]:at + desc[b, local] + 4 * j]
+            assert np.array_equal(got.view(np.int32),
+                                  tg.local.numpy()[q:q + j])
+            got = image[at + desc[b, w]:at + desc[b, w] + 8 * j]
+            assert np.array_equal(got.view(np.float64),
+                                  tg.mult.numpy()[q:q + j])
+    assert np.all(desc[:, cc.IMG_BYTES] % 16 == 0)
+    assert 16 * desc[-1, cc.IMG16] + desc[-1, cc.IMG_BYTES] == image.size
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+@pytest.mark.parametrize("cluster", [1, 4])
+def test_smem_counts_the_vectors(cluster, dtype):
+    """A block's shared memory as ``_smem`` counts it and the plan lays it
+    out: the mbarrier, the largest image, then for the largest shares the
+    cid vectors (orig and three in the dtype) and the tid vectors (orig
+    and four), then the products (two per edge of a cid share, one of a
+    tid share), each part 16-byte aligned; the layout's offsets are those
+    parts' starts."""
+    problem = _module_problem(np.random.default_rng(cluster), 10)
+    p = tsolver.problem_to_device(problem, CPU, dtype)
+    cc = csr_cluster
+    item = p.by_cid.mult.element_size()
+    plan = cc.tile_plan(p.by_cid, p.by_tid, 3, cluster)
+    desc = plan.blocks.numpy()
+
+    def a16(n):
+        return -(-int(n) // 16) * 16
+    img = max(a16(4 * b[cc.C_N]) + a16(4 * b[cc.C_M]) + a16(item * b[cc.C_M])
+              + a16(4 * b[cc.T_N]) + a16(4 * b[cc.T_M])
+              + a16(item * b[cc.T_M]) for b in desc)
+    cn, tn = desc[:, cc.C_N].max(), desc[:, cc.T_N].max()
+    cm, tm = desc[:, cc.C_M].max(), desc[:, cc.T_M].max()
+    c_orig = 16 + img
+    c_vec = c_orig + a16(4 * cn)
+    t_orig = c_vec + 3 * a16(item * cn)
+    t_vec = t_orig + a16(4 * tn)
+    prod = t_vec + 4 * a16(item * tn)
+    want = prod + a16(item * max(2 * cm, tm))
+    assert plan.layout == (c_orig, c_vec, a16(item * cn), t_orig, t_vec,
+                           a16(item * tn), prod)
+    assert plan.smem == want
+    label_c, label_t, _ = cc.module_labels(p.by_cid, p.by_tid.n_groups)
+    tile_c, tile_t = cc._tiles_of((label_c, label_t, _), 3)
+    assert cc._smem(torch.diff(p.by_cid.offsets), tile_c,
+                    torch.diff(p.by_tid.offsets), tile_t, 3, cluster,
+                    item) == want
+    # the vectors are what the edges alone would not count
+    assert want - prod >= item * max(2 * cm, tm)
+    assert prod - c_vec >= 3 * item * cn + 4 * item * tn
+
+
+def test_plan_is_made_once_per_edge_structure(monkeypatch):
+    """``cycle_plan`` makes one plan per edge structure, rows, dtype and
+    device: the same edges in new tensors (a problem built again) take the
+    cached plan; other rows, another dtype or other edges make a new one;
+    the cache keeps at most ``PLAN_CACHE`` plans, the oldest dropped."""
+    monkeypatch.setattr(tsolver, "_PLANS", [])
+    monkeypatch.setattr(tsolver, "PLANS_MADE", 0)
+    problem = _module_problem(np.random.default_rng(9))
+    p = tsolver.problem_to_device(problem, CPU, torch.float64)
+    again = tsolver.problem_to_device(problem, CPU, torch.float64)
+    assert again.by_cid.idx is not p.by_cid.idx
+    plan = tsolver.cycle_plan(p, 3)
+    assert tsolver.cycle_plan(again, 3) is plan
+    assert tsolver.PLANS_MADE == 1
+    assert tsolver.cycle_plan(p, 1) is not plan
+    f32 = tsolver.problem_to_device(problem, CPU, torch.float32)
+    assert tsolver.cycle_plan(f32, 3).by_cid.mult.dtype == torch.float32
+    other = tsolver.problem_to_device(_module_problem(
+        np.random.default_rng(10)), CPU, torch.float64)
+    tsolver.cycle_plan(other, 3)
+    assert tsolver.PLANS_MADE == 4
+    assert tsolver.cycle_plan(again, 3) is plan  # still cached: 4 plans
+    monkeypatch.setattr(tsolver, "PLAN_CACHE", 2)
+    tsolver.cycle_plan(p, 2)  # a fifth: the cache keeps the newest two
+    assert tsolver.PLANS_MADE == 5 and len(tsolver._PLANS) == 2
+    assert tsolver.cycle_plan(p, 1) is not None
+    assert tsolver.PLANS_MADE == 6  # rows 1's plan was dropped: remade
+    assert tsolver.cycle_plan(p, 3, clusters=False) is None
+    assert tsolver.PLANS_MADE == 6
+
+
+def test_batch_samples_makes_one_restart_plan(monkeypatch, tmp_path):
+    """``emsar -M --batch_samples`` over 16 samples on the CPU: the batched
+    solve makes one plan (R 16), and the 16 samples' CSR restart loops (R
+    3, each from its own ``restart_problem`` arrays) one between them."""
+    from emsar_tpu_torch.bench.multisample import split_by_qname
+    from emsar_tpu_torch.cli import emsar as torch_cli
+    from tests.test_torch_cli import _make_fixture
+    monkeypatch.setenv("EMSAR_TORCH_DEVICE", "cpu")
+    monkeypatch.setattr(tsolver, "_PLANS", [])
+    monkeypatch.setattr(tsolver, "PLANS_MADE", 0)
+    rows = []
+    plan_of = tsolver.cycle_plan
+
+    def counted(p, r, clusters=None):
+        rows.append(r)
+        return plan_of(p, r, clusters)
+    monkeypatch.setattr(tsolver, "cycle_plan", counted)
+    rsh, aln = _make_fixture(tmp_path)
+    split_by_qname(aln, str(tmp_path), "sample", 16)
+    assert torch_cli.main(["-q", "-M", "--batch_samples", "-I", rsh,
+                           str(tmp_path / "out"), "s",
+                           str(tmp_path / "sample.list")]) == 0
+    assert rows.count(16) == 1 and rows.count(3) == 16
+    assert tsolver.PLANS_MADE == 2

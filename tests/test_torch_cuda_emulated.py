@@ -608,15 +608,15 @@ def _collapse_problem(rng):
                                 reads=reads, denom=denom)
 
 
-def _cluster_inputs(R, dtype, per_row, seed, tiles=(1, 8)):
+def _cluster_inputs(R, dtype, per_row, seed, tiles=(1, 8), rows=1):
     """(TilePlan on the CPU of ``tiles`` (tiles a row, blocks a cluster),
-    theta [R, T], reads, eumaps, inv_denom): one shared row of the
-    operands, or a row each; theta with zeros, its last row all zero when
-    R > 1 (r = v = 0: alpha -1)."""
+    ``rows`` rows a cluster, theta [R, T], reads, eumaps, inv_denom): one
+    shared row of the operands, or a row each; theta with zeros, its last
+    row all zero when R > 1 (r = v = 0: alpha -1)."""
     rng = np.random.default_rng(R + 7 * seed + 3 * per_row)
     problem = _collapse_problem(rng)
     p = solver.problem_to_device(problem, torch.device("cpu"), dtype)
-    plan = csr_cluster.tile_plan(p.by_cid, p.by_tid, *tiles)
+    plan = csr_cluster.tile_plan(p.by_cid, p.by_tid, *tiles, rows=rows)
     C, T = len(problem.eumaps), problem.n_transcripts
     reads, eumaps, inv_denom = p.reads, p.eumaps, p.inv_denom
     if per_row:
@@ -653,15 +653,12 @@ def emulated_em_pair(lib, src, plan, reads, inv_denom):
     C = plan.by_cid.n_groups
     theta_out, t1, t2, rr, vv = (torch.full_like(like, 7.0)
                                  for _ in range(5))
-    ratio1, ratio2 = (torch.full((R, C), 7.0, dtype=like.dtype)
-                      for _ in range(2))
     fn = _cluster_fn(lib, "em_pair", like.dtype,
                      csr_cluster.EM_PAIR_ARGTYPES)
-    assert fn(_ptr(theta), _ptr(gain), _ptr(cand), _ptr(t2p),
-              plan.cid.pointers(), plan.tid.pointers(), reads.data_ptr(),
-              inv_denom.data_ptr(), theta_out.data_ptr(), ratio1.data_ptr(),
-              t1.data_ptr(), ratio2.data_ptr(), t2.data_ptr(),
-              rr.data_ptr(), vv.data_ptr(), R, C, T, plan.n_tiles, plan.smem,
+    assert fn(_ptr(theta), _ptr(gain), _ptr(cand), _ptr(t2p), *plan.args(),
+              reads.data_ptr(), inv_denom.data_ptr(), theta_out.data_ptr(),
+              t1.data_ptr(), t2.data_ptr(), rr.data_ptr(), vv.data_ptr(), R,
+              T, plan.n_tiles, plan.rows, plan.smem,
               C if reads.dim() == 2 else 0, T if inv_denom.dim() == 2 else 0,
               plan.cluster, None) == 0
     if theta is not None:
@@ -675,16 +672,15 @@ def emulated_extrap_gain(lib, theta, t1, t2, rs, vs, plan, reads, eumaps,
     R, T = theta.shape
     C = plan.by_cid.n_groups
     cand = torch.full_like(theta, 7.0)
-    ratio, terms = (torch.full((R, C), 7.0, dtype=theta.dtype)
-                    for _ in range(2))
+    terms = torch.full((R, C), 7.0, dtype=theta.dtype)
     fn = _cluster_fn(lib, "extrap_gain", theta.dtype,
                      csr_cluster.EXTRAP_GAIN_ARGTYPES)
     assert fn(theta.data_ptr(), t1.data_ptr(), t2.data_ptr(), rs.data_ptr(),
-              vs.data_ptr(), plan.cid.pointers(), plan.tid.pointers(),
-              reads.data_ptr(), eumaps.data_ptr(), inv_denom.data_ptr(),
-              ratio.data_ptr(), cand.data_ptr(), terms.data_ptr(), R, C, T,
-              plan.n_tiles, plan.smem, C if reads.dim() == 2 else 0,
-              T if inv_denom.dim() == 2 else 0, plan.cluster, None) == 0
+              vs.data_ptr(), *plan.args(), reads.data_ptr(),
+              eumaps.data_ptr(), inv_denom.data_ptr(), cand.data_ptr(),
+              terms.data_ptr(), R, C, T, plan.n_tiles, plan.rows, plan.smem,
+              C if reads.dim() == 2 else 0, T if inv_denom.dim() == 2 else 0,
+              plan.cluster, None) == 0
     return cand, terms
 
 
@@ -810,4 +806,55 @@ def test_cluster_kernels_nan_branches(emulated, dtype):
     out = emulated_em_pair(lib, src, p, reads, inv_denom)
     assert torch.equal(out[0][0], theta[0] * 2)
     for g, w in zip(out, want):
+        assert torch.equal(g, w)
+
+
+# (R, dtype, a row of operands each) of the distributed-read cases
+SPREAD_CASES = [(1, torch.float32, False), (1, torch.float64, False),
+                (3, torch.float32, False), (3, torch.float64, False),
+                (16, torch.float32, True), (16, torch.float64, True)]
+SPREAD_IDS = ["R1-f32", "R1-f64", "R3-f32", "R3-f64", "R16-f32-per_row",
+              "R16-f64-per_row"]
+
+
+@pytest.mark.parametrize("rows", ["row", "all_rows"])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("R,dtype,per_row", SPREAD_CASES, ids=SPREAD_IDS)
+def test_cluster_kernels_read_other_blocks(emulated, R, dtype, per_row,
+                                           cluster, rows):
+    """Both cluster kernels with each tile spread over a cluster's blocks
+    (two tiles of 1, 2 or 4 blocks), so that a gather reads another
+    block's vectors through the emulated distributed shared memory, a
+    cluster taking a row or all R rows: cluster_em_pair from theta and
+    from an accept bit-equal to ``em_pair_ref``, cluster_extrap_gain's
+    cand bit-equal to the plain version's and its gain terms so but for
+    the log1p tolerance."""
+    p, theta, reads, eumaps, inv_denom = _cluster_inputs(
+        R, dtype, per_row, cluster, (2, cluster),
+        rows=1 if rows == "row" else R)
+    local = p.cid.local.numpy().astype(np.int64) >> csr_cluster.RANK_SHIFT
+    assert (local > 0).any() == (cluster > 1)
+    lib = emulated[csr_cluster.SOURCE]
+    want = csr_cluster.em_pair_ref(theta, p.by_cid, p.by_tid, reads,
+                                   inv_denom)
+    got = emulated_em_pair(lib, theta, p, reads, inv_denom)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _, t1, t2, r_sq, v_sq = want
+    args = (theta, t1, t2, torch.sum(r_sq, dim=1, keepdim=True),
+            torch.sum(v_sq, dim=1, keepdim=True))
+    want_x = _extrap_gain_ieee(*args, p, reads, eumaps, inv_denom)
+    cand, terms = emulated_extrap_gain(lib, *args, p, reads, eumaps,
+                                       inv_denom)
+    assert torch.equal(cand, want_x[0])
+    s_t2, s_cand = (segment_sum.segment_sum_ref(
+        a, p.by_cid.mult, p.by_cid.idx, p.by_cid.offsets)
+        for a in (t2, cand))
+    _log1p_tolerance(terms, want_x[1], reads, s_t2, s_cand)
+    gain = torch.sum(want_x[1], dim=-1)
+    gain[0] = -1.0  # row 0 takes t2
+    src = (gain, cand, t2)
+    want = csr_cluster.em_pair_ref(src, p.by_cid, p.by_tid, reads, inv_denom)
+    got = emulated_em_pair(lib, src, p, reads, inv_denom)
+    for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -417,20 +417,14 @@ def _same(a, b):
             and torch.equal(a.nan_to_num(), b.nan_to_num()))
 
 
-@pytest.mark.parametrize("R", [1, 3, 16])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
-                         ids=["f32", "f64"])
-def test_cluster_kernels_match_plain(cuda, dtype, R):
+def _check_cluster_kernels(pg, pc, th, plan, cuda):
     """cluster_em_pair (from theta, and from a cycle's accept) and
-    cluster_extrap_gain on the card against their plain versions on the
-    same inputs: theta, t1, t2, r * r, v * v and cand bit for bit against
-    the CPU's, the gain terms against torch's on the card over
-    intensities summed on the CPU (CUDA's log1p on both sides); two calls
-    equal; one launch each."""
-    rng = np.random.default_rng(R + 51)
-    pg, pc, th = _cycle_inputs(rng, R, dtype, cuda)
+    cluster_extrap_gain on the card by ``plan`` against their plain
+    versions on the same inputs: theta, t1, t2, r * r, v * v and cand bit
+    for bit against the CPU's, the gain terms against torch's on the card
+    over intensities summed on the CPU (CUDA's log1p on both sides); two
+    calls equal; one launch each."""
     thg = th.to(cuda)
-    plan = csr_cluster.plan_for(pg.by_cid, pg.by_tid, R)
     args_g = (plan, pg.reads, pg.inv_denom)
     args_c = (pc.by_cid, pc.by_tid, pc.reads, pc.inv_denom)
     before = (csr_cluster.EM_PAIR_LAUNCHES, csr_cluster.EXTRAP_GAIN_LAUNCHES)
@@ -470,6 +464,57 @@ def test_cluster_kernels_match_plain(cuda, dtype, R):
         assert torch.equal(a.cpu(), w)
     assert (csr_cluster.EM_PAIR_LAUNCHES, csr_cluster.EXTRAP_GAIN_LAUNCHES
             ) == (before[0] + 3, before[1] + 2)
+
+
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_cluster_kernels_match_plain(cuda, dtype, R):
+    """Both cluster kernels by ``plan_for``'s plan against their plain
+    versions (``_check_cluster_kernels``)."""
+    rng = np.random.default_rng(R + 51)
+    pg, pc, th = _cycle_inputs(rng, R, dtype, cuda)
+    _check_cluster_kernels(pg, pc, th, csr_cluster.plan_for(
+        pg.by_cid, pg.by_tid, R), cuda)
+
+
+@pytest.mark.parametrize("rows", ["row", "all_rows"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_cluster_kernels_at_each_cluster_size(cuda, dtype, R, cluster,
+                                              rows):
+    """Both cluster kernels on plans forced to clusters of 1, 2, 4 and 8
+    blocks (as many tiles as the card holds such clusters over the rows,
+    doubled until a block's share fits), a cluster taking a row or all R
+    rows, against their plain versions (``_check_cluster_kernels``), on a
+    problem of many modules (the cluster sweep's, ~12,000 edges) whose
+    tiles spread over a cluster's blocks."""
+    rng = np.random.default_rng(R + cluster)
+    problem = cluster_sweep.random_problem(rng, 12_000)
+    pg, pc = (solver.problem_to_device(problem, d, dtype)
+              for d in (cuda, torch.device("cpu")))
+    if R == 16:
+        C, T = len(problem.eumaps), problem.n_transcripts
+        ops = [torch.as_tensor(a).to(dtype) for a in (
+            rng.poisson(3, (R, C)) * 1.0, rng.uniform(0.1, 2, (R, C)),
+            rng.uniform(0.2, 2, (R, T)) * (rng.random((R, T)) < 0.95))]
+        pg, pc = (dataclasses.replace(
+            p, reads=ops[0].to(d), eumaps=ops[1].to(d),
+            inv_denom=ops[2].to(d)) for p, d in ((pg, cuda),
+                                                 (pc, torch.device("cpu"))))
+    th = torch.as_tensor(cluster_sweep.rows(problem, R, rng)).to(dtype)
+    fit = csr_cluster.max_active_clusters(dtype, 0, cluster,
+                                          cuda.index or 0)
+    n_tiles = max(1, fit // R)
+    while True:
+        plan = csr_cluster.tile_plan(pg.by_cid, pg.by_tid, n_tiles, cluster,
+                                     rows=1 if rows == "row" else R)
+        if plan.smem <= csr_cluster.SMEM_BYTES:
+            break
+        n_tiles *= 2
+    _check_cluster_kernels(pg, pc, th, plan, cuda)
 
 
 @pytest.mark.parametrize("R", [1, 3, 16])
@@ -542,3 +587,19 @@ def test_cluster_kernels_on_every_tiling(cuda, tiles):
     want = solver._squarem_cycles(pg, th, 8, None)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("R", [3, 16])
+def test_plan_rows_follow_the_sweep(cuda, R):
+    """``plan_for`` gives a cluster a row below ``ALL_ROWS_MIN_EDGES``
+    edges a row and a cluster all R rows from there on; one row a cluster
+    at R 1."""
+    for n_edges in (90_000, csr_cluster.ALL_ROWS_MIN_EDGES):
+        problem = cluster_sweep.random_problem(
+            np.random.default_rng(n_edges), n_edges * 101 // 100)
+        pg = solver.problem_to_device(problem, cuda, torch.float64)
+        big = pg.by_cid.idx.shape[0] >= csr_cluster.ALL_ROWS_MIN_EDGES
+        assert big == (n_edges > 90_000)
+        assert csr_cluster.plan_for(pg.by_cid, pg.by_tid, R).rows == (
+            R if big else 1)
+        assert csr_cluster.plan_for(pg.by_cid, pg.by_tid, 1).rows == 1
