@@ -23,12 +23,19 @@ exit, no result line):
    the library yardstick.  Then the CSR cycle's crossover
    (``emsar_tpu_torch.bench.cluster_sweep``): random problems of modules,
    10,000 to 11.5 M edges at R 1 and some at R 3, R 16 and float32, eight
-   cycles on clusters and as twelve launches bit-equal and timed from
-   CUDA graphs, the cluster sizes and tile counts compared at 90,000
-   edges, the two row layouts (a cluster a row, a cluster over all rows)
-   at R 3 and 16, and the largest module an 8-block cluster stages; and
-   ``solver.solve`` above ``CLUSTER_MAX_EDGES``, which must take the
-   twelve launches (em_step launched).
+   cycles on clusters, as ten launches a cycle and as twelve, bit-equal
+   and timed from CUDA graphs, the cluster sizes and tile counts compared
+   at 90,000 edges, the two row layouts (a cluster a row, a cluster over
+   all rows) at R 3 and 16, and the largest module an 8-block cluster
+   stages; ``solver.solve`` above ``CLUSTER_MAX_EDGES`` (so above
+   ``FOLD_MAX_EDGES``), which must take the twelve launches (em_step,
+   cycle_extrap and cycle_select launched), and, unforced, on the sweep's
+   modules with one module above the 8-block cluster's limit
+   (``bench.cycle_ab.oversized_problem``, 159,815 edges), which must
+   take the launches (no tile plan; em_step and pair_gain launched;
+   cycle_extrap and cycle_select only where its edges exceed
+   ``FOLD_MAX_EDGES``: ten launches a cycle, else twelve), its ms per
+   block timed; the csr_cycle kernels at both shapes as in phase 6.
 4. Fixture (cached under bench_cache/torch_smoke/): the SE bench workload,
    a 2000-gene family transcriptome (~12k transcripts, ~15 Mbp) as
    smoke.fa, SE l50 .rsh from the port's NumPy builder, 1M simulated reads
@@ -49,19 +56,25 @@ exit, no result line):
 6. Kernels against plain versions at the main path's shapes: the SQUAREM
    block on its dense batches (float64), the segment sums and em_step on
    its CSR problem (bit-equal to the CPU); the CSR cycle's kernels
-   (em_step_cycle, cycle_extrap, pair_gain, block_gain, cycle_select and
-   a whole cycle of twelve launches) and the cluster kernels
-   (cluster_em_pair from theta and from an accept, cluster_extrap_gain,
+   (em_step_cycle, the EM steps from the extrapolation and from the
+   accept, cycle_extrap, the tiled pair_gain with and without its
+   intensities, cycle_select, block_end and a whole cycle of ten
+   launches) and the cluster kernels (cluster_em_pair from theta and from
+   an accept, cluster_extrap_gain with and without its intensities,
    eight cycles of five launches) bit-equal to their plain versions at
    the CSR shape (R 1, float64) and the CSR restart rounds' (R 3, float32
    and float64); max abs error, device and host times, bounds, each
-   cluster kernel's share of its bound and its plan's tiles and cluster
-   size.  Then the CSR solve through ``solver.solve``, its blocks
-   replayed from a CUDA graph (``model/loop.py``) on clusters:
+   kernel's share of its bound and the cluster plan's tiles and cluster
+   size.  Then ``bench.cycle_ab`` on this checkout alone: the block end,
+   pair_gain and eight cycles of ten and of twelve launches at the smoke's
+   CSR shapes (R 1, R 3 f64 and f32, R 16) and on the oversized module's
+   problem, with its solve's ms per block.  Then the CSR solve through
+   ``solver.solve``, its blocks replayed from a CUDA graph
+   (``model/loop.py``) on clusters:
    CSR_BLOCKS blocks to its end; the tile plan's host ms, made and taken
    from the plan cache; the whole solve's ms per block, capture ms,
    kernel launches per block run and device busy share (torch.profiler),
-   on clusters and forced to twelve launches a cycle.
+   on clusters and forced off them (ten launches a cycle).
 7. The SE index build on the card: ``emsar-build-torch smoke.fa 50`` must
    write the NumPy builder's smoke.rsh byte for byte (window-hash launch
    count > 0), and ``emsar-torch --solver_pallas -x smoke.fa`` must agree
@@ -111,7 +124,8 @@ exit, no result line):
    the sample axis), each twice (loop, batched, batched, loop; the lower
    wall time kept): per sample .fraglength_effect byte-equal, gene
    iReadcount within 1e-3, the two batched runs' .fpkm byte-identical,
-   the cluster kernels and csr_cycle launched in the batched solve
+   the cluster kernels and block_end launched in the batched solve, and
+   neither pair_gain nor cycle_select
    (counted around ``solve_sharded``, apart from the run's per-sample CSR
    restart loops); the tile plans each run made (the plan cache emptied
    before it): the 16 samples' restart loops must make one between them;
@@ -140,7 +154,7 @@ exit, no result line):
    blocks run after the stop, capture ms, device busy share and kernels
    per block (torch.profiler); the CSR block's bound.  The three CSR loops
    (the solve, its restart rounds, the batched solve) run on clusters and
-   again forced to twelve launches a cycle: bit-equal.
+   again forced off them (ten launches a cycle): bit-equal.
 
 Times on the card (``kernels/measure.py``): ``ms`` is device time per
 call, CUDA events around calls queued back to back behind a sleep kernel;
@@ -189,9 +203,18 @@ KERNELS = {
     "pe_candidates": {"name": "pe_candidates", "route": "cuda",
                       "source": "emsar_tpu_torch/csrc/pe_candidates.cu",
                       "replaces": "emsar_tpu/index/device_build.py:1010"},
-    "csr_cycle": {"name": "csr_cycle", "route": "cuda",
+    "pair_gain": {"name": "pair_gain", "route": "cuda",
                   "source": "emsar_tpu_torch/csrc/csr_cycle.cu",
-                  "replaces": "emsar_tpu/model/solver.py:150"},
+                  "replaces": "emsar_tpu/model/solver.py:134"},
+    "block_end": {"name": "block_end", "route": "cuda",
+                  "source": "emsar_tpu_torch/csrc/csr_cycle.cu",
+                  "replaces": "emsar_tpu/model/solver.py:181"},
+    "cycle_extrap": {"name": "cycle_extrap", "route": "cuda",
+                     "source": "emsar_tpu_torch/csrc/csr_cycle.cu",
+                     "replaces": "emsar_tpu/model/solver.py:150"},
+    "cycle_select": {"name": "cycle_select", "route": "cuda",
+                     "source": "emsar_tpu_torch/csrc/csr_cycle.cu",
+                     "replaces": "emsar_tpu/model/solver.py:150"},
     "cluster_em_pair": {"name": "cluster_em_pair", "route": "cuda",
                         "source": "emsar_tpu_torch/csrc/csr_cluster.cu",
                         "replaces": "emsar_tpu/model/solver.py:113"},
@@ -230,7 +253,10 @@ def launch_counters():
             "em_step": (mods["segment_sum"], "EM_LAUNCHES"),
             "window_hash": (mods["window_hash"], "LAUNCHES"),
             "pe_candidates": (mods["pe_candidates"], "LAUNCHES"),
-            "csr_cycle": (mods["csr_cycle"], "LAUNCHES"),
+            "pair_gain": (mods["csr_cycle"], "PAIR_GAIN_LAUNCHES"),
+            "block_end": (mods["csr_cycle"], "BLOCK_END_LAUNCHES"),
+            "cycle_extrap": (mods["csr_cycle"], "EXTRAP_LAUNCHES"),
+            "cycle_select": (mods["csr_cycle"], "SELECT_LAUNCHES"),
             "cluster_em_pair": (mods["csr_cluster"], "EM_PAIR_LAUNCHES"),
             "cluster_extrap_gain": (mods["csr_cluster"],
                                     "EXTRAP_GAIN_LAUNCHES")}
@@ -504,7 +530,7 @@ def phase_main_path(rsh: str, aln: str, out_root: str):
         # the CSR runs' cycles run on clusters (the smoke's problem is
         # below CLUSTER_MAX_EDGES): em_step launches only above it
         kernels = (("squarem_block",) if name.startswith("kernel") else
-                   ("segment_sum", "csr_cycle", "cluster_em_pair",
+                   ("segment_sum", "block_end", "cluster_em_pair",
                     "cluster_extrap_gain") if name.startswith("csr") else ())
         for kernel in kernels:
             if launches[name][kernel] <= 0:
@@ -901,20 +927,24 @@ def plain_cycle(p, theta):
 
 def check_csr_cycle(p, theta, label: str) -> dict:
     """The CSR cycle's kernels on the card against their plain versions on
-    the same inputs, bit for bit: em_step_cycle (t2, r * r, v * v) against
-    the CPU's; cycle_extrap, cycle_select and the gain terms of pair_gain
-    and block_gain against torch on the card (their intensities summed on
-    the CPU: index_add_ on the card sums with atomics); a whole
-    ``solver._squarem_cycle`` (twelve launches) against ``plain_cycle``,
-    and on two calls.  ``p`` is a DeviceProblem or ShardedProblem on the
-    card (reads, eumaps, inv_denom one row or a row each), theta [R, T].
-    Times the three csr_cycle kernels of a cycle (device and host ms), their
-    plain versions on the card, em_step_cycle against em_step and the
-    whole cycle against ``plain_cycle``.  The bound counts each of the
-    three kernels' inputs once and outputs once.  Returns what it
-    measured."""
+    the same inputs, bit for bit: em_step_cycle (t2, r * r, v * v) and the
+    EM steps from the extrapolation and from the accept (and the accepted
+    theta they write) against the CPU's; cycle_extrap, cycle_select, the
+    tiled pair_gain's gain terms and block_end against torch on the card
+    (the intensities summed on the CPU: index_add_ on the card sums with
+    atomics), pair_gain's intensities against the CPU's; a whole
+    ``solver._squarem_cycle`` off clusters (ten launches) against
+    ``plain_cycle``, and on two calls.  ``p`` is a DeviceProblem or
+    ShardedProblem on the card (reads, eumaps, inv_denom one row or a row
+    each), theta [R, T].  Times each csr_cycle kernel (device and host ms)
+    and its plain version on the card beside its bound
+    (``bench.cycle_ab.kernel_bounds``), the EM steps' input modes against
+    the launch each saves and em_step, and the whole cycle against
+    ``plain_cycle``.  Returns {kernel: what it measured, "cycle": the EM
+    steps' and the cycle's times}."""
     import torch
 
+    from emsar_tpu_torch.bench.cycle_ab import kernel_bounds
     from emsar_tpu_torch.kernels import csr_cycle as cc
     from emsar_tpu_torch.kernels import measure
     from emsar_tpu_torch.kernels import segment_sum as ss
@@ -922,10 +952,11 @@ def check_csr_cycle(p, theta, label: str) -> dict:
 
     theta = theta.contiguous()
     gc, gt = p.by_cid, p.by_tid
+    groups = (gc, gt, p.reads, p.inv_denom)
     cpu = (cpu_groups(gc), cpu_groups(gt), p.reads.cpu(), p.inv_denom.cpu())
     failed = []
-    t1 = ss.em_step(theta, gc, gt, p.reads, p.inv_denom)
-    got = ss.em_step_cycle(t1, theta, gc, gt, p.reads, p.inv_denom)
+    t1 = ss.em_step(theta, *groups)
+    got = ss.em_step_cycle(t1, theta, *groups)
     torch.cuda.synchronize()
     want = ss.em_step_cycle_ref(t1.cpu(), theta.cpu(), *cpu)
     if not all(_same_bits(a, b) for a, b in zip(got, want)):
@@ -936,21 +967,37 @@ def check_csr_cycle(p, theta, label: str) -> dict:
     x = cc.cycle_extrap(theta, t1, t2, rs, vs)
     if not _same_bits(x, cc.cycle_extrap_ref(theta, t1, t2, rs, vs)):
         failed.append("cycle_extrap")
-    cand = ss.em_step(x, gc, gt, p.reads, p.inv_denom)
+    cand = ss.em_step_extrap(theta, t1, t2, rs, vs, *groups)
+    # the extrapolation by torch on the card (CUDA's sqrt, as the
+    # kernel's: torch's CPU sqrt may be an ulp off), its EM step on the CPU
+    if not _same_bits(cand, ss.em_step_ref(x.cpu(), *cpu)):
+        failed.append("em_step_extrap")
     s_t2, s_cand = (ss.segment_sum_ref(a.cpu(), cpu[0].mult, cpu[0].idx,
                                        cpu[0].offsets).to(theta.device)
                     for a in (t2, cand))
     terms = cc.gain_terms(p.reads, p.eumaps, s_t2, s_cand)
     got = cc.pair_gain(gc, p.reads, p.eumaps, t2, cand)
-    if not _same_bits(got, terms):
+    got_i, s_o, s_n = cc.pair_gain(gc, p.reads, p.eumaps, t2, cand,
+                                   intensities=True)
+    if not (_same_bits(got, terms) and _same_bits(got_i, terms)
+            and _same_bits(s_o, s_t2) and _same_bits(s_n, s_cand)):
         failed.append("pair_gain")
-    s_new, got_b = cc.block_gain(gc, p.reads, p.eumaps, s_t2, cand)
-    if not (_same_bits(s_new, s_cand) and _same_bits(got_b, terms)):
-        failed.append("block_gain")
     gain = torch.sum(got, dim=-1)
+    gain[0] = float("nan")  # the accept's NaN branch: t2
     out = cc.cycle_select(gain, cand, t2)
     if not _same_bits(out, cc.cycle_select_ref(gain, cand, t2)):
         failed.append("cycle_select")
+    th_s, t1_s = ss.em_step_select(gain, cand, t2, *groups)
+    torch.cuda.synchronize()
+    if not (_same_bits(th_s, out)
+            and _same_bits(t1_s, ss.em_step_ref(out.cpu(), *cpu))):
+        failed.append("em_step_select")
+    s_prev = ss.sum_groups(theta, gc)
+    end = cc.block_end(gain, cand, t2, s_t2, s_cand, s_prev, p.reads,
+                       p.eumaps)
+    if not all(_same_bits(a, b) for a, b in zip(end, cc.block_end_ref(
+            gain, cand, t2, s_t2, s_cand, s_prev, p.reads, p.eumaps))):
+        failed.append("block_end")
     whole = [_squarem_cycle(p, theta, clusters=False) for _ in range(2)]
     if not (_same_bits(whole[0], plain_cycle(p, theta))
             and _same_bits(whole[0], whole[1])):
@@ -959,50 +1006,71 @@ def check_csr_cycle(p, theta, label: str) -> dict:
     if failed:
         raise AssertionError(f"csr_cycle {label}: {failed} differ from "
                              f"their plain versions")
-
-    def kernels():
-        cc.cycle_extrap(theta, t1, t2, rs, vs)
-        cc.cycle_select(torch.sum(cc.pair_gain(gc, p.reads, p.eumaps, t2,
-                                               cand), dim=-1), cand, t2)
-
-    def plains():
-        cc.cycle_extrap_ref(theta, t1, t2, rs, vs)
-        cc.cycle_select_ref(torch.sum(cc.pair_gain_ref(
-            gc, p.reads, p.eumaps, t2, cand), dim=-1), cand, t2)
-
-    host = measure.host_ms(kernels)
-    k_ms = measure.device_ms(kernels, host_per_call_ms=host)
-    p_ms = measure.device_ms(plains, n=50)
-    em_ms = measure.device_ms(lambda: ss.em_step(t1, gc, gt, p.reads,
-                                                 p.inv_denom))
-    emc_ms = measure.device_ms(lambda: ss.em_step_cycle(
-        t1, theta, gc, gt, p.reads, p.inv_denom))
-    cyc_ms = measure.device_ms(lambda: _squarem_cycle(p, theta,
-                                                      clusters=False))
-    plain_cyc_ms = measure.device_ms(lambda: plain_cycle(p, theta), n=50)
-    R, T = theta.shape
-    C, E = gc.n_groups, gc.idx.shape[0]
-    n_bytes = (measure.nbytes(theta, t1, t2, rs, vs, x)
-               + measure.nbytes(gc.mult, gc.idx, gc.offsets, t2, cand,
-                                p.reads, p.eumaps, got)
-               + measure.nbytes(gain, cand, t2, out))
-    # the two sums' products and adds, ~14 operations a gain term, ~10 a
-    # transcript for the extrapolation, none for the selection
-    bound, by = measure.bound_ms(n_bytes, R * (4 * E + 14 * C + 10 * T),
-                                 theta.dtype)
+    R = theta.shape[0]
+    bounds = kernel_bounds(p, R)
+    calls = {
+        "pair_gain": (lambda: cc.pair_gain(gc, p.reads, p.eumaps, t2, cand),
+                      lambda: cc.pair_gain_ref(gc, p.reads, p.eumaps, t2,
+                                               cand)),
+        "block_end": (lambda: cc.block_end(gain, cand, t2, s_t2, s_cand,
+                                           s_prev, p.reads, p.eumaps),
+                      lambda: cc.block_end_ref(gain, cand, t2, s_t2, s_cand,
+                                               s_prev, p.reads, p.eumaps)),
+        "cycle_extrap": (lambda: cc.cycle_extrap(theta, t1, t2, rs, vs),
+                         lambda: cc.cycle_extrap_ref(theta, t1, t2, rs, vs)),
+        "cycle_select": (lambda: cc.cycle_select(gain, cand, t2),
+                         lambda: cc.cycle_select_ref(gain, cand, t2))}
+    measured = {}
+    # from a cold L2: their inputs fit in the H100's 50 MB at these shapes
+    for name, (fn, plain) in calls.items():
+        host = measure.host_ms(fn)
+        ms = measure.device_ms_cold(fn, host_per_call_ms=host)
+        bound, by, n_bytes = bounds[name]
+        measured[name] = {"err": 0.0, "ms": ms, "host_ms": host,
+                          "plain_ms": measure.device_ms_cold(plain, n=20),
+                          "library_ms": None, "bound_ms": bound,
+                          "bound_by": by, "bytes": n_bytes}
+    steps = {
+        "em_step": lambda: ss.em_step(t1, *groups),
+        "em_step_extrap": lambda: ss.em_step_extrap(theta, t1, t2, rs, vs,
+                                                    *groups),
+        "em_step_select": lambda: ss.em_step_select(gain, cand, t2,
+                                                    *groups),
+        "cycle_extrap then em_step": lambda: ss.em_step(
+            cc.cycle_extrap(theta, t1, t2, rs, vs), *groups),
+        "cycle_select then em_step": lambda: ss.em_step(
+            cc.cycle_select(gain, cand, t2), *groups),
+        "em_step_cycle": lambda: ss.em_step_cycle(t1, theta, *groups),
+        "pair_gain intensities": lambda: cc.pair_gain(
+            gc, p.reads, p.eumaps, t2, cand, intensities=True),
+        "cycle": lambda: _squarem_cycle(p, theta, clusters=False)}
+    cycle = {}
+    for name, fn in steps.items():
+        host = measure.host_ms(fn, 50)
+        cycle[name] = {"ms": measure.device_ms(fn, host_per_call_ms=host),
+                       "host_ms": host}
+        if name in bounds:
+            cycle[name]["bound_ms"] = bounds[name][0]
+    cycle["plain_cycle_ms"] = measure.device_ms(lambda: plain_cycle(
+        p, theta), n=50)
+    C, T, E = gc.n_groups, gt.n_groups, gc.idx.shape[0]
     log(f"csr_cycle {label} {str(theta.dtype)[6:]} R={R} C={C} T={T} E={E}: "
-        f"em_step_cycle, cycle_extrap, pair_gain, block_gain, cycle_select "
-        f"and the whole cycle bit-equal to their plain versions ({n_nan} NaN "
-        f"gain terms); the three kernels {k_ms:.4f} ms on the card, "
-        f"{host:.4f} ms host per cycle; plain {p_ms:.4f} ms; bound "
-        f"{bound:.4f} ms ({by}, {n_bytes} B); em_step_cycle {emc_ms:.4f} ms "
-        f"(em_step {em_ms:.4f}); a cycle {cyc_ms:.4f} ms (torch body "
-        f"{plain_cyc_ms:.4f})")
-    return {"err": 0.0, "ms": k_ms, "host_ms": host, "plain_ms": p_ms,
-            "library_ms": None, "bound_ms": bound, "bound_by": by,
-            "em_step_cycle_ms": emc_ms, "em_step_ms": em_ms,
-            "cycle_ms": cyc_ms, "plain_cycle_ms": plain_cyc_ms,
-            "nan_terms": n_nan}
+        f"em_step_cycle, the EM steps from the extrapolation and from the "
+        f"accept, cycle_extrap, pair_gain (tiles of {ss.TILE} segments, "
+        f"{gc.tiles.shape[1] - 1} tiles), cycle_select, block_end and the "
+        f"whole cycle bit-equal to their plain versions ({n_nan} NaN gain "
+        f"terms); " + "; ".join(
+            f"{k} {m['ms']:.5f} ms on the card ({m['bound_ms'] / m['ms']:.1%}"
+            f" of its bound {m['bound_ms']:.5f} ms, {m['bound_by']}), "
+            f"{m['host_ms']:.4f} ms host, plain {m['plain_ms']:.4f} ms"
+            for k, m in measured.items()) + "; " + "; ".join(
+            f"{k} {m['ms']:.5f} ms" + (f" (bound {m['bound_ms']:.5f})"
+                                       if "bound_ms" in m else "")
+            for k, m in cycle.items() if isinstance(m, dict))
+        + f"; the torch body's cycle {cycle['plain_cycle_ms']:.4f} ms")
+    measured["cycle"] = cycle
+    measured["nan_terms"] = n_nan
+    return measured
 
 
 def cluster_bounds(p, plan, R: int) -> dict:
@@ -1036,8 +1104,9 @@ def check_csr_cluster(p, theta, label: str) -> dict:
     from theta and from a cycle's accept (theta, t1, t2, r * r, v * v)
     against the CPU's; cluster_extrap_gain's cand against the CPU's, its
     gain terms against torch's on the card over intensities summed on the
-    CPU (CUDA's log1p on both sides); eight cycles on clusters (five
-    launches a cycle, the accept after the last) against eight of twelve
+    CPU (CUDA's log1p on both sides), and the intensities it writes in a
+    block's last cycle against those; eight cycles on clusters (five
+    launches a cycle, block_end after the last) against eight of ten
     launches, and on two calls.  ``p`` is a DeviceProblem or
     ShardedProblem on the card, theta [R, T].  Times each kernel (device
     and host ms) and its plain version on the card, and the eight cycles
@@ -1079,8 +1148,12 @@ def check_csr_cluster(p, theta, label: str) -> dict:
     s_t2, s_cand = (ss.segment_sum_ref(a.cpu(), cpu[0].mult, cpu[0].idx,
                                        cpu[0].offsets).to(theta.device)
                     for a in (t2, cand))
+    cand_i, terms_i, s_t2_k, s_cand_k = cc.extrap_gain(*ex,
+                                                       intensities=True)
     if not (_same_bits(cand, want_cand) and _same_bits(
-            terms, csr_cycle.gain_terms(p.reads, p.eumaps, s_t2, s_cand))):
+            terms, csr_cycle.gain_terms(p.reads, p.eumaps, s_t2, s_cand))
+            and _same_bits(cand_i, cand) and _same_bits(terms_i, terms)
+            and _same_bits(s_t2_k, s_t2) and _same_bits(s_cand_k, s_cand)):
         failed.append("cluster_extrap_gain")
     gain = torch.sum(terms, dim=-1)
     src = (gain, cand, t2)
@@ -1091,9 +1164,9 @@ def check_csr_cluster(p, theta, label: str) -> dict:
         failed.append("cluster_em_pair from an accept")
     blocks = [_squarem_cycles(p, theta, N_ITERS, plan)
               for _ in range(2)]
-    twelve = _squarem_cycles(p, theta, N_ITERS, None)
+    launches = _squarem_cycles(p, theta, N_ITERS, None)
     if not (_same_bits(blocks[0], blocks[1])
-            and _same_bits(blocks[0], twelve)):
+            and _same_bits(blocks[0], launches)):
         failed.append(f"{N_ITERS} cycles")
     n_nan = int(torch.isnan(terms).sum())
     if failed:
@@ -1131,8 +1204,7 @@ def check_csr_cluster(p, theta, label: str) -> dict:
             f"{m['host_ms']:.4f} ms host, plain {m['plain_ms']:.4f} ms"
             for k, m in out.items())
         + f"; {N_ITERS} cycles from a graph {block['cluster_ms']:.4f} ms "
-        f"on clusters, {block['launches_ms']:.4f} ms as twelve launches a "
-        f"cycle")
+        f"on clusters, {block['launches_ms']:.4f} ms off clusters")
     out["plan"] = {"tiles": plan.n_tiles, "cluster": plan.cluster,
                    "rows": plan.rows, "smem_bytes": plan.smem}
     out["block"] = block
@@ -1184,19 +1256,27 @@ def phase_segment_sum_random(dev) -> None:
 
 
 def phase_cluster_sweep(dev) -> dict:
-    """The crossover of the CSR cycle's paths
+    """The crossovers of the CSR cycle's paths
     (``emsar_tpu_torch.bench.cluster_sweep``): random CSR problems of
     modules from 10,000 to 11.5 M edges at R 1 (float64), and some at R 3,
-    R 16 and in float32, each a block's eight cycles on clusters and as
-    twelve launches, bit-equal and timed from CUDA graphs.  Then the
-    launch path through ``solver.solve``, a user's entry point, on a
-    problem above ``CLUSTER_MAX_EDGES`` (four blocks): em_step launched,
-    the cluster kernels not.  Returns what it measured."""
+    R 16 and in float32, each a block's eight cycles on clusters, as ten
+    launches a cycle and as twelve, bit-equal and timed from CUDA graphs.
+    Then the launch path through ``solver.solve``, a user's entry point:
+    on a problem above ``CLUSTER_MAX_EDGES`` and ``FOLD_MAX_EDGES`` (four
+    blocks; em_step, pair_gain, cycle_extrap, cycle_select and block_end
+    launched, the cluster kernels not), and, unforced, on the sweep's
+    modules with one module above the 8-block cluster's limit
+    (``bench.cycle_ab.oversized_problem``: no tile plan; ten launches a
+    cycle within ``FOLD_MAX_EDGES``, cycle_extrap and cycle_select not
+    launched, else twelve), its ms per block timed; the csr_cycle kernels
+    at both shapes (``check_csr_cycle``).
+    Returns what it measured."""
     import numpy as np
     import torch
 
     from emsar_tpu_torch.bench import cluster_sweep as cs
-    from emsar_tpu_torch.model import solver
+    from emsar_tpu_torch.bench.cycle_ab import oversized_problem
+    from emsar_tpu_torch.model import loop, solver
     out = {"sweeps": [cs.sweep(dev, R=1, log=log)]}
     for R, dt, sizes in ((3, torch.float64, (25_000, 90_000, 360_000)),
                          (16, torch.float64, (25_000, 90_000, 360_000)),
@@ -1211,7 +1291,10 @@ def phase_cluster_sweep(dev) -> dict:
     log(f"cluster sweep: the cluster path faster up to "
         f"{out['sweeps'][0]['crossover_edges']} edges at R 1 (the largest "
         f"size measured {out['sweeps'][0]['sizes'][-1]['edges']}); "
-        f"CLUSTER_MAX_EDGES {solver.CLUSTER_MAX_EDGES}")
+        f"CLUSTER_MAX_EDGES {solver.CLUSTER_MAX_EDGES}; ten launches a "
+        f"cycle faster than twelve up to "
+        f"{out['sweeps'][0]['fold_crossover_edges']} edges; FOLD_MAX_EDGES "
+        f"{solver.FOLD_MAX_EDGES}")
     rng = np.random.default_rng(7)
     problem = cs.random_problem(rng, solver.CLUSTER_MAX_EDGES * 101 // 100)
     E = len(problem.edge_cid)
@@ -1219,13 +1302,55 @@ def phase_cluster_sweep(dev) -> dict:
     _, ll, it = solver.solve(problem, dev, max_iters=N_ITERS * 3 * 4,
                              dtype=np.float64)
     launched = read_launches()
-    log(f"CSR solve above the crossover ({E} edges): {it} blocks, logL "
+    log(f"CSR solve above the crossovers ({E} edges): {it} blocks, logL "
         f"{ll!r}, launches {launched}")
-    if (E <= solver.CLUSTER_MAX_EDGES or launched["em_step"] <= 0
+    if (E <= max(solver.CLUSTER_MAX_EDGES, solver.FOLD_MAX_EDGES)
+            or min(launched[k] for k in ("em_step", "pair_gain",
+                                         "cycle_extrap", "cycle_select",
+                                         "block_end")) <= 0
             or launched["cluster_em_pair"] or not np.isfinite(ll)):
-        raise AssertionError("the solve above the crossover did not take "
+        raise AssertionError("the solve above the crossovers did not take "
                              "the twelve launches")
     out["above"] = {"edges": E, "blocks": it, "launches": launched}
+    p = solver.problem_to_device(problem, dev, torch.float64)
+    th = torch.as_tensor(solver.read_attribution_start(problem))[None].to(dev)
+    out["above"]["csr_cycle"] = check_csr_cycle(p, th, "above the "
+                                                "crossovers")
+    del p, th
+    # one module too large for a cluster sends the whole problem to the
+    # launches: ten a cycle
+    problem = oversized_problem()
+    p = solver.problem_to_device(problem, dev, torch.float64)
+    if solver.cycle_plan(p, 1) is not None:
+        raise AssertionError("the oversized module found a tile plan")
+    reset_launches()
+    _, ll, it = solver.solve(problem, dev, dtype=np.float64)
+    launched = read_launches()
+    E = len(problem.edge_cid)
+    th = torch.as_tensor(solver.read_attribution_start(problem))[None].to(dev)
+    t0 = time.perf_counter()
+    _, _, blocks = solver.em_solve(p, th, 1e-9, N_ITERS, 200000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    over = {"edges": E, "segments": len(problem.eumaps),
+            "transcripts": problem.n_transcripts, "blocks": it,
+            "launches": launched, "ms_per_block": wall * 1e3 / blocks,
+            "blocks_run": loop.LAST.blocks_run}
+    log(f"CSR solve with one module above the 8-block cluster's limit "
+        f"({E} edges, unforced: no tile plan): {it} blocks, logL {ll!r}, "
+        f"launches {launched}; {over['ms_per_block']:.4f} ms a block "
+        f"(graph loop, {blocks} blocks)")
+    fold = E <= solver.FOLD_MAX_EDGES
+    if (it != blocks or min(launched[k] for k in (
+            "em_step", "pair_gain", "block_end")) <= 0
+            or launched["cluster_em_pair"]
+            or (launched["cycle_extrap"] > 0) == fold
+            or (launched["cycle_select"] > 0) == fold
+            or not np.isfinite(ll)):
+        raise AssertionError("the solve with an oversized module did not "
+                             "take the launch path")
+    over["csr_cycle"] = check_csr_cycle(p, th, "oversized module")
+    out["oversized"] = over
     return out
 
 
@@ -1320,7 +1445,8 @@ def phase_segment_sum_main(x, dev):
         ps = problem_to_device(sub, dev, dt)
         check_csr_cycle(ps, inits, "restart rounds R=3")
         check_csr_cluster(ps, inits, "restart rounds R=3")
-    measured = {"segment_sum": seg, "em_step": em, "csr_cycle": cycle,
+    measured = {"segment_sum": seg, "em_step": em,
+                "block_end": cycle["block_end"], "csr_cycle_main": cycle,
                 "cluster_em_pair": cluster["cluster_em_pair"],
                 "cluster_extrap_gain": cluster["cluster_extrap_gain"],
                 "cluster_plan": cluster["plan"],
@@ -1356,7 +1482,7 @@ def phase_csr_profile(problem, dev) -> dict:
     port's kernel launches and every kernel the profiler saw, per block
     run) and profiled (device busy share: kernel time on the card over the
     wall time of the solve, torch.profiler), on clusters and, forced, as
-    twelve launches a cycle."""
+    ten launches a cycle."""
     import numpy as np
     import torch
 
@@ -1415,6 +1541,17 @@ def phase_csr_profile(problem, dev) -> dict:
             "profiled_wall_s": prof_wall}
         log(f"CSR solve on the card (graph loop, {path}): {out[path]}")
     return out
+
+
+def phase_cycle_ab(rsh: str, aln: str, dev) -> dict:
+    """``bench.cycle_ab`` on this checkout alone (no parent) at the
+    smoke's CSR shapes and on the oversized module's problem: the block
+    end, pair_gain, eight cycles of ten and of twelve launches (bit-equal)
+    and the oversized problem's solve, timed.  Returns what it
+    measured."""
+    from emsar_tpu_torch.bench import cycle_ab
+    return cycle_ab.run(dev, cycle_ab.cases(rsh, aln, large=False),
+                        log=log)
 
 
 def phase_build_smoke(fa: str, rsh: str, out_root: str):
@@ -2288,10 +2425,11 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
                              f"{restart_plans} tile plans, not one")
     # its cycles run on clusters (a row's problem is below
     # CLUSTER_MAX_EDGES): em_step launches only above it
-    if min(solve_launches[k] for k in ("csr_cycle", "cluster_em_pair",
-                                       "cluster_extrap_gain")) <= 0:
-        raise AssertionError("the batched solve never launched the cluster "
-                             "kernels and csr_cycle")
+    if min(solve_launches[k] for k in ("block_end", "cluster_em_pair",
+                                       "cluster_extrap_gain")) <= 0 or (
+            solve_launches["pair_gain"] or solve_launches["cycle_select"]):
+        raise AssertionError("the batched solve did not run on the cluster "
+                             "kernels and block_end alone")
     res, problems = _sample_checks(index, counts, runs)
     cfg = QuantConfig(verbose=0)
 
@@ -2367,6 +2505,8 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
             "batched_ms_per_block": ms_per_block,
             "batched_nan_gain_samples": nan_samples,
             "loop_vs_batched_gaps": gaps, "em_step_batched": em,
+            "block_end_batched": cycle.pop("block_end"),
+            "pair_gain_batched": cycle.pop("pair_gain"),
             "csr_cycle_batched": cycle,
             "cluster_em_pair_batched": cluster["cluster_em_pair"],
             "cluster_extrap_gain_batched": cluster["cluster_extrap_gain"],
@@ -2506,58 +2646,56 @@ def _bits(x):
 
 
 def csr_block_bound_ms(p) -> float:
-    """A CSR block's bound: 8 cycles, then the block's gain, each kernel of
-    them at its own bound (its inputs read once, its outputs written once)
-    summed: per cycle two em_step and one em_step_cycle (which also reads
-    theta and writes r * r and v * v), the two row sums of those,
-    cycle_extrap, pair_gain, the gain's row sum and cycle_select; then
-    block_gain and its row sum.  The loop's own bookkeeping (the masked
-    state update, the stop test: a few scalars and two state copies) is
-    left out.  ``p`` is a DeviceProblem, R = 1."""
+    """A CSR block's bound off clusters (ten launches a cycle): 8 cycles,
+    then the block's end, each kernel of them at its own bound (its inputs
+    read once, its outputs written once: ``bench.cycle_ab.kernel_bounds``)
+    summed: per cycle the EM step from the accept (from theta in the
+    first), em_step_cycle (an EM step that also reads theta and writes
+    r * r and v * v), the two row sums of those, the EM step from the
+    extrapolation, pair_gain (writing both intensities in the last cycle)
+    and the gain's row sum; then block_end and its row sum.  The loop's
+    own bookkeeping (the masked state update, the stop test: a few
+    scalars and two state copies) is left out.  ``p`` is a DeviceProblem,
+    R = 1."""
+    from emsar_tpu_torch.bench.cycle_ab import kernel_bounds
     from emsar_tpu_torch.kernels import measure
     dt = p.reads.dtype
     C, T = p.by_cid.n_groups, p.by_tid.n_groups
-    E = p.by_cid.idx.shape[0]
     item = p.reads.element_size()
-    cid, tid = (measure.nbytes(g.mult, g.idx, g.offsets)
-                for g in (p.by_cid, p.by_tid))
+    b = {k: v[0] for k, v in kernel_bounds(p, 1).items()}
 
-    def bound(n_items, n_ops, groups=0):
-        return measure.bound_ms(groups + item * n_items, n_ops, dt)[0]
-    em = bound(2 * T + C + T, 4 * E + C + 2 * T, cid + tid)
-    em_cycle = em + bound(3 * T, 5 * T)
+    def bound(n_items, n_ops):
+        return measure.bound_ms(item * n_items, n_ops, dt)[0]
+    em_cycle = b["em_step"] + bound(3 * T, 5 * T)
     row_sums = 2 * bound(T + 1, T)
-    extrap = bound(4 * T + 2, 10 * T)
-    pair = bound(2 * T + 3 * C, 4 * E + 14 * C, cid)
     gain_sum = bound(C + 1, C)
-    select = bound(3 * T + 1, 0)
-    block_gain = bound(T + 5 * C, 2 * E + 14 * C, cid)
-    cycle = 2 * em + em_cycle + row_sums + extrap + pair + gain_sum + select
-    return N_ITERS * cycle + block_gain + gain_sum
+    cycle = (b["em_step_select"] + em_cycle + row_sums + b["em_step_extrap"]
+             + b["pair_gain"] + gain_sum)
+    return (N_ITERS * cycle - b["em_step_select"] + b["em_step"]
+            - b["pair_gain"] + b["pair_gain intensities"] + b["block_end"]
+            + gain_sum)
 
 
 def csr_cluster_block_bound_ms(p) -> float:
     """A CSR block's bound on clusters, as ``csr_block_bound_ms`` counts
     it: per cycle cluster_em_pair, the two row sums, cluster_extrap_gain
-    and the gain's row sum (``cluster_bounds``); then the block's
-    cycle_select, block_gain and its row sum.  ``p`` is a DeviceProblem,
-    R = 1."""
+    (writing both intensities in the last cycle) and the gain's row sum
+    (``cluster_bounds``); then block_end and its row sum.  ``p`` is a
+    DeviceProblem, R = 1."""
+    from emsar_tpu_torch.bench.cycle_ab import kernel_bounds
     from emsar_tpu_torch.kernels import measure
     from emsar_tpu_torch.model.solver import cycle_plan
     dt = p.reads.dtype
     C, T = p.by_cid.n_groups, p.by_tid.n_groups
-    E = p.by_cid.idx.shape[0]
     item = p.reads.element_size()
-    cid = measure.nbytes(p.by_cid.mult, p.by_cid.idx, p.by_cid.offsets)
 
-    def bound(n_items, n_ops, groups=0):
-        return measure.bound_ms(groups + item * n_items, n_ops, dt)[0]
+    def bound(n_items, n_ops):
+        return measure.bound_ms(item * n_items, n_ops, dt)[0]
     kernels = cluster_bounds(p, cycle_plan(p, 1, clusters=True), 1)
     cycle = (sum(b for b, _ in kernels.values()) + 2 * bound(T + 1, T)
              + bound(C + 1, C))
-    select = bound(3 * T + 1, 0)
-    block_gain = bound(T + 5 * C, 2 * E + 14 * C, cid)
-    return N_ITERS * cycle + select + block_gain + bound(C + 1, C)
+    return (N_ITERS * cycle + bound(2 * C, 0)
+            + kernel_bounds(p, 1)["block_end"][0] + bound(C + 1, C))
 
 
 def phase_loops(problem, x, sp, dev) -> dict:
@@ -2627,7 +2765,7 @@ def phase_loops(problem, x, sp, dev) -> dict:
     cases.append((f"batched S={MS_SAMPLES}", lambda plain, c=None:
                   solve_sharded(sp, epsilon=eps, block_iters=N_ITERS,
                                 plain=plain, clusters=c)))
-    # the CSR loops again, their cycles forced to twelve launches
+    # the CSR loops again, their cycles forced off clusters (ten launches)
     csr_loops = [cases[0][0], cases[1][0], cases[-1][0]]
     cases += [(f"{label} launches", lambda plain, fn=fn: fn(plain, False))
               for label, fn in cases if label in csr_loops]
@@ -2688,13 +2826,13 @@ def phase_loops(problem, x, sp, dev) -> dict:
             f"logL and blocks bit-equal {same}")
         if not same:
             failed.append(label)
-    for label in csr_loops:  # on clusters against twelve launches
+    for label in csr_loops:  # on clusters against ten launches
         a, b = graph_out[label], graph_out[f"{label} launches"]
         same = (a[2] == b[2] and np.array_equal(_bits(a[0]), _bits(b[0]))
                 and (a[1] is None or np.array_equal(_bits(a[1]),
                                                     _bits(b[1]))))
         measured[label]["bit_equal_to_launches"] = same
-        log(f"loop {label}: on clusters and as twelve launches a cycle, "
+        log(f"loop {label}: on clusters and as ten launches a cycle, "
             f"theta, logL and blocks bit-equal {same}")
         if not same:
             failed.append(f"{label} on clusters")
@@ -2745,6 +2883,9 @@ def main() -> int:
     csr_measured, problem = phase_segment_sum_main(sample, dev)
     measured.update(csr_measured)
     csr_blocks = phase_csr_profile(problem, dev)
+    t0 = time.perf_counter()
+    cycle_ab = phase_cycle_ab(rsh, aln, dev)
+    seconds["cycle_ab"] = {"total": time.perf_counter() - t0}
     build_launches = phase_build_smoke(fa, rsh, out_root)
     phase_fasta_path(fa, aln, out_root, sample)
 
@@ -2781,28 +2922,40 @@ def main() -> int:
                      "em_step": sweep["above"]["launches"]["em_step"],
                      "window_hash": build_launches["window_hash"],
                      "pe_candidates": pe_launches["pe_candidates"],
-                     "csr_cycle": launches["csr"]["csr_cycle"],
+                     "pair_gain": sweep["oversized"]["launches"]["pair_gain"],
+                     "block_end": launches["csr"]["block_end"],
+                     "cycle_extrap": sweep["above"]["launches"]["cycle_extrap"],
+                     "cycle_select": sweep["above"]["launches"]["cycle_select"],
                      "cluster_em_pair": launches["csr"]["cluster_em_pair"],
                      "cluster_extrap_gain":
                          launches["csr"]["cluster_extrap_gain"]}
-    # em_step runs on the CSR path above CLUSTER_MAX_EDGES only: its
-    # launches are those of the cluster sweep's solve there
-    paths = {"em_step": f"CSR solve above CLUSTER_MAX_EDGES "
-                        f"({sweep['above']['edges']} edges)"}
+    # em_step runs on the CSR path above CLUSTER_MAX_EDGES, pair_gain off
+    # clusters, cycle_extrap and cycle_select above FOLD_MAX_EDGES: their
+    # launches are those of phase 3's solves there, their times at those
+    # problems
+    above = (f"CSR solve above CLUSTER_MAX_EDGES and FOLD_MAX_EDGES "
+             f"({sweep['above']['edges']} edges)")
+    paths = {"em_step": above, "cycle_extrap": above, "cycle_select": above,
+             "pair_gain": f"CSR solve with a module above the 8-block "
+                          f"cluster's limit, no tile plan "
+                          f"({sweep['oversized']['edges']} edges)"}
+    for k in ("cycle_extrap", "cycle_select"):
+        measured[k] = sweep["above"]["csr_cycle"][k]
+    measured["pair_gain"] = sweep["oversized"]["csr_cycle"]["pair_gain"]
     rows = [(k, dict(KERNELS[k], **({"path": paths[k]} if k in paths
                                     else {})), main_launches[k], measured[k])
             for k in KERNELS]
     # the second shape of the CSR kernels: the batched multisample solve
     # (its launches counted in the solve alone; em_step's in phase 14's
-    # batched loop forced to twelve launches a cycle)
+    # batched loop forced off clusters)
     batched = f"R={MS_SAMPLES} per-sample operands"
     forced = loops[f"batched S={MS_SAMPLES} launches"]["graph_launches"]
-    for k in ("em_step", "csr_cycle", "cluster_em_pair",
+    for k in ("em_step", "pair_gain", "block_end", "cluster_em_pair",
               "cluster_extrap_gain"):
         row = dict(KERNELS[k], shape=batched)
         n = multisample["batched_solve_launches"][k]
-        if k == "em_step":
-            row["path"] = "batched solve forced to twelve launches a cycle"
+        if k in ("em_step", "pair_gain"):
+            row["path"] = "batched solve forced off clusters"
             n = forced[k]
         rows.append((k, row, n, multisample.pop(f"{k}_batched")))
     print(json.dumps({"kernels": [
@@ -2812,6 +2965,8 @@ def main() -> int:
              library_ms=m["library_ms"])
         for _, row, n, m in rows]}))
     print(json.dumps({"phase_seconds": seconds, "csr_blocks": csr_blocks,
+                      "cycle_ab": cycle_ab,
+                      "csr_cycle_main": measured["csr_cycle_main"],
                       "dense_stops": stops, "cluster_sweep": sweep,
                       "scale_build": scale, "scale_pe_build": scale_pe,
                       "multisample": multisample, "loops": loops,

@@ -18,14 +18,17 @@
 //       pass 1, by cid: the intensities of x; ratio = reads / s   | barrier
 //       pass 2, by tid: cand = (x * num) * inv_denom              | barrier
 //       pass 3, by cid: the intensities of t2 and of cand side by side,
-//         and the gain term of each segment
+//         and the gain term of each segment; in a block's last cycle both
+//         intensities are written out too (after the pass's barrier)
 //   (then torch.sum of the terms by row: the gain that the next cycle's
-//   cluster_em_pair, or the block's cycle_select, accepts on)
+//   cluster_em_pair, or the block's block_end (csrc/csr_cycle.cu), accepts
+//   on; block_end picks the accepted row's intensities from pass 3's, so a
+//   block makes no other pass over the edges)
 //
 // They replace em_iter (emsar_tpu/model/solver.py:113), gain_of (:134),
 // squarem_cycle's vector work (:150) and the cycle loop of the block under
 // the lax.while_loop (:181): five launches a cycle, where the kernels of
-// csrc/segment_sum.cu and csrc/csr_cycle.cu take twelve.
+// csrc/segment_sum.cu and csrc/csr_cycle.cu take ten.
 //
 // Tiles.  Every pass needs only values of the same module (a connected
 // component of the edges): the row-wide values, the step length and the
@@ -76,7 +79,7 @@
 // edge order from 0 (add_rn), the epilogues with the _rn intrinsics in
 // torch's order; the accept test, the step length, the extrapolation and
 // the gain term are csr_cycle.cu's, NaN as torch lets it through.  So both
-// launches give the twelve launches' bits, and the row sums stay torch.sum
+// launches give the ten launches' bits, and the row sums stay torch.sum
 // over the tensors they reduced.  Inputs are read-only and read through
 // __ldg.
 //
@@ -89,7 +92,8 @@
 //
 // Layout: theta, cand, t2 and every [R, T] output contiguous; gain, rsum,
 // vsum [R]; reads and eumaps [C] (a_stride 0) or [R, C] (a_stride C);
-// inv_denom [T] or [R, T]; terms [R, C].  float or double.
+// inv_denom [T] or [R, T]; terms, s_t2 and s_cand [R, C].  float or
+// double.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -438,8 +442,10 @@ struct ExtrapGainArgs {
   const F* eumaps;
   const F* inv_denom;
   long long reads_stride, inv_stride;
-  F* cand;   // [R, T]
-  F* terms;  // [R, C]
+  F* cand;    // [R, T]
+  F* terms;   // [R, C]
+  F* s_t2;    // [R, C], or null: the intensities of t2 and of cand
+  F* s_cand;  // [R, C]
 };
 
 template <typename F, int CL>
@@ -518,7 +524,6 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(kThreads, 1)
     // pass 3: the intensities of t2 and cand, and the gain term of cand
     // over t2 (pair_gain's); after its gathers no block's vectors are read
     // any more: the row's outputs are written
-    F* terms = a.terms + r * a.C;
     fold_pass<2>(
         by_cid, prod,
         [&](uint32_t loc) {
@@ -527,7 +532,12 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(kThreads, 1)
         },
         [&] { sync_all<CL>(cluster); },
         [&](int i, const Sums<F, 2>& s) {
-          terms[by_cid.orig[i]] = gain_term(rd[i], eu[i], s.s[0], s.s[1]);
+          const long long o = r * a.C + by_cid.orig[i];
+          a.terms[o] = gain_term(rd[i], eu[i], s.s[0], s.s[1]);
+          if (a.s_t2 != nullptr) {
+            a.s_t2[o] = s.s[0];
+            a.s_cand[o] = s.s[1];
+          }
         });
     for (int i = threadIdx.x; i < by_tid.n; i += kThreads)
       cand[by_tid.orig[i]] = cv[i];
@@ -665,13 +675,15 @@ template <typename F>
 int extrap_gain(const void* theta, const void* t1, const void* t2,
                 const void* rsum, const void* vsum, const void* const* tiles,
                 const int* layout, const void* reads, const void* eumaps,
-                const void* inv_denom, void* cand, void* terms, long long R,
-                long long C, long long T, long long n_tiles, long long rows,
-                long long smem, long long reads_stride, long long inv_stride,
-                int cluster, void* stream) {
+                const void* inv_denom, void* cand, void* terms, void* s_t2,
+                void* s_cand, long long R, long long C, long long T,
+                long long n_tiles, long long rows, long long smem,
+                long long reads_stride, long long inv_stride, int cluster,
+                void* stream) {
   if (R <= 0) return 0;
   const long long n = clusters_of(R, n_tiles, rows, cluster, smem);
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 0 || (s_t2 == nullptr) != (s_cand == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const ExtrapGainArgs<F> a{static_cast<const F*>(theta),
                             static_cast<const F*>(t1),
                             static_cast<const F*>(t2),
@@ -690,7 +702,9 @@ int extrap_gain(const void* theta, const void* t1, const void* t2,
                             reads_stride,
                             inv_stride,
                             static_cast<F*>(cand),
-                            static_cast<F*>(terms)};
+                            static_cast<F*>(terms),
+                            static_cast<F*>(s_t2),
+                            static_cast<F*>(s_cand)};
   return launch_at<F, ExtrapGainLaunch>(a, n, cluster,
                                         static_cast<int>(smem), stream);
 }
@@ -769,26 +783,28 @@ extern "C" int emsar_cluster_extrap_gain_f32(
     const void* theta, const void* t1, const void* t2, const void* rsum,
     const void* vsum, const void* const* tiles, const int* layout,
     const void* reads, const void* eumaps, const void* inv_denom, void* cand,
-    void* terms, long long R, long long C, long long T, long long n_tiles,
-    long long rows, long long smem, long long reads_stride,
-    long long inv_stride, int cluster, void* stream) {
+    void* terms, void* s_t2, void* s_cand, long long R, long long C,
+    long long T, long long n_tiles, long long rows, long long smem,
+    long long reads_stride, long long inv_stride, int cluster,
+    void* stream) {
   return extrap_gain<float>(theta, t1, t2, rsum, vsum, tiles, layout, reads,
-                            eumaps, inv_denom, cand, terms, R, C, T, n_tiles,
-                            rows, smem, reads_stride, inv_stride, cluster,
-                            stream);
+                            eumaps, inv_denom, cand, terms, s_t2, s_cand, R,
+                            C, T, n_tiles, rows, smem, reads_stride,
+                            inv_stride, cluster, stream);
 }
 
 extern "C" int emsar_cluster_extrap_gain_f64(
     const void* theta, const void* t1, const void* t2, const void* rsum,
     const void* vsum, const void* const* tiles, const int* layout,
     const void* reads, const void* eumaps, const void* inv_denom, void* cand,
-    void* terms, long long R, long long C, long long T, long long n_tiles,
-    long long rows, long long smem, long long reads_stride,
-    long long inv_stride, int cluster, void* stream) {
+    void* terms, void* s_t2, void* s_cand, long long R, long long C,
+    long long T, long long n_tiles, long long rows, long long smem,
+    long long reads_stride, long long inv_stride, int cluster,
+    void* stream) {
   return extrap_gain<double>(theta, t1, t2, rsum, vsum, tiles, layout,
-                             reads, eumaps, inv_denom, cand, terms, R, C, T,
-                             n_tiles, rows, smem, reads_stride, inv_stride,
-                             cluster, stream);
+                             reads, eumaps, inv_denom, cand, terms, s_t2,
+                             s_cand, R, C, T, n_tiles, rows, smem,
+                             reads_stride, inv_stride, cluster, stream);
 }
 
 // the clusters of `cluster` blocks of kernel `which` (0 em_pair, 1

@@ -16,7 +16,9 @@ crossover it runs as five launches a cycle:
   EM step from the extrapolation (t2 where it is not positive), and the
   gain terms [R, C] of cand's intensities over t2's;
 * ``torch.sum`` by row of the terms: the gain the next cycle accepts on
-  (``csr_cycle.cycle_select`` after a block's last cycle).
+  (``csr_cycle.block_end`` after a block's last cycle, which picks the
+  accepted row's intensities from those ``extrap_gain`` summed in that
+  cycle, ``intensities=True``).
 
 They replace ``em_iter``, ``gain_of``, ``squarem_cycle`` and the cycle
 loop of ``emsar_tpu/model/solver.py::_em_solve``.  A launch runs
@@ -40,8 +42,9 @@ segment its end, id and three vectors, per transcript its end, id and
 four vectors (``module_bytes``): in float64 an 8-block cluster stages a
 module of at most ~34,800 edges shaped as the cluster sweep's (and the
 smoke fixture's) are (``bench/cluster_sweep.py::largest_module``;
-~58,000 in float32); a larger one takes the twelve launches.  With the groupings it was made
-for, a plan holds 2 x (16 + 3 x item) bytes an edge (80 in float64) and
+~58,000 in float32); a larger one sends the problem to the launch path
+(``model/solver.py::_squarem_cycle_launches``).  With the groupings it
+was made for, a plan holds 2 x (16 + 3 x item) bytes an edge (80 in float64) and
 24 a segment or transcript, and the images' alignment (``nbytes``).
 
 The plain versions are the composition the CPU ran before, the ``*_ref``
@@ -106,9 +109,9 @@ _INT = ctypes.c_int
 EM_PAIR_ARGTYPES = [_P] * 4 + [_PP, _PI] + [_P] * 7 + [_LL] * 7 + [
     _INT, _P]
 # emsar_cluster_extrap_gain_f32/f64(theta, t1, t2, rsum, vsum, tiles[4],
-# layout[7], reads, eumaps, inv_denom, cand, terms, R, C, T, n_tiles,
-# rows, smem, reads_stride, inv_stride, cluster, stream)
-EXTRAP_GAIN_ARGTYPES = [_P] * 5 + [_PP, _PI] + [_P] * 5 + [_LL] * 8 + [
+# layout[7], reads, eumaps, inv_denom, cand, terms, s_t2, s_cand, R, C, T,
+# n_tiles, rows, smem, reads_stride, inv_stride, cluster, stream)
+EXTRAP_GAIN_ARGTYPES = [_P] * 5 + [_PP, _PI] + [_P] * 7 + [_LL] * 8 + [
     _INT, _P]
 
 Source = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -502,12 +505,15 @@ def extrap_gain_ref(theta: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
                     r_sq_sum: torch.Tensor, v_sq_sum: torch.Tensor,
                     by_cid: EdgeGroups, by_tid: EdgeGroups,
                     reads: torch.Tensor, eumaps: torch.Tensor,
-                    inv_denom: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``extrap_gain``: (cand, the gain terms)."""
+                    inv_denom: torch.Tensor, *, intensities: bool = False
+                    ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of ``extrap_gain``: (cand, the gain terms), and with
+    ``intensities`` t2's and cand's intensities too."""
     x = cycle_extrap_ref(theta, t1, t2, r_sq_sum, v_sq_sum)
     cand = em_step_ref(x, by_cid, by_tid, reads, inv_denom)
-    return cand, pair_gain_ref(by_cid, reads, eumaps, t2, cand)
+    gain = pair_gain_ref(by_cid, reads, eumaps, t2, cand,
+                         intensities=intensities)
+    return (cand, *gain) if intensities else (cand, gain)
 
 
 @functools.lru_cache(maxsize=None)
@@ -663,18 +669,20 @@ def em_pair(src: Source, plan: TilePlan, reads: torch.Tensor,
 def extrap_gain(theta: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
                 r_sq_sum: torch.Tensor, v_sq_sum: torch.Tensor,
                 plan: TilePlan, reads: torch.Tensor, eumaps: torch.Tensor,
-                inv_denom: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                inv_denom: torch.Tensor, *, intensities: bool = False
+                ) -> Tuple[torch.Tensor, ...]:
     """(cand [R, T], gain terms [R, C]) of one cycle: cand one EM step from
     the extrapolation of theta, t1, t2 by the row sums [R, 1] of r * r and
-    v * v, the terms those of cand's intensities over t2's.  reads and
-    eumaps [C] or [R, C], inv_denom [T] or [R, T].  One launch on the
-    card, ceil(R / ``plan.rows``) x ``plan.n_tiles`` clusters."""
+    v * v, the terms those of cand's intensities over t2's; with
+    ``intensities`` (a block's last cycle) also those of t2 and of cand
+    [R, C], which the last pass sums anyway.  reads and eumaps [C] or
+    [R, C], inv_denom [T] or [R, T].  One launch on the card, ceil(R /
+    ``plan.rows``) x ``plan.n_tiles`` clusters."""
     global EXTRAP_GAIN_LAUNCHES
     if theta.device.type == "cpu":
         return extrap_gain_ref(theta, t1, t2, r_sq_sum, v_sq_sum,
                                plan.by_cid, plan.by_tid, reads, eumaps,
-                               inv_denom)
+                               inv_denom, intensities=intensities)
     what = "cluster_extrap_gain"
     _check(theta, what, plan, theta=theta, t1=t1, t2=t2, r_sq_sum=r_sq_sum,
            v_sq_sum=v_sq_sum, reads=reads, eumaps=eumaps,
@@ -693,13 +701,16 @@ def extrap_gain(theta: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
     _fits(plan, theta.dtype, theta.device)
     terms = theta.new_empty((R, C))
     cand = torch.empty_like(theta)
+    s_pair = ((torch.empty_like(terms), torch.empty_like(terms))
+              if intensities else (None, None))
     rc = _fn("emsar_cluster_extrap_gain", theta.dtype)(
         theta.data_ptr(), t1.data_ptr(), t2.data_ptr(), r_sq_sum.data_ptr(),
         v_sq_sum.data_ptr(), *plan.args(), reads.data_ptr(),
         eumaps.data_ptr(), inv_denom.data_ptr(), cand.data_ptr(),
-        terms.data_ptr(), R, C, T, plan.n_tiles, plan.rows, plan.smem, rs,
-        inv_s, plan.cluster,
+        terms.data_ptr(), *(None if t is None else t.data_ptr()
+                            for t in s_pair), R, C, T, plan.n_tiles,
+        plan.rows, plan.smem, rs, inv_s, plan.cluster,
         torch.cuda.current_stream(theta.device).cuda_stream)
     _raise_on(rc, what)
     EXTRAP_GAIN_LAUNCHES += 1
-    return cand, terms
+    return (cand, terms, *s_pair) if intensities else (cand, terms)

@@ -6,6 +6,12 @@ and the kernel benchmarks.  Nothing on the solve or build path uses it.
   card and CUDA events around them measure the card alone, not the host's
   enqueue rate.  A call that synchronises inside (a plain version that
   sizes an output from data) is timed serially instead.
+* ``device_ms_cold``: device time per call with a cold L2 cache: before
+  each call a write of twice the card's L2 evicts what the last left
+  there, and CUDA events around each call alone time it (the same sleep
+  holds the stream while the host enqueues them).  For kernels whose
+  inputs fit in the L2 (the H100's is 50 MB), whose warm time would
+  count each input's bytes as moved from HBM when they were not.
 * ``host_ms``: host time per call, ``perf_counter`` over ``n`` calls with
   no synchronisation (the wrapper's Python, allocation and launch).
 * ``bound_ms``: the least time the card could take for the work, the
@@ -60,6 +66,39 @@ def device_ms(fn: Callable[[], object], n: int = 200,
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+def device_ms_cold(fn: Callable[[], object], n: int = 50,
+                   host_per_call_ms: float = 0.0) -> float:
+    """Device milliseconds per call of ``fn`` from a cold L2: ``n`` times a
+    write of twice the L2's bytes, then ``fn`` between CUDA events, all
+    enqueued behind one sleep; the mean of the calls' times."""
+    dev = torch.cuda.current_device()
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
+                 0) or 50 << 20
+    flush = torch.empty(2 * l2 // 4, dtype=torch.int32, device="cuda")
+    if host_per_call_ms <= 0.0:
+        host_per_call_ms = host_ms(fn, 20)
+
+    def step():
+        flush.zero_()
+        fn()
+    flush_ms = host_ms(flush.zero_, 20)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda._sleep(int((2.0 * n * (host_per_call_ms + flush_ms + 0.01)
+                           + 1.0) * _SLEEP_CYCLES_PER_MS))
+    for a, b in events:
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    del flush
+    return sum(a.elapsed_time(b) for a, b in events) / n
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype=torch.float64

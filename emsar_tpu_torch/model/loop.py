@@ -61,6 +61,9 @@ CHECK_EVERY = 4
 # (wrapper module, name of its launch counter) of every kernel a block runs
 COUNTERS = ((segment_sum, "LAUNCHES"), (segment_sum, "EM_LAUNCHES"),
             (squarem, "LAUNCHES"), (csr_cycle, "LAUNCHES"),
+            (csr_cycle, "PAIR_GAIN_LAUNCHES"),
+            (csr_cycle, "BLOCK_END_LAUNCHES"),
+            (csr_cycle, "EXTRAP_LAUNCHES"), (csr_cycle, "SELECT_LAUNCHES"),
             (csr_cluster, "EM_PAIR_LAUNCHES"),
             (csr_cluster, "EXTRAP_GAIN_LAUNCHES"))
 

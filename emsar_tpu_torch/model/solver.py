@@ -16,13 +16,17 @@ global (cid, tid, multiplicity) edge list.  Every segment sum goes through
 bits on every run (``index_add_`` on CUDA sums with float atomics), and
 the card gives the CPU's bits.  The rest of a SQUAREM cycle (step length,
 extrapolation, the accept test's intensities and gain) is
-``kernels.csr_cycle``: a cycle is twelve launches on the card, with the
-torch body's bits.  Below a size crossover (``CLUSTER_MAX_EDGES``) a cycle
-is five launches instead (``kernels.csr_cluster``: each row's modules
-packed into tiles, a thread-block cluster a tile, its passes split by
-hardware cluster barriers), with the same bits; its tile plan is made
-once per edge structure (``cycle_plan``'s cache: the restart loops of
-every sample of a ``-M --batch_samples`` run share one).
+``kernels.csr_cycle`` and the EM steps' input modes: a cycle is ten
+launches on the card (twelve where rows x edges exceed
+``FOLD_MAX_EDGES``), with the torch body's bits.  Below a size crossover
+(``CLUSTER_MAX_EDGES``) a cycle is five launches instead
+(``kernels.csr_cluster``: each row's modules packed into tiles, a
+thread-block cluster a tile, its passes split by hardware cluster
+barriers), with the same bits; its tile plan is made once per
+edge structure (``cycle_plan``'s cache: the restart loops of every sample
+of a ``-M --batch_samples`` run share one).  A block ends with one
+``csr_cycle.block_end`` on either path: the accept, and its intensities
+picked from those the last cycle summed, with no pass over the edges.
 
 The convergence loop is ``model/loop.py``'s ``while_loop`` (JAX's
 ``lax.while_loop``): blocks of ``block_iters`` cycles replayed from a CUDA
@@ -40,20 +44,31 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.csr_cluster import TilePlan, em_pair, extrap_gain, plan_for
-from ..kernels.csr_cycle import (block_gain, cycle_extrap, cycle_select,
+from ..kernels.csr_cluster import (Source, TilePlan, em_pair, extrap_gain,
+                                   plan_for)
+from ..kernels.csr_cycle import (block_end, cycle_extrap, cycle_select,
                                  gain_terms, pair_gain)
 from ..kernels.segment_sum import (EdgeGroups, em_step, em_step_cycle,
-                                   prepare, sum_groups)
+                                   em_step_extrap, em_step_select, prepare,
+                                   sum_groups)
 from . import loop
 from .modules import ModuleDecomposition, SegmentGraph
 
 # The CSR cycle runs on thread-block clusters (``kernels.csr_cluster``: five
 # launches a cycle) while a row's problem has at most this many edges and a
-# tile plan fits, as twelve launches above.  The largest problem of
+# tile plan fits, as ten launches above.  The largest problem of
 # ``bench/cluster_sweep.py``'s sweep (R 1, float64) at which the clusters
 # were faster; no larger one was measured.
 CLUSTER_MAX_EDGES = 11_520_000
+# Off clusters, a cycle's EM steps take the extrapolation and the accept as
+# input modes (ten launches a cycle) while its rows times its edges are at
+# most this, and launch cycle_extrap and cycle_select above (twelve): the
+# input modes' extra gathers cost more than a launch from there.  On the
+# H100 (``bench/cluster_sweep.py``, ``bench/cycle_ab.py``, float64) ten
+# launches were faster at R 1 up to 159,815 edges, slower from 179,927;
+# at R 3 faster at 74,730 row-edges, slower at 269,898; at R 16 slower
+# from 399,568.
+FOLD_MAX_EDGES = 160_000
 # ``cycle_plan``'s cache of tile plans: at most PLAN_CACHE plans and
 # PLAN_CACHE_BYTES of their tensors (``TilePlan.nbytes``: the tiled
 # groupings, the blocks' images and the problem's groupings they were
@@ -223,21 +238,39 @@ def clusters_for(p) -> bool:
     return p.by_cid.idx.shape[0] <= CLUSTER_MAX_EDGES
 
 
-def _squarem_cycle_launches(p: DeviceProblem, theta: torch.Tensor
-                            ) -> torch.Tensor:
-    """One stabilized SQUAREM cycle as twelve launches on the card: three
-    EM steps (the second also writes r * r and v * v), their two row sums,
-    the extrapolation, the gain terms of cand over t2, their row sum and
-    the accept test."""
-    t1 = _em_iter(p, theta)
-    t2, r_sq, v_sq = em_step_cycle(t1, theta, p.by_cid, p.by_tid, p.reads,
-                                   p.inv_denom)
-    x = cycle_extrap(theta, t1, t2, torch.sum(r_sq, dim=1, keepdim=True),
-                     torch.sum(v_sq, dim=1, keepdim=True))
-    cand = _em_iter(p, x)  # stabilization
-    gain = torch.sum(pair_gain(p.by_cid, p.reads, p.eumaps, t2, cand),
-                     dim=-1)
-    return cycle_select(gain, cand, t2)
+def _squarem_cycle_launches(p: DeviceProblem, src: Source,
+                            intensities: bool = False) -> tuple:
+    """One stabilized SQUAREM cycle as launches on the card, from ``src``:
+    theta [R, T], or the previous cycle's (gain [R], cand, t2), whose
+    accept is this cycle's theta.  Three EM steps (the first from the
+    accept, the second also writing r * r and v * v, the third from the
+    extrapolation), the two step-length row sums, the gain terms of cand
+    over t2 and their row sum: ten launches, or twelve with cycle_select
+    and cycle_extrap launched apart where rows x edges exceed
+    ``FOLD_MAX_EDGES``.  Returns (gain, cand, t2), and with
+    ``intensities`` (t2's intensities, cand's) too."""
+    rows = (src if isinstance(src, torch.Tensor) else src[1]).shape[0]
+    fold = rows * p.by_cid.idx.shape[0] <= FOLD_MAX_EDGES
+    groups = (p.by_cid, p.by_tid, p.reads, p.inv_denom)
+    if isinstance(src, torch.Tensor):
+        theta = src
+        t1 = _em_iter(p, theta)
+    elif fold:
+        theta, t1 = em_step_select(*src, *groups)
+    else:
+        theta = cycle_select(*src)
+        t1 = _em_iter(p, theta)
+    t2, r_sq, v_sq = em_step_cycle(t1, theta, *groups)
+    sums = (torch.sum(r_sq, dim=1, keepdim=True),
+            torch.sum(v_sq, dim=1, keepdim=True))
+    if fold:
+        cand = em_step_extrap(theta, t1, t2, *sums, *groups)
+    else:
+        cand = _em_iter(p, cycle_extrap(theta, t1, t2, *sums))
+    gain = pair_gain(p.by_cid, p.reads, p.eumaps, t2, cand,
+                     intensities=intensities)
+    terms, s_pair = (gain[0], gain[1:]) if intensities else (gain, ())
+    return (torch.sum(terms, dim=-1), cand, t2, *s_pair)
 
 
 def _same_groups(a: EdgeGroups, b: EdgeGroups) -> bool:
@@ -282,7 +315,7 @@ def cycle_plan(p, rows: int, clusters: Optional[bool] = None
                ) -> Optional[TilePlan]:
     """The tile plan of the cycles of ``rows`` rows of ``p`` on clusters
     (``kernels.csr_cluster.plan_for``, made once per edge structure: see
-    ``_cached_plan``), or None for twelve launches a cycle: by default on
+    ``_cached_plan``), or None for ten launches a cycle: by default on
     clusters when ``clusters_for(p)`` and a plan fits; ``clusters`` forces
     the path (True raises when no plan fits)."""
     if clusters is False or (clusters is None and not clusters_for(p)):
@@ -294,33 +327,45 @@ def cycle_plan(p, rows: int, clusters: Optional[bool] = None
     return plan
 
 
-def _squarem_cycles(p: DeviceProblem, theta: torch.Tensor, n: int,
-                    plan: Optional[TilePlan]) -> torch.Tensor:
+def _squarem_block(p: DeviceProblem, theta: torch.Tensor, n: int,
+                   plan: Optional[TilePlan],
+                   s_prev: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Optional[torch.Tensor]]:
     """``n`` stabilized SQUAREM cycles (Varadhan & Roland 2008) per row:
     the extrapolation falls back to the double-EM value whenever it loses
     likelihood, so convergence stays monotone.  ``p`` is a DeviceProblem
     or anything with its edge groupings and reads, eumaps and inv_denom of
     one row or one per row of theta (the batched solve's ShardedProblem).
+    Returns (theta, its intensities [R, C], their gain terms over
+    ``s_prev`` or None without it): the block's end, ``block_end``.
 
     On clusters by ``plan`` (``cycle_plan``) a cycle is ``em_pair``
     (taking the previous cycle's accept as its theta), the two step-length
-    row sums, ``extrap_gain`` and the gain's row sum: five launches, and
-    one ``cycle_select`` after the last; with no plan twelve launches a
-    cycle (``_squarem_cycle_launches``).  Both give the same bits."""
-    theta = theta.contiguous()
-    if plan is None:
-        for _ in range(n):
-            theta = _squarem_cycle_launches(p, theta)
-        return theta
-    src = theta
-    for _ in range(n):
-        th, t1, t2, r_sq, v_sq = em_pair(src, plan, p.reads, p.inv_denom)
-        cand, terms = extrap_gain(
-            th, t1, t2, torch.sum(r_sq, dim=1, keepdim=True),
-            torch.sum(v_sq, dim=1, keepdim=True), plan, p.reads, p.eumaps,
-            p.inv_denom)
-        src = (torch.sum(terms, dim=-1), cand, t2)
-    return cycle_select(*src)
+    row sums, ``extrap_gain`` and the gain's row sum: five launches; with
+    no plan ten launches a cycle (``_squarem_cycle_launches``).  The last
+    cycle also writes the intensities of t2 and cand, from which
+    ``block_end`` picks the accepted row's.  Both give the same bits."""
+    src = theta.contiguous()
+    for i in range(n):
+        last = i == n - 1
+        if plan is None:
+            out = _squarem_cycle_launches(p, src, intensities=last)
+        else:
+            th, t1, t2, r_sq, v_sq = em_pair(src, plan, p.reads, p.inv_denom)
+            cand, terms, *s_pair = extrap_gain(
+                th, t1, t2, torch.sum(r_sq, dim=1, keepdim=True),
+                torch.sum(v_sq, dim=1, keepdim=True), plan, p.reads,
+                p.eumaps, p.inv_denom, intensities=last)
+            out = (torch.sum(terms, dim=-1), cand, t2, *s_pair)
+        src = out[:3]
+    return block_end(*out, s_prev, p.reads, p.eumaps)
+
+
+def _squarem_cycles(p: DeviceProblem, theta: torch.Tensor, n: int,
+                    plan: Optional[TilePlan]) -> torch.Tensor:
+    """The theta of ``_squarem_block``'s ``n`` cycles."""
+    return _squarem_block(p, theta, n, plan)[0]
 
 
 def _squarem_cycle(p: DeviceProblem, theta: torch.Tensor, *,
@@ -350,8 +395,8 @@ def em_solve(p: DeviceProblem, theta0: torch.Tensor, epsilon: float,
     it = torch.zeros((), dtype=torch.int64, device=theta.device)
 
     def block():
-        th = _squarem_cycles(p, theta, block_iters, plan)
-        s_new, terms = block_gain(p.by_cid, p.reads, p.eumaps, s_prev, th)
+        th, s_new, terms = _squarem_block(p, theta, block_iters, plan,
+                                          s_prev)
         gain = torch.sum(terms, dim=-1)
         # rows that already stopped keep their state (vmap'd while_loop)
         loop.advance(active, it, ((theta, th), (s_prev, s_new)))

@@ -19,10 +19,10 @@ shard:
 ``psum`` over an axis becomes ``all_reduce(SUM)`` on that axis's process
 group: gloo for CPU tensors, NCCL for CUDA tensors (one card a rank,
 ``cuda:LOCAL_RANK``).  With tp == 1 a SQUAREM cycle is the CSR solver's
-(``model/solver.py::_squarem_cycles``: on thread-block clusters below its
+(``model/solver.py::_squarem_block``: on thread-block clusters below its
 size crossover, else the fused ``em_step`` and the ``kernels.csr_cycle``
-kernels) with per-sample reads, EUMAps and 1 /
-denom, and a block's gain that of ``csr_cycle.block_gain``; with tp > 1
+kernels) with per-sample reads, EUMAps and 1 / denom, and a block's
+intensities and gain those of its ``csr_cycle.block_end``; with tp > 1
 the partial segment sums (``sum_groups``) are all-reduced before the
 ratio ('edges': both sums, 'transcript': the by-cid sum only), and the
 cycle's vector work runs as torch ops between the all-reduces.  An
@@ -54,7 +54,6 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..kernels.csr_cluster import TilePlan
-from ..kernels.csr_cycle import block_gain
 from ..kernels.segment_sum import EdgeGroups, sum_groups
 from ..model import loop, solver
 from ..model.solver import (SolverProblem, gain_of, group_edges,
@@ -280,21 +279,28 @@ def _cycle_tp(sp: ShardedProblem, th: torch.Tensor) -> torch.Tensor:
 
 
 def _cycles(sp: ShardedProblem, th: torch.Tensor, block_iters: int,
-            plan: Optional[TilePlan] = None) -> torch.Tensor:
-    """``block_iters`` cycles: at tp == 1 ``model/solver.py::
-    _squarem_cycles``, on clusters by ``plan`` when one is given."""
+            plan: Optional[TilePlan] = None,
+            s_prev: Optional[torch.Tensor] = None):
+    """``block_iters`` cycles: (theta, its intensities, their gain per
+    sample over ``s_prev``, None without it).  At tp == 1 ``model/
+    solver.py::_squarem_block`` (on clusters by ``plan`` when one is
+    given), whose ``block_end`` picks the intensities from the last
+    cycle's; at tp > 1 the intensities all-reduced after the cycles."""
     if sp.mesh.tp == 1:
-        return solver._squarem_cycles(sp, th, block_iters, plan)
+        th, s, terms = solver._squarem_block(sp, th, block_iters, plan,
+                                             s_prev)
+        return th, s, None if terms is None else torch.sum(terms, dim=-1)
     for _ in range(block_iters):
         th = _cycle_tp(sp, th)
-    return th
+    s = _intensities(sp, th)
+    return th, s, (None if s_prev is None
+                   else gain_of(sp.reads, sp.eumaps, s_prev, s))
 
 
 def _block(sp: ShardedProblem, th: torch.Tensor, block_iters: int,
            plan: Optional[TilePlan] = None):
     """``block_iters`` cycles: (theta, intensities, logL per sample)."""
-    th = _cycles(sp, th, block_iters, plan)
-    s = _intensities(sp, th)
+    th, s, _ = _cycles(sp, th, block_iters, plan)
     return th, s, loglik_of(sp.reads, sp.eumaps, s)
 
 
@@ -302,14 +308,8 @@ def _block_after(sp: ShardedProblem, th: torch.Tensor, s_prev: torch.Tensor,
                  block_iters: int, plan: Optional[TilePlan] = None):
     """``block_iters`` cycles after a block that ended at intensities
     ``s_prev``: (theta, intensities, logL per sample, gain per sample over
-    s_prev), the intensities and gain terms in one launch at tp == 1."""
-    th = _cycles(sp, th, block_iters, plan)
-    if sp.mesh.tp == 1:
-        s, terms = block_gain(sp.by_cid, sp.reads, sp.eumaps, s_prev, th)
-        gain = torch.sum(terms, dim=-1)
-    else:
-        s = _intensities(sp, th)
-        gain = gain_of(sp.reads, sp.eumaps, s_prev, s)
+    s_prev)."""
+    th, s, gain = _cycles(sp, th, block_iters, plan, s_prev)
     return th, s, loglik_of(sp.reads, sp.eumaps, s), gain
 
 

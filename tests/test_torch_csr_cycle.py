@@ -1,12 +1,14 @@
 """The CSR SQUAREM cycle's kernels (``kernels/csr_cycle.py``,
-``segment_sum.em_step_cycle``) on the CPU, where the wrappers run their
-plain versions: the rebuilt ``solver._squarem_cycle``, ``em_solve``
+``segment_sum.em_step_cycle`` and the EM steps' input modes) on the CPU,
+where the wrappers run their plain versions: the rebuilt
+``solver._squarem_cycle``, the ten- and twelve-launch cycles, ``em_solve``
 and ``mesh.solve_sharded`` (tp 1) give the bits of the torch body they
 replaced (``tests/torch_loop_cases.py``: the cycle and gain as they were)
 at R 1, R 3 (one shared row of reads) and R 16 (per-sample reads, EUMAps
 and denominators), float32 and float64; the pieces on the gain's every
 branch (NaN, died, born, the collapse of a read-less segment), on
-``vnorm == 0`` and on a NaN step length; ``em_solve`` within rel 1e-9 of
+``vnorm == 0`` and on a NaN step length; ``block_end`` against the pass
+over the edges it replaced; ``em_solve`` on each path within rel 1e-9 of
 ``emsar_tpu``'s ``_em_solve`` logL on the same inputs.  The kernels
 themselves run in ``tests/test_torch_cuda_emulated.py`` and, on the
 card, ``tests/test_torch_kernels_cuda.py``."""
@@ -159,10 +161,12 @@ def test_solve_sharded_is_the_torch_body(dtype):
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
 def test_gain_pieces_on_every_branch(dtype, shared):
-    """pair_gain and block_gain on one-edge segments (intensities =
+    """pair_gain and block_end on one-edge segments (intensities =
     thetas) over every branch of the term: summed, the torch body's gain
-    bit for bit, NaN included; block_gain's intensities are the thetas;
-    model/solver.py::gain_of is unchanged."""
+    bit for bit, NaN included; pair_gain's intensities are the thetas;
+    block_end's theta and intensities are the accepted row's, cand's at a
+    gain >= 0 and t2's at a NaN gain; model/solver.py::gain_of is
+    unchanged."""
     s_old, s_new, reads, eumaps = gain_branch_cases(dtype)
     if shared:
         reads, eumaps = reads[1], eumaps[1]
@@ -176,10 +180,23 @@ def test_gain_pieces_on_every_branch(dtype, shared):
     got = csr_cycle.pair_gain(g, reads, eumaps, s_old, s_new)
     _assert_bits(got, terms)
     _assert_bits(torch.sum(got, dim=-1), want)
-    s, got = csr_cycle.block_gain(g, reads, eumaps, s_old, s_new)
-    _assert_bits(s, s_new)
+    got, s_o, s_n = csr_cycle.pair_gain(g, reads, eumaps, s_old, s_new,
+                                        intensities=True)
     _assert_bits(got, terms)
-    _assert_bits(torch.sum(got, dim=-1), want)
+    _assert_bits(s_o, s_old)
+    _assert_bits(s_n, s_new)
+    other = s_new.flip(-1)
+    rows = s_new.shape[0]
+    for value, (cand, t2) in ((0.0, (s_new, other)),
+                              (np.nan, (other, s_new))):
+        gain = torch.full((rows,), value, dtype=dtype)
+        th, s, got = csr_cycle.block_end(gain, cand, t2, t2, cand, s_old,
+                                         reads, eumaps)
+        assert th.shape == s.shape == (rows, n)
+        _assert_bits(th, s_new)
+        _assert_bits(s, s_new)
+        _assert_bits(got, terms)
+        _assert_bits(torch.sum(got, dim=-1), want)
     _assert_bits(tsolver.gain_of(reads, eumaps, s_old, s_new), want)
 
 
@@ -252,9 +269,137 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         csr_cycle.pair_gain(g, meta[0], meta[0], meta, meta)
     with pytest.raises(ValueError, match="device"):
+        csr_cycle.block_end(meta[:, 0], meta, meta, meta, meta, meta,
+                            meta[0], meta[0])
+    with pytest.raises(ValueError, match="device"):
+        ss.em_step_select(meta[:, 0], meta, meta, g, g, meta[0], meta[0])
+    with pytest.raises(ValueError, match="device"):
+        ss.em_step_extrap(meta, meta, meta, meta[:, :1], meta[:, :1], g, g,
+                          meta[0], meta[0])
+    with pytest.raises(ValueError, match="device"):
         ss.em_step_cycle(meta, meta, g, g, meta[0], meta[0])
     t1 = torch.ones((2, 5), dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
         ss.em_step_cycle(t1, t1.float(), g, g, t1[0], t1[0])
     with pytest.raises(ValueError, match="on meta"):
         ss.em_step_cycle(t1, meta.double(), g, g, t1[0], t1[0])
+
+
+def _old_block_gain(g, reads, eumaps, s_old, theta):
+    """The block's pass over the edges before block_end: theta's
+    intensities (its segment sums in edge order) and their gain terms."""
+    s_new = ss.segment_sum_ref(theta, g.mult, g.idx, g.offsets)
+    return s_new, csr_cycle.gain_terms(reads, eumaps, s_old, s_new)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_block_end_is_the_pass_it_replaced(dtype, R, shared):
+    """block_end_ref (and block_end on the CPU) from a cycle's gain, cand,
+    t2 and their intensities: the bits of cycle_select_ref and then the
+    old block pass (the accepted theta's intensities summed over the edges
+    and their gain terms over s_prev), on a random problem whose rows
+    take cand (gain >= 0, -0.0 included) or t2 (gain < 0 or NaN), with
+    zero thetas, zero-read segments, died and born segments and a NaN
+    row."""
+    problem = _problem(30 + R)
+    p = tsolver.problem_to_device(problem, CPU, dtype)
+    g = p.by_cid
+    rng = np.random.default_rng(R)
+    T, C = problem.n_transcripts, len(problem.eumaps)
+
+    def theta():
+        th = rng.uniform(0, 10, (R, T))
+        th[rng.random((R, T)) < 0.3] = 0.0
+        return torch.as_tensor(th).to(dtype)
+    cand, t2, prev = theta(), theta(), theta()
+    cand[0, :3] = np.nan
+    reads, eumaps = p.reads, p.eumaps
+    if not shared:
+        reads, eumaps, _ = (torch.as_tensor(a).to(dtype)
+                            for a in _per_sample(problem, R, R))
+    assert (reads == 0).any()
+    s_t2, s_cand, s_prev = (ss.segment_sum_ref(x, g.mult, g.idx, g.offsets)
+                            for x in (t2, cand, prev))
+    gain = torch.as_tensor(np.resize([np.nan, -0.0, 2.0, -1e-30, 0.0], R)
+                           ).to(dtype)
+    th, s, terms = csr_cycle.block_end_ref(gain, cand, t2, s_t2, s_cand,
+                                           s_prev, reads, eumaps)
+    want_th = csr_cycle.cycle_select_ref(gain, cand, t2)
+    want_s, want_terms = _old_block_gain(g, reads, eumaps, s_prev, want_th)
+    _assert_bits(th, want_th)
+    _assert_bits(s, want_s)
+    _assert_bits(terms, want_terms)
+    died = (s_prev > 0) & (s <= 0) & (reads > 0)
+    born = (s_prev <= 0) & (s > 0) & (reads > 0)
+    assert bool(died.any()) and bool(born.any())
+    got = csr_cycle.block_end(gain, cand, t2, s_t2, s_cand, s_prev, reads,
+                              eumaps)
+    for a, b in zip(got, (th, s, terms)):
+        _assert_bits(a, b)
+    th, s, none = csr_cycle.block_end(gain, cand, t2, s_t2, s_cand, None,
+                                      reads, eumaps)
+    assert none is None
+    _assert_bits(s, want_s)
+    assert terms.shape == (R, C)
+
+
+@pytest.mark.parametrize("fold", [True, False], ids=["ten", "twelve"])
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
+def test_launch_cycles_are_the_torch_body(dtype, R, fold, monkeypatch):
+    """Eight cycles off clusters, ten launches a cycle (the accept and the
+    extrapolation as the EM steps' input modes) or twelve (above
+    FOLD_MAX_EDGES: cycle_select and cycle_extrap apart), as one block:
+    theta the torch body's after eight cycles, its intensities those of
+    theta, and the block's gain terms over s_prev the body's."""
+    if not fold:
+        monkeypatch.setattr(tsolver, "FOLD_MAX_EDGES", 0)
+    problem = _problem(40 + R)
+    if R == 16:
+        p = _sharded(problem, R, dtype)
+        th = p.theta0
+    else:
+        p = tsolver.problem_to_device(problem, CPU, dtype)
+        th = _rows(problem, R, R, dtype)
+    want = th
+    for _ in range(8):
+        want = torch_body_cycle(p, want)
+    s_prev = tsolver._intensities(p, th)
+    got, s, terms = tsolver._squarem_block(p, th, 8, None, s_prev)
+    _assert_bits(got, want)
+    s_want = tsolver._intensities(p, want)
+    _assert_bits(s, s_want)
+    _assert_bits(torch.sum(terms, dim=-1),
+                 torch_body_gain_of(p.reads, p.eumaps, s_prev, s_want))
+
+
+@pytest.mark.parametrize("path", ["clusters", "ten", "twelve"])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_em_solve_paths_match_jax(seed, path, monkeypatch):
+    """em_solve on clusters, on ten launches a cycle and on twelve: the
+    same bits on each path, logL within rel 1e-9 of emsar_tpu's
+    ``_em_solve`` from the same start (float64), and the same block count
+    (no NaN gain stops either)."""
+    if path == "twelve":
+        monkeypatch.setattr(tsolver, "FOLD_MAX_EDGES", 0)
+    problem = _problem(seed + 20)
+    th0 = tsolver.read_attribution_start(problem)
+    p = tsolver.problem_to_device(problem, CPU, torch.float64)
+    th, ll, it = tsolver.em_solve(p, torch.as_tensor(th0)[None], 1e-12, 8,
+                                  200000, clusters=path == "clusters")
+    th_c, ll_c, it_c = tsolver.em_solve(p, torch.as_tensor(th0)[None],
+                                        1e-12, 8, 200000)
+    assert it == it_c
+    _assert_bits(th, th_c)
+    _assert_bits(ll, ll_c)
+    _, j_ll, j_it = jsolver._em_solve(
+        problem.edge_cid, problem.edge_tid, problem.edge_mult,
+        problem.eumaps, problem.reads, problem.denom, th0,
+        n_transcripts=problem.n_transcripts,
+        n_segments=len(problem.eumaps), block_iters=8, max_iters=200000,
+        epsilon=1e-12)
+    assert np.isfinite(float(j_ll)) and it > 1
+    assert it == int(j_it)
+    assert abs(float(ll[0]) - float(j_ll)) <= 1e-9 * abs(float(j_ll))

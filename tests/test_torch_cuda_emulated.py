@@ -102,14 +102,25 @@ def _emulated_source(text: str) -> str:
 # threads a block of csrc/csr_cluster.cu's emulated clusters: few, so that
 # a cluster's threads all run at once on the CPU
 CLUSTER_THREADS = 64
+# csrc/csr_cycle.cu's pair_gain built for tiles of at most 16 segments (32
+# edges staged: a segment of more edges reads the rest from memory), 32
+# threads a block
+PAIR_TILE = 16
+PAIR_THREADS = 32
+# the emulated build of csrc/csr_cycle.cu whose pair_gain stages its tiles
+# by bulk copies (EMSAR_PAIR_TMA=1: bench/pair_parts.py's variant)
+PAIR_TMA = csr_cycle.SOURCE + " EMSAR_PAIR_TMA=1"
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """{source: its library built for the CPU emulation}."""
     libs = {}
-    for source in (window_hash.SOURCE, squarem.SOURCE, pe_candidates.SOURCE,
-                   segment_sum.SOURCE, csr_cycle.SOURCE, csr_cluster.SOURCE):
+    builds = [(s, s, ()) for s in (
+        window_hash.SOURCE, squarem.SOURCE, pe_candidates.SOURCE,
+        segment_sum.SOURCE, csr_cycle.SOURCE, csr_cluster.SOURCE)]
+    builds.append((PAIR_TMA, csr_cycle.SOURCE, ("-DEMSAR_PAIR_TMA=1",)))
+    for name, source, flags in builds:
         with open(os.path.join(_build.CSRC_DIR, source)) as fh:
             text = _emulated_source(fh.read())
         cc = tmp_path_factory.mktemp("emu") / (source + ".cc")
@@ -117,9 +128,10 @@ def emulated(tmp_path_factory):
         so = str(cc) + ".so"
         subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
                         "-pthread", f"-DEMSAR_CLUSTER_THREADS="
-                        f"{CLUSTER_THREADS}", "-I", EMU_DIR, "-o", so,
-                        str(cc)], check=True)
-        libs[source] = ctypes.CDLL(so)
+                        f"{CLUSTER_THREADS}", f"-DEMSAR_PAIR_TILE={PAIR_TILE}",
+                        f"-DEMSAR_PAIR_THREADS={PAIR_THREADS}", *flags,
+                        "-I", EMU_DIR, "-o", so, str(cc)], check=True)
+        libs[name] = ctypes.CDLL(so)
     return libs
 
 
@@ -366,6 +378,47 @@ def _emulated_sum(lib, x, g, lanes, mode, a=None, b=None, a_stride=0):
     return out
 
 
+@pytest.mark.parametrize("shift", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_pair_gain_tma_staging_is_the_direct_kernel(emulated, dtype, shift):
+    """pair_gain built to stage its tiles' tids, weights and group ends by
+    bulk copies (EMSAR_PAIR_TMA=1, the variant bench/pair_parts.py times)
+    gives the default build's bits, with and without the intensities, on
+    groupings whose arrays start ``shift`` elements into their allocation
+    (a tile's first element then lies inside a 16-byte line, whose other
+    elements the threads load), reads and eumaps a row each at R = 3; the
+    intensities equal the plain version's."""
+    rng = np.random.default_rng(40 + shift)
+    problem = _sum_problem(rng, n_seg=120, ntid=90, n_edges=1500)
+    p = solver.problem_to_device(problem, torch.device("cpu"), dtype)
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + shift, dtype=t.dtype)
+        buf[shift:] = t
+        return buf[shift:]
+    g = dataclasses.replace(p.by_cid, mult=shifted(p.by_cid.mult),
+                            idx=shifted(p.by_cid.idx),
+                            offsets=shifted(p.by_cid.offsets))
+    assert g.idx.data_ptr() % 16 == 4 * shift % 16
+    R, T = 3, problem.n_transcripts
+    reads = torch.stack([p.reads * k for k in (1, 2, 0.5)])
+    eumaps = torch.stack([p.eumaps.roll(k) for k in range(R)])
+    t2 = torch.as_tensor(rng.uniform(0, 10, (R, T))).to(dtype)
+    cand = torch.as_tensor(rng.uniform(0, 10, (R, T))).to(dtype)
+    assert (torch.diff(g.offsets) > 2 * PAIR_TILE).any()
+    for intensities in (False, True):
+        want = _emulated_gain(emulated[csr_cycle.SOURCE], g, reads, eumaps,
+                              t2, cand, intensities)
+        got = _emulated_gain(emulated[PAIR_TMA], g, reads, eumaps, t2, cand,
+                             intensities)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+    s_t2, s_cand = (segment_sum.segment_sum_ref(a, g.mult, g.idx, g.offsets)
+                    for a in (t2, cand))
+    assert torch.equal(got[1], s_t2) and torch.equal(got[2], s_cand)
+
+
 @pytest.mark.parametrize("per_row", [False, True], ids=["shared", "per_row"])
 @pytest.mark.parametrize("lanes", segment_sum.LANES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -457,6 +510,91 @@ def test_em_cycle_update_source_matches_plain(emulated, dtype, lanes,
     assert (want[1] > 0).any() and (want[2] > 0).any()
 
 
+def _emulated_em_source(lib, ptrs, mode_in, like, p, lanes, reads, inv_denom,
+                     theta_out=False):
+    """The emulated EM step from a source of input mode ``mode_in`` (two
+    launches of csrc/segment_sum.cu): (out, theta written or None)."""
+    fn = (lib.emsar_em_source_f64 if like.dtype == torch.float64
+          else lib.emsar_em_source_f32)
+    fn.restype = ctypes.c_int
+    fn.argtypes = segment_sum.SOURCE_ARGTYPES
+    R, T = like.shape
+    C = p.by_cid.n_groups
+    ratio = torch.full((R, C), 7.0, dtype=like.dtype)
+    out = torch.full_like(like, 7.0)
+    th = torch.full_like(like, 7.0) if theta_out else None
+    assert fn(*ptrs, mode_in, None, p.by_cid.mult.data_ptr(),
+              p.by_cid.idx.data_ptr(), p.by_cid.offsets.data_ptr(),
+              reads.data_ptr(), ratio.data_ptr(), None, R, C, T,
+              C if reads.dim() == 2 else 0, lanes, 1, None) == 0
+    assert fn(*ptrs, mode_in, ratio.data_ptr(), p.by_tid.mult.data_ptr(),
+              p.by_tid.idx.data_ptr(), p.by_tid.offsets.data_ptr(),
+              inv_denom.data_ptr(), out.data_ptr(), _ptr(th), R, T, C,
+              T if inv_denom.dim() == 2 else 0, lanes, 2, None) == 0
+    return out, th
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["shared", "per_row"])
+@pytest.mark.parametrize("lanes", [4, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_em_source_modes_match_plain(emulated, dtype, lanes, per_row):
+    """The EM step's input modes at R = 3: from the accept (rows of NaN,
+    -0 and positive gain), the step and the accepted theta it writes
+    bit-equal to ``em_step_select_ref``; from the extrapolation, bit-equal
+    to the EM step from ``cycle_extrap``'s plain version (its square roots
+    correctly rounded, as the kernel's), also on rows whose alpha is NaN
+    or whose v is 0."""
+    rng = np.random.default_rng(lanes + 13 * per_row)
+    problem = _sum_problem(rng)
+    p = solver.problem_to_device(problem, torch.device("cpu"), dtype)
+    R, T = 3, problem.n_transcripts
+    reads, inv_denom = p.reads, p.inv_denom
+    if per_row:
+        reads = torch.stack([reads * k for k in (1, 2, 0.5)])
+        inv_denom = torch.stack([inv_denom.roll(k) for k in range(R)])
+    theta = rng.uniform(0, 10, (R, T))
+    theta[:, rng.random(T) < 0.2] = 0.0
+    theta = torch.as_tensor(theta).to(dtype)
+    theta[2] = 0.0
+    groups = (p.by_cid, p.by_tid, reads, inv_denom)
+    t1 = segment_sum.em_step_ref(theta, *groups)
+    t2, r_sq, v_sq = segment_sum.em_step_cycle_ref(t1, theta, *groups)
+    lib = emulated[segment_sum.SOURCE]
+    cand = torch.as_tensor(rng.uniform(0, 5, (R, T))).to(dtype)
+    gain = torch.tensor([np.nan, -0.0, 2.0], dtype=dtype)
+    out, th = _emulated_em_source(lib, (cand.data_ptr(), t2.data_ptr(),
+                                        None, gain.data_ptr(), None), 1,
+                                  cand, p, lanes, reads, inv_denom,
+                                  theta_out=True)
+    want = segment_sum.em_step_select_ref(gain, cand, t2, *groups)
+    assert torch.equal(th, want[0]) and torch.equal(out, want[1])
+    assert torch.equal(th[0], t2[0]) and torch.equal(th[1], cand[1])
+    rs = torch.sum(r_sq, dim=1, keepdim=True)
+    vs = torch.sum(v_sq, dim=1, keepdim=True)
+    assert vs[2, 0] == 0
+    for r_sum, v_sum in ((rs, vs), (torch.tensor([[np.nan], [4.0], [1.0]],
+                                                 dtype=dtype),
+                                    torch.tensor([[1.0], [0.0], [1.0]],
+                                                 dtype=dtype))):
+        out, none = _emulated_em_source(
+            lib, (theta.data_ptr(), t1.data_ptr(), t2.data_ptr(),
+                  r_sum.data_ptr(), v_sum.data_ptr()), 2, theta, p, lanes,
+            reads, inv_denom)
+        assert none is None
+        rnorm, vnorm = (torch.as_tensor(np.sqrt(a.numpy()))
+                        for a in (r_sum, v_sum))
+        alpha = torch.clamp(torch.where(
+            vnorm > 0, -rnorm / torch.where(vnorm > 0, vnorm, 1.0), -1.0),
+            max=-1.0)
+        r = t1 - theta
+        v = t2 - t1 - r
+        x = theta - 2.0 * alpha * r + (alpha * alpha) * v
+        want = segment_sum.em_step_ref(torch.where(x > 0, x, t2), *groups)
+        assert torch.equal(out.nan_to_num(), want.nan_to_num())
+        assert torch.equal(torch.isnan(out), torch.isnan(want))
+
+
 def _log1p_tolerance(got, want, reads, s_old, s_new):
     """The emulated gain terms against the plain version's: the same bits
     where the term has no log1p, and where it has one within 4 ulps of
@@ -483,41 +621,117 @@ def _identity_groups(n, dtype):
                                torch.ones(n, dtype=dtype), n)
 
 
-def _emulated_gain(lib, g, reads, eumaps, x_new, x_old=None, s_old=None):
-    """The emulated pair_gain launch: (s_out or None, terms)."""
+def _emulated_gain(lib, g, reads, eumaps, x_old, x_new, intensities=True):
+    """The emulated pair_gain launch over the emulated build's tiles of
+    ``g``: (terms, x_old's intensities, x_new's), the intensities None
+    unless asked for."""
     fn = (lib.emsar_pair_gain_f64 if x_new.dtype == torch.float64
           else lib.emsar_pair_gain_f32)
     fn.restype = ctypes.c_int
     fn.argtypes = csr_cycle.PAIR_ARGTYPES
     R, C = x_new.shape[0], g.n_groups
+    tiles = segment_sum.tile_bounds(g.offsets, PAIR_TILE)
     out = torch.full((R, C), 7.0, dtype=x_new.dtype)
-    s_out = None if s_old is None else torch.full_like(out, 7.0)
+    s_pair = ((torch.full_like(out, 7.0), torch.full_like(out, 7.0))
+              if intensities else (None, None))
     a_stride = C if reads.dim() == 2 else 0
-    assert fn(x_new.data_ptr(), None if x_old is None else x_old.data_ptr(),
-              None if s_old is None else s_old.data_ptr(), g.mult.data_ptr(),
-              g.idx.data_ptr(), g.offsets.data_ptr(), reads.data_ptr(),
-              eumaps.data_ptr(), None if s_out is None else s_out.data_ptr(),
-              out.data_ptr(), R, C, g.n_x, a_stride, g.lanes, None) == 0
-    return s_out, out
+    assert fn(x_old.data_ptr(), x_new.data_ptr(), g.mult.data_ptr(),
+              g.idx.data_ptr(), g.offsets.data_ptr(), tiles.data_ptr(),
+              reads.data_ptr(), eumaps.data_ptr(),
+              *(_ptr(t) for t in s_pair), out.data_ptr(), R, C, g.n_x,
+              a_stride, tiles.shape[1] - 1, PAIR_TILE, None) == 0
+    return (out, *s_pair)
+
+
+def _emulated_block_end(lib, gain, cand, t2, s_t2, s_cand, s_prev, reads,
+                        eumaps):
+    """The emulated block_end launch: (theta, intensities, terms or
+    None)."""
+    fn = (lib.emsar_block_end_f64 if cand.dtype == torch.float64
+          else lib.emsar_block_end_f32)
+    fn.restype = ctypes.c_int
+    fn.argtypes = csr_cycle.BLOCK_END_ARGTYPES
+    R, T = cand.shape
+    C = s_t2.shape[1]
+    theta = torch.full_like(cand, 7.0)
+    s = torch.full_like(s_t2, 7.0)
+    terms = None if s_prev is None else torch.full_like(s_t2, 7.0)
+    assert fn(gain.data_ptr(), cand.data_ptr(), t2.data_ptr(),
+              s_t2.data_ptr(), s_cand.data_ptr(), _ptr(s_prev),
+              reads.data_ptr(), eumaps.data_ptr(), theta.data_ptr(),
+              s.data_ptr(), _ptr(terms), R, C, T,
+              C if reads.dim() == 2 else 0, None) == 0
+    return theta, s, terms
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
 def test_gain_term_source_branches(emulated, dtype):
-    """Every branch of the gain term, one segment each, through both forms
-    of pair_gain on one-edge segments (intensities = thetas), with reads
+    """Every branch of the gain term, one segment each, through pair_gain
+    on one-edge segments (intensities = thetas) and through block_end
+    (the accept of cand at a gain >= 0, of t2 at a NaN gain), with reads
     and eumaps a row each: NaN where the plain version has NaN, the same
-    bits elsewhere but for the log1p tolerance."""
+    bits elsewhere but for the log1p tolerance; the intensities and
+    block_end's theta bit-equal."""
     s_old, s_new, reads, eumaps = gain_branch_cases(dtype)
     g = _identity_groups(s_old.shape[1], dtype)
     lib = emulated[csr_cycle.SOURCE]
     want = csr_cycle.gain_terms(reads, eumaps, s_old, s_new)
     assert torch.isnan(want).sum() >= 3 and (want.abs() == 1e30).any()
-    _, two = _emulated_gain(lib, g, reads, eumaps, s_new, x_old=s_old)
-    s_out, one = _emulated_gain(lib, g, reads, eumaps, s_new, s_old=s_old)
-    assert torch.equal(s_out.nan_to_num(), s_new.nan_to_num())
-    for got in (two, one):
+    got, s_o, s_n = _emulated_gain(lib, g, reads, eumaps, s_old, s_new)
+    assert torch.equal(s_o.nan_to_num(), s_old.nan_to_num())
+    assert torch.equal(s_n.nan_to_num(), s_new.nan_to_num())
+    _log1p_tolerance(got, want, reads, s_old, s_new)
+    other = s_new.flip(-1)
+    for value, (cand, t2) in ((0.0, (s_new, other)),
+                              (np.nan, (other, s_new))):
+        gain = torch.full((s_new.shape[0],), value, dtype=dtype)
+        theta, s, got = _emulated_block_end(lib, gain, cand, t2, t2, cand,
+                                            s_old, reads, eumaps)
+        assert torch.equal(theta.nan_to_num(), s_new.nan_to_num())
+        assert torch.equal(s.nan_to_num(), s_new.nan_to_num())
         _log1p_tolerance(got, want, reads, s_old, s_new)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_pair_gain_tma_staging_is_the_direct_kernel(emulated, dtype, shift):
+    """pair_gain built to stage its tiles' tids, weights and group ends by
+    bulk copies (EMSAR_PAIR_TMA=1, the variant bench/pair_parts.py times)
+    gives the default build's bits, with and without the intensities, on
+    groupings whose arrays start ``shift`` elements into their allocation
+    (a tile's first element then lies inside a 16-byte line, whose other
+    elements the threads load), reads and eumaps a row each at R = 3; the
+    intensities equal the plain version's."""
+    rng = np.random.default_rng(40 + shift)
+    problem = _sum_problem(rng, n_seg=120, ntid=90, n_edges=1500)
+    p = solver.problem_to_device(problem, torch.device("cpu"), dtype)
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + shift, dtype=t.dtype)
+        buf[shift:] = t
+        return buf[shift:]
+    g = dataclasses.replace(p.by_cid, mult=shifted(p.by_cid.mult),
+                            idx=shifted(p.by_cid.idx),
+                            offsets=shifted(p.by_cid.offsets))
+    assert g.idx.data_ptr() % 16 == 4 * shift % 16
+    R, T = 3, problem.n_transcripts
+    reads = torch.stack([p.reads * k for k in (1, 2, 0.5)])
+    eumaps = torch.stack([p.eumaps.roll(k) for k in range(R)])
+    t2 = torch.as_tensor(rng.uniform(0, 10, (R, T))).to(dtype)
+    cand = torch.as_tensor(rng.uniform(0, 10, (R, T))).to(dtype)
+    assert (torch.diff(g.offsets) > 2 * PAIR_TILE).any()
+    for intensities in (False, True):
+        want = _emulated_gain(emulated[csr_cycle.SOURCE], g, reads, eumaps,
+                              t2, cand, intensities)
+        got = _emulated_gain(emulated[PAIR_TMA], g, reads, eumaps, t2, cand,
+                             intensities)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a, b)
+    s_t2, s_cand = (segment_sum.segment_sum_ref(a, g.mult, g.idx, g.offsets)
+                    for a in (t2, cand))
+    assert torch.equal(got[1], s_t2) and torch.equal(got[2], s_cand)
 
 
 @pytest.mark.parametrize("per_row", [False, True], ids=["shared", "per_row"])
@@ -525,13 +739,14 @@ def test_gain_term_source_branches(emulated, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
 def test_csr_cycle_source_matches_plain(emulated, dtype, lanes, per_row):
-    """The three kernels of csrc/csr_cycle.cu on one cycle of a random
+    """The four kernels of csrc/csr_cycle.cu on one cycle of a random
     problem at R = 3 (reads and eumaps shared or a row each; every lane
-    count): the intensities of pair_gain's one-sum form, cycle_extrap
-    and cycle_select bit-equal to their plain versions, the gain terms so
-    but for the log1p tolerance; cycle_extrap also on rows whose v is 0
-    (alpha -1) and whose alpha is NaN, cycle_select on NaN and signed-zero
-    gains."""
+    count of the EM steps): pair_gain's intensities (tiles of 16 segments,
+    a segment of more edges than a tile stages among them), cycle_extrap,
+    cycle_select and block_end's theta and intensities bit-equal to their
+    plain versions, the gain terms so but for the log1p tolerance;
+    cycle_extrap also on rows whose v is 0 (alpha -1) and whose alpha is
+    NaN, cycle_select and block_end on NaN and signed-zero gains."""
     rng = np.random.default_rng(lanes + 11 * per_row)
     problem = _sum_problem(rng)
     p = solver.problem_to_device(problem, torch.device("cpu"), dtype)
@@ -571,11 +786,15 @@ def test_csr_cycle_source_matches_plain(emulated, dtype, lanes, per_row):
     s_t2, s_cand = (segment_sum.segment_sum_ref(a, g.mult, g.idx, g.offsets)
                     for a in (t2, cand))
     want = csr_cycle.gain_terms(reads, eumaps, s_t2, s_cand)
-    _, got = _emulated_gain(lib, g, reads, eumaps, cand, x_old=t2)
+    assert (torch.diff(g.offsets) > 2 * PAIR_TILE).any()
+    got, none, _ = _emulated_gain(lib, g, reads, eumaps, t2, cand,
+                                  intensities=False)
+    assert none is None
     _log1p_tolerance(got, want, reads, s_t2, s_cand)
-    s_out, got = _emulated_gain(lib, g, reads, eumaps, cand, s_old=s_t2)
-    assert torch.equal(s_out, s_cand)
+    got, s_o, s_n = _emulated_gain(lib, g, reads, eumaps, t2, cand)
+    assert torch.equal(s_o, s_t2) and torch.equal(s_n, s_cand)
     _log1p_tolerance(got, want, reads, s_t2, s_cand)
+    s_prev = segment_sum.segment_sum_ref(theta, g.mult, g.idx, g.offsets)
     fn = (lib.emsar_cycle_select_f64 if dtype == torch.float64
           else lib.emsar_cycle_select_f32)
     fn.restype = ctypes.c_int
@@ -587,6 +806,15 @@ def test_csr_cycle_source_matches_plain(emulated, dtype, lanes, per_row):
         assert fn(gain.data_ptr(), cand.data_ptr(), t2.data_ptr(),
                   got.data_ptr(), R, T, None) == 0
         assert torch.equal(got, csr_cycle.cycle_select_ref(gain, cand, t2))
+        end = csr_cycle.block_end_ref(gain, cand, t2, s_t2, s_cand, s_prev,
+                                      reads, eumaps)
+        out = _emulated_block_end(lib, gain, cand, t2, s_t2, s_cand, s_prev,
+                                  reads, eumaps)
+        assert torch.equal(out[0], end[0]) and torch.equal(out[1], end[1])
+        _log1p_tolerance(out[2], end[2], reads, s_prev, end[1])
+        out = _emulated_block_end(lib, gain, cand, t2, s_t2, s_cand, None,
+                                  reads, eumaps)
+        assert torch.equal(out[1], end[1]) and out[2] is None
 
 
 def _collapse_problem(rng):
@@ -667,21 +895,25 @@ def emulated_em_pair(lib, src, plan, reads, inv_denom):
 
 
 def emulated_extrap_gain(lib, theta, t1, t2, rs, vs, plan, reads, eumaps,
-                         inv_denom):
-    """The emulated cluster_extrap_gain: (cand, gain terms)."""
+                         inv_denom, intensities=False):
+    """The emulated cluster_extrap_gain: (cand, gain terms), and with
+    ``intensities`` t2's and cand's intensities too."""
     R, T = theta.shape
     C = plan.by_cid.n_groups
     cand = torch.full_like(theta, 7.0)
     terms = torch.full((R, C), 7.0, dtype=theta.dtype)
+    s_pair = ((torch.full_like(terms, 7.0), torch.full_like(terms, 7.0))
+              if intensities else (None, None))
     fn = _cluster_fn(lib, "extrap_gain", theta.dtype,
                      csr_cluster.EXTRAP_GAIN_ARGTYPES)
     assert fn(theta.data_ptr(), t1.data_ptr(), t2.data_ptr(), rs.data_ptr(),
               vs.data_ptr(), *plan.args(), reads.data_ptr(),
               eumaps.data_ptr(), inv_denom.data_ptr(), cand.data_ptr(),
-              terms.data_ptr(), R, C, T, plan.n_tiles, plan.rows, plan.smem,
+              terms.data_ptr(), *(_ptr(t) for t in s_pair), R, C, T,
+              plan.n_tiles, plan.rows, plan.smem,
               C if reads.dim() == 2 else 0, T if inv_denom.dim() == 2 else 0,
               plan.cluster, None) == 0
-    return cand, terms
+    return (cand, terms, *s_pair) if intensities else (cand, terms)
 
 
 def _extrap_gain_ieee(theta, t1, t2, rs, vs, p, reads, eumaps, inv_denom):
@@ -749,8 +981,10 @@ def test_cluster_extrap_gain_source_matches_plain(emulated, R, dtype,
     """cluster_extrap_gain on one cycle's t1, t2 and step-length sums: cand
     bit-equal to the plain version's (``_extrap_gain_ieee``: its square
     roots correctly rounded), the gain terms so but for the log1p
-    tolerance; also on rows whose step length is NaN (kept by the clamp),
-    inf / inf, or whose v is 0 (alpha -1)."""
+    tolerance, and with the intensities asked for (a block's last cycle)
+    t2's and cand's bit-equal to their segment sums; also on rows whose
+    step length is NaN (kept by the clamp), inf / inf, or whose v is 0
+    (alpha -1)."""
     p, theta, reads, eumaps, inv_denom = _cluster_inputs(R, dtype, per_row,
                                                          seed, tiles)
     lib = emulated[csr_cluster.SOURCE]
@@ -764,13 +998,17 @@ def test_cluster_extrap_gain_source_matches_plain(emulated, R, dtype,
                                     odd[:, 1:].contiguous())):
         args = (theta, t1, t2, r_sum, v_sum)
         want = _extrap_gain_ieee(*args, p, reads, eumaps, inv_denom)
-        got = emulated_extrap_gain(lib, *args, p, reads, eumaps, inv_denom)
+        got = emulated_extrap_gain(lib, *args, p, reads, eumaps, inv_denom,
+                                   intensities=True)
         assert torch.equal(got[0].nan_to_num(), want[0].nan_to_num())
         assert torch.equal(torch.isnan(got[0]), torch.isnan(want[0]))
         s_t2, s_cand = (segment_sum.segment_sum_ref(
             a, p.by_cid.mult, p.by_cid.idx, p.by_cid.offsets)
             for a in (t2, want[0]))
         _log1p_tolerance(got[1], want[1], reads, s_t2, s_cand)
+        assert torch.equal(got[2], s_t2)
+        assert torch.equal(got[3].nan_to_num(), s_cand.nan_to_num())
+        assert torch.equal(torch.isnan(got[3]), torch.isnan(s_cand))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -844,13 +1082,14 @@ def test_cluster_kernels_read_other_blocks(emulated, R, dtype, per_row,
     args = (theta, t1, t2, torch.sum(r_sq, dim=1, keepdim=True),
             torch.sum(v_sq, dim=1, keepdim=True))
     want_x = _extrap_gain_ieee(*args, p, reads, eumaps, inv_denom)
-    cand, terms = emulated_extrap_gain(lib, *args, p, reads, eumaps,
-                                       inv_denom)
+    cand, terms, got_t2, got_cand = emulated_extrap_gain(
+        lib, *args, p, reads, eumaps, inv_denom, intensities=True)
     assert torch.equal(cand, want_x[0])
     s_t2, s_cand = (segment_sum.segment_sum_ref(
         a, p.by_cid.mult, p.by_cid.idx, p.by_cid.offsets)
         for a in (t2, cand))
     _log1p_tolerance(terms, want_x[1], reads, s_t2, s_cand)
+    assert torch.equal(got_t2, s_t2) and torch.equal(got_cand, s_cand)
     gain = torch.sum(want_x[1], dim=-1)
     gain[0] = -1.0  # row 0 takes t2
     src = (gain, cand, t2)

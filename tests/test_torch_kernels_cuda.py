@@ -320,10 +320,12 @@ def _cycle_inputs(rng, R, dtype, dev):
 def test_csr_cycle_kernels_match_plain(cuda, dtype, R):
     """One cycle's pieces on the card, each against its plain version on
     the same inputs, bit for bit: em_step_cycle (t2, r * r, v * v) against
-    the CPU's; cycle_extrap, pair_gain and block_gain (their intensities
-    summed on the CPU, the gain terms by torch on the card, so CUDA's
-    log1p on both sides) and cycle_select against torch on the card; two
-    calls equal; the launch counts."""
+    the CPU's; cycle_extrap, the tiled pair_gain (its intensities against
+    sums on the CPU, the gain terms against torch on the card, so CUDA's
+    log1p on both sides), block_end and cycle_select against torch on the
+    card; the EM steps from the extrapolation and from the accept against
+    em_step of cycle_extrap's and cycle_select's outputs; two calls equal;
+    the launch counts."""
     rng = np.random.default_rng(R + 31)
     pg, pc, th = _cycle_inputs(rng, R, dtype, cuda)
     thg = th.to(cuda)
@@ -355,14 +357,35 @@ def test_csr_cycle_kernels_match_plain(cuda, dtype, R):
                                                 cand))
     assert torch.equal(got.nan_to_num(), terms.nan_to_num())
     assert torch.equal(torch.isnan(got), torch.isnan(terms))
-    s, got = csr_cycle.block_gain(g, pg.reads, pg.eumaps, s_t2, cand)
-    assert torch.equal(s, s_cand)
-    assert torch.equal(got.nan_to_num(), terms.nan_to_num())
+    got, s_o, s_n = csr_cycle.pair_gain(g, pg.reads, pg.eumaps, t2, cand,
+                                        intensities=True)
+    assert torch.equal(s_o, s_t2) and torch.equal(s_n, s_cand)
+    assert _same(got, terms)
     gain = torch.sum(terms, dim=-1)
+    gain[0] = np.nan  # the accept's NaN branch: t2
     out = csr_cycle.cycle_select(gain, cand, t2)
     torch.cuda.synchronize()
     assert torch.equal(out, csr_cycle.cycle_select_ref(gain, cand, t2))
-    assert csr_cycle.LAUNCHES == before + 6
+    s_prev = torch.roll(s_t2, 1, dims=1).contiguous()
+    end = csr_cycle.block_end(gain, cand, t2, s_t2, s_cand, s_prev, pg.reads,
+                              pg.eumaps)
+    want = csr_cycle.block_end_ref(gain, cand, t2, s_t2, s_cand, s_prev,
+                                   pg.reads, pg.eumaps)
+    for a, w in zip(end, want):
+        assert _same(a, w)
+    assert torch.equal(end[0], out)
+    assert csr_cycle.LAUNCHES == before + 7
+    before = ssum.EM_LAUNCHES
+    got = ssum.em_step_extrap(thg, t1, t2, rs, vs, pg.by_cid, pg.by_tid,
+                              pg.reads, pg.inv_denom)
+    assert torch.equal(got, cand)
+    theta, got = ssum.em_step_select(gain, cand, t2, pg.by_cid, pg.by_tid,
+                                     pg.reads, pg.inv_denom)
+    torch.cuda.synchronize()
+    assert ssum.EM_LAUNCHES == before + 4
+    assert torch.equal(theta, out)
+    assert torch.equal(got.cpu(), ssum.em_step_ref(
+        out.cpu(), pc.by_cid, pc.by_tid, pc.reads, pc.inv_denom))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -370,7 +393,7 @@ def test_csr_cycle_kernels_match_plain(cuda, dtype, R):
 def test_gain_term_kernel_branches(cuda, dtype):
     """The gain term's every branch on one-edge segments (intensities =
     thetas): NaN intensities, died, born, both zero, a read-less collapse
-    (0 * log1p(-1) = NaN): pair_gain and block_gain give torch's terms on
+    (0 * log1p(-1) = NaN): pair_gain and block_end give torch's terms on
     the card bit for bit; cycle_extrap keeps a NaN step length and takes
     -1 where vnorm is 0."""
     s_old, s_new, reads, eumaps = gain_branch_cases(dtype, cuda)
@@ -380,8 +403,10 @@ def test_gain_term_kernel_branches(cuda, dtype):
                      torch.ones(n, dtype=dtype, device=cuda), n)
     want = csr_cycle.gain_terms(reads, eumaps, s_old, s_new)
     assert torch.isnan(want).sum() >= 3 and (want.abs() == 1e30).any()
+    ones = torch.ones(s_new.shape[0], dtype=dtype, device=cuda)
     for got in (csr_cycle.pair_gain(g, reads, eumaps, s_old, s_new),
-                csr_cycle.block_gain(g, reads, eumaps, s_old, s_new)[1]):
+                csr_cycle.block_end(ones, s_new, s_old, s_old, s_new, s_old,
+                                    reads, eumaps)[2]):
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         assert torch.equal(got.nan_to_num(), want.nan_to_num())
     th = torch.rand((4, 7), dtype=dtype, device=cuda)
@@ -398,17 +423,26 @@ def test_gain_term_kernel_branches(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
 def test_squarem_cycle_is_the_torch_body_on_the_card(cuda, dtype, R):
-    """Eight cycles of ``solver._squarem_cycle`` (twelve launches each) give
-    the bits of the torch body they replaced, run on the card with the
-    same EM-step and intensity kernels, after every cycle."""
+    """Eight cycles of ``solver._squarem_cycle`` give the bits of the torch
+    body they replaced, run on the card with the same EM-step and
+    intensity kernels, after every cycle; and eight cycles as one block
+    of ten launches a cycle and of twelve (``FOLD_MAX_EDGES`` 0) give the
+    body's bits after the eighth."""
     rng = np.random.default_rng(R + 41)
     pg, _, th = _cycle_inputs(rng, R, dtype, cuda)
-    th = want = th.to(cuda)
+    th = want = th0 = th.to(cuda)
     for _ in range(8):
         th = solver._squarem_cycle(pg, th)
         want = torch_body_cycle(pg, want)
         torch.cuda.synchronize()
         assert torch.equal(th, want)
+    assert torch.equal(solver._squarem_cycles(pg, th0, 8, None), want)
+    fold = solver.FOLD_MAX_EDGES
+    try:
+        solver.FOLD_MAX_EDGES = 0
+        assert torch.equal(solver._squarem_cycles(pg, th0, 8, None), want)
+    finally:
+        solver.FOLD_MAX_EDGES = fold
 
 
 def _same(a, b):
@@ -439,7 +473,8 @@ def _check_cluster_kernels(pg, pc, th, plan, cuda):
     vs = torch.sum(v_sq, dim=1, keepdim=True)
     ex = (thg, t1, t2, rs, vs, plan, pg.reads, pg.eumaps, pg.inv_denom)
     cand, terms = csr_cluster.extrap_gain(*ex)
-    cand2, terms2 = csr_cluster.extrap_gain(*ex)
+    cand2, terms2, s_t2_k, s_cand_k = csr_cluster.extrap_gain(
+        *ex, intensities=True)
     torch.cuda.synchronize()
     # the extrapolation by torch on the card (CUDA's sqrt, as the
     # kernel's: torch's CPU sqrt may be an ulp off), its EM step on the CPU
@@ -453,6 +488,7 @@ def _check_cluster_kernels(pg, pc, th, plan, cuda):
                     .to(cuda) for a in (t2, cand))
     assert _same(terms, csr_cycle.gain_terms(pg.reads, pg.eumaps, s_t2,
                                              s_cand))
+    assert torch.equal(s_t2_k, s_t2) and _same(s_cand_k, s_cand)
     gain = torch.sum(terms, dim=-1)
     gain[0] = np.nan  # the accept's NaN branch: t2
     src = (gain, cand, t2)

@@ -160,9 +160,10 @@ def test_counters_count_replays(monkeypatch, k):
     """The launch counters after a replayed solve equal the eager solve's:
     the capture's ticks are taken back and added once per replay."""
     monkeypatch.setattr(loop, "CHECK_EVERY", k)
-    # sum_groups, em_step, squarem_block, csr_cycle, cluster_em_pair,
+    # sum_groups, em_step, squarem_block, csr_cycle (all, then pair_gain,
+    # block_end, cycle_extrap, cycle_select), cluster_em_pair,
     # cluster_extrap_gain launches
-    per_block = (3, 4, 1, 2, 8, 8)
+    per_block = (3, 4, 1, 2, 1, 1, 0, 0, 8, 8)
     assert len(per_block) == len(loop.COUNTERS)
 
     def solve(graph):

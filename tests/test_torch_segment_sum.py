@@ -95,3 +95,76 @@ def test_segment_sum_wrapper_on_cpu_is_the_plain_version():
     assert torch.equal(ss.sum_groups(x, ss.prepare(off, idx, w, 4)), got)
     with pytest.raises(ValueError, match="contiguous"):
         ss.segment_sum(x.T, w, idx, off)
+
+
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_em_step_modes_are_the_two_step_body(dtype, R):
+    """The EM steps from a source (``em_step_extrap``, ``em_step_select``)
+    and their plain versions: the bits of the two steps they fold, the
+    cycle's lines as the torch body wrote them (the extrapolation from the
+    row sums of r * r and v * v, the accept by row) and then the EM step;
+    the accept written out is the body's theta.  Rows of NaN, -0.0 and
+    negative gain, a row of r = v = 0 (alpha -1), reads and 1 / denom one
+    row or (R 16) a row each."""
+    rng = np.random.default_rng(R + 50)
+    problem = _random_problem(rng, 300, 120, 2000)
+    p = tsolver.problem_to_device(problem, CPU, dtype)
+    T = problem.n_transcripts
+    reads, inv_denom = p.reads, p.inv_denom
+    if R == 16:
+        reads = torch.as_tensor(rng.uniform(0.5, 2, (R, 1))).to(dtype) * reads
+        inv_denom = torch.stack([inv_denom.roll(k) for k in range(R)])
+    groups = (p.by_cid, p.by_tid, reads, inv_denom)
+    theta = rng.uniform(0, 10, (R, T))
+    theta[:, rng.random(T) < 0.2] = 0.0
+    theta = torch.as_tensor(theta).to(dtype)
+    theta[-1] = 0.0
+    t1 = ss.em_step_ref(theta, *groups)
+    t2 = ss.em_step_ref(t1, *groups)
+    r = t1 - theta
+    v = t2 - t1 - r
+    rs = torch.sum(r * r, dim=1, keepdim=True)
+    vs = torch.sum(v * v, dim=1, keepdim=True)
+    rnorm, vnorm = torch.sqrt(rs), torch.sqrt(vs)
+    alpha = torch.clamp(torch.where(
+        vnorm > 0, -rnorm / torch.where(vnorm > 0, vnorm, 1.0), -1.0),
+        max=-1.0)
+    extrap = theta - 2.0 * alpha * r + (alpha * alpha) * v
+    want = ss.em_step_ref(torch.where(extrap > 0, extrap, t2), *groups)
+    assert vs[-1, 0] == 0
+    for fn in (ss.em_step_extrap_ref, ss.em_step_extrap):
+        assert torch.equal(fn(theta, t1, t2, rs, vs, *groups), want)
+    gain = torch.as_tensor(np.resize([np.nan, -0.0, 1.0, -2.0], R)).to(dtype)
+    body = torch.where((gain >= 0)[:, None], want, t2)
+    for fn in (ss.em_step_select_ref, ss.em_step_select):
+        th, out = fn(gain, want, t2, *groups)
+        assert torch.equal(th, body)
+        assert torch.equal(out, ss.em_step_ref(body, *groups))
+    assert torch.equal(body[0], t2[0])
+    assert R == 1 or torch.equal(body[1], want[1])
+
+
+def test_tile_bounds_cut_the_groups():
+    """Tiles of consecutive groups: every group in one tile, at most
+    ``tile`` groups a tile and fewer than ``tile`` edges before a tile's
+    last group; a group longer than a tile leaves tiles empty; no groups,
+    one empty tile."""
+    sizes = np.array([3, 0, 1, 40, 2, 2, 0, 0, 5, 1, 1, 17, 0, 3])
+    off = torch.as_tensor(np.concatenate([[0], np.cumsum(sizes)]))
+    for tile in (4, 8, 16, 512):
+        b, e = ss.tile_bounds(off, tile).numpy()
+        assert (e == off.numpy()[b]).all()
+        assert b[0] == 0 and b[-1] == len(sizes)
+        assert (np.diff(b) >= 0).all() and (np.diff(b) <= tile).all()
+        for s0, s1 in zip(b[:-1], b[1:]):
+            if s1 > s0:
+                assert off[s1 - 1] - off[s0] < tile
+        assert len(b) - 1 == max(1, -(-(int(off[-1]) + len(sizes)) // tile))
+    assert (np.diff(ss.tile_bounds(off, 4)[0].numpy()) == 0).any()
+    assert ss.tile_bounds(torch.zeros(1, dtype=torch.int64), 8).tolist() == [
+        [0, 0], [0, 0]]
+    g = ss.prepare(off, torch.zeros(int(off[-1]), dtype=torch.int64),
+                   torch.ones(int(off[-1]), dtype=torch.float64), 1)
+    assert torch.equal(g.tiles, ss.tile_bounds(off, ss.TILE))
