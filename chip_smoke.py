@@ -23,19 +23,18 @@ exit, no result line):
    the library yardstick.  Then the CSR cycle's crossover
    (``emsar_tpu_torch.bench.cluster_sweep``): random problems of modules,
    10,000 to 11.5 M edges at R 1 and some at R 3, R 16 and float32, eight
-   cycles on clusters, as ten launches a cycle and as twelve, bit-equal
-   and timed from CUDA graphs, the cluster sizes and tile counts compared
-   at 90,000 edges, the two row layouts (a cluster a row, a cluster over
-   all rows) at R 3 and 16, and the largest module an 8-block cluster
-   stages; ``solver.solve`` above ``CLUSTER_MAX_EDGES`` (so above
-   ``FOLD_MAX_EDGES``), which must take the twelve launches (em_step,
-   cycle_extrap and cycle_select launched), and, unforced, on the sweep's
-   modules with one module above the 8-block cluster's limit
-   (``bench.cycle_ab.oversized_problem``, 159,815 edges), which must
-   take the launches (no tile plan; em_step and pair_gain launched;
-   cycle_extrap and cycle_select only where its edges exceed
-   ``FOLD_MAX_EDGES``: ten launches a cycle, else twelve), its ms per
-   block timed; the csr_cycle kernels at both shapes as in phase 6.
+   cycles on clusters and as twelve launches bit-equal and timed from
+   CUDA graphs, the cluster sizes and tile counts compared at 90,000
+   edges, the two row layouts (a cluster a row, a cluster over all rows)
+   at R 3 and 16, and the largest module an 8-block cluster stages;
+   ``solver.solve`` above ``CLUSTER_MAX_EDGES``, which must take the
+   twelve launches (em_step, cycle_extrap and cycle_select launched),
+   and, unforced, on the sweep's modules with one module above the
+   8-block cluster's limit (``bench.cycle_ab.oversized_problem``,
+   159,815 edges), which must take them too (no tile plan; em_step,
+   pair_gain, cycle_extrap, cycle_select and block_end launched), its ms
+   per block timed; the csr_cycle kernels at both shapes as in phase
+   6.
 4. Fixture (cached under bench_cache/torch_smoke/): the SE bench workload,
    a 2000-gene family transcriptome (~12k transcripts, ~15 Mbp) as
    smoke.fa, SE l50 .rsh from the port's NumPy builder, 1M simulated reads
@@ -56,9 +55,8 @@ exit, no result line):
 6. Kernels against plain versions at the main path's shapes: the SQUAREM
    block on its dense batches (float64), the segment sums and em_step on
    its CSR problem (bit-equal to the CPU); the CSR cycle's kernels
-   (em_step_cycle, the EM steps from the extrapolation and from the
-   accept, cycle_extrap, the tiled pair_gain with and without its
-   intensities, cycle_select, block_end and a whole cycle of ten
+   (em_step_cycle, cycle_extrap, the tiled pair_gain with and without its
+   intensities, cycle_select, block_end and a whole cycle of twelve
    launches) and the cluster kernels (cluster_em_pair from theta and from
    an accept, cluster_extrap_gain with and without its intensities,
    eight cycles of five launches) bit-equal to their plain versions at
@@ -66,15 +64,15 @@ exit, no result line):
    and float64); max abs error, device and host times, bounds, each
    kernel's share of its bound and the cluster plan's tiles and cluster
    size.  Then ``bench.cycle_ab`` on this checkout alone: the block end,
-   pair_gain and eight cycles of ten and of twelve launches at the smoke's
-   CSR shapes (R 1, R 3 f64 and f32, R 16) and on the oversized module's
-   problem, with its solve's ms per block.  Then the CSR solve through
+   pair_gain and eight cycles of twelve launches at the smoke's CSR
+   shapes (R 1, R 3 f64 and f32, R 16) and on the oversized module's
+   problem, with its solve's ms per replayed block.  Then the CSR solve through
    ``solver.solve``, its blocks replayed from a CUDA graph
    (``model/loop.py``) on clusters:
    CSR_BLOCKS blocks to its end; the tile plan's host ms, made and taken
    from the plan cache; the whole solve's ms per block, capture ms,
    kernel launches per block run and device busy share (torch.profiler),
-   on clusters and forced off them (ten launches a cycle).
+   on clusters and forced off them (twelve launches a cycle).
 7. The SE index build on the card: ``emsar-build-torch smoke.fa 50`` must
    write the NumPy builder's smoke.rsh byte for byte (window-hash launch
    count > 0), and ``emsar-torch --solver_pallas -x smoke.fa`` must agree
@@ -154,7 +152,7 @@ exit, no result line):
    blocks run after the stop, capture ms, device busy share and kernels
    per block (torch.profiler); the CSR block's bound.  The three CSR loops
    (the solve, its restart rounds, the batched solve) run on clusters and
-   again forced off them (ten launches a cycle): bit-equal.
+   again forced off them (twelve launches a cycle): bit-equal.
 
 Times on the card (``kernels/measure.py``): ``ms`` is device time per
 call, CUDA events around calls queued back to back behind a sleep kernel;
@@ -927,21 +925,19 @@ def plain_cycle(p, theta):
 
 def check_csr_cycle(p, theta, label: str) -> dict:
     """The CSR cycle's kernels on the card against their plain versions on
-    the same inputs, bit for bit: em_step_cycle (t2, r * r, v * v) and the
-    EM steps from the extrapolation and from the accept (and the accepted
-    theta they write) against the CPU's; cycle_extrap, cycle_select, the
+    the same inputs, bit for bit: em_step_cycle (t2, r * r, v * v)
+    against the CPU's; cycle_extrap, cycle_select, the
     tiled pair_gain's gain terms and block_end against torch on the card
     (the intensities summed on the CPU: index_add_ on the card sums with
     atomics), pair_gain's intensities against the CPU's; a whole
-    ``solver._squarem_cycle`` off clusters (ten launches) against
+    ``solver._squarem_cycle`` off clusters (twelve launches) against
     ``plain_cycle``, and on two calls.  ``p`` is a DeviceProblem or
     ShardedProblem on the card (reads, eumaps, inv_denom one row or a row
     each), theta [R, T].  Times each csr_cycle kernel (device and host ms)
-    and its plain version on the card beside its bound
-    (``bench.cycle_ab.kernel_bounds``), the EM steps' input modes against
-    the launch each saves and em_step, and the whole cycle against
-    ``plain_cycle``.  Returns {kernel: what it measured, "cycle": the EM
-    steps' and the cycle's times}."""
+    and its plain version on the card, each call from a cold L2, beside
+    its bound (``bench.cycle_ab.kernel_bounds``), em_step, em_step_cycle
+    and the whole cycle against ``plain_cycle``.  Returns {kernel: what
+    it measured, "cycle": the EM steps' and the cycle's times}."""
     import torch
 
     from emsar_tpu_torch.bench.cycle_ab import kernel_bounds
@@ -967,11 +963,7 @@ def check_csr_cycle(p, theta, label: str) -> dict:
     x = cc.cycle_extrap(theta, t1, t2, rs, vs)
     if not _same_bits(x, cc.cycle_extrap_ref(theta, t1, t2, rs, vs)):
         failed.append("cycle_extrap")
-    cand = ss.em_step_extrap(theta, t1, t2, rs, vs, *groups)
-    # the extrapolation by torch on the card (CUDA's sqrt, as the
-    # kernel's: torch's CPU sqrt may be an ulp off), its EM step on the CPU
-    if not _same_bits(cand, ss.em_step_ref(x.cpu(), *cpu)):
-        failed.append("em_step_extrap")
+    cand = ss.em_step(x, *groups)
     s_t2, s_cand = (ss.segment_sum_ref(a.cpu(), cpu[0].mult, cpu[0].idx,
                                        cpu[0].offsets).to(theta.device)
                     for a in (t2, cand))
@@ -987,11 +979,6 @@ def check_csr_cycle(p, theta, label: str) -> dict:
     out = cc.cycle_select(gain, cand, t2)
     if not _same_bits(out, cc.cycle_select_ref(gain, cand, t2)):
         failed.append("cycle_select")
-    th_s, t1_s = ss.em_step_select(gain, cand, t2, *groups)
-    torch.cuda.synchronize()
-    if not (_same_bits(th_s, out)
-            and _same_bits(t1_s, ss.em_step_ref(out.cpu(), *cpu))):
-        failed.append("em_step_select")
     s_prev = ss.sum_groups(theta, gc)
     end = cc.block_end(gain, cand, t2, s_t2, s_cand, s_prev, p.reads,
                        p.eumaps)
@@ -1032,14 +1019,6 @@ def check_csr_cycle(p, theta, label: str) -> dict:
                           "bound_by": by, "bytes": n_bytes}
     steps = {
         "em_step": lambda: ss.em_step(t1, *groups),
-        "em_step_extrap": lambda: ss.em_step_extrap(theta, t1, t2, rs, vs,
-                                                    *groups),
-        "em_step_select": lambda: ss.em_step_select(gain, cand, t2,
-                                                    *groups),
-        "cycle_extrap then em_step": lambda: ss.em_step(
-            cc.cycle_extrap(theta, t1, t2, rs, vs), *groups),
-        "cycle_select then em_step": lambda: ss.em_step(
-            cc.cycle_select(gain, cand, t2), *groups),
         "em_step_cycle": lambda: ss.em_step_cycle(t1, theta, *groups),
         "pair_gain intensities": lambda: cc.pair_gain(
             gc, p.reads, p.eumaps, t2, cand, intensities=True),
@@ -1055,8 +1034,8 @@ def check_csr_cycle(p, theta, label: str) -> dict:
         p, theta), n=50)
     C, T, E = gc.n_groups, gt.n_groups, gc.idx.shape[0]
     log(f"csr_cycle {label} {str(theta.dtype)[6:]} R={R} C={C} T={T} E={E}: "
-        f"em_step_cycle, the EM steps from the extrapolation and from the "
-        f"accept, cycle_extrap, pair_gain (tiles of {ss.TILE} segments, "
+        f"em_step_cycle, cycle_extrap, pair_gain (tiles of {ss.TILE} "
+        f"segments, "
         f"{gc.tiles.shape[1] - 1} tiles), cycle_select, block_end and the "
         f"whole cycle bit-equal to their plain versions ({n_nan} NaN gain "
         f"terms); " + "; ".join(
@@ -1259,24 +1238,23 @@ def phase_cluster_sweep(dev) -> dict:
     """The crossovers of the CSR cycle's paths
     (``emsar_tpu_torch.bench.cluster_sweep``): random CSR problems of
     modules from 10,000 to 11.5 M edges at R 1 (float64), and some at R 3,
-    R 16 and in float32, each a block's eight cycles on clusters, as ten
-    launches a cycle and as twelve, bit-equal and timed from CUDA graphs.
-    Then the launch path through ``solver.solve``, a user's entry point:
-    on a problem above ``CLUSTER_MAX_EDGES`` and ``FOLD_MAX_EDGES`` (four
-    blocks; em_step, pair_gain, cycle_extrap, cycle_select and block_end
-    launched, the cluster kernels not), and, unforced, on the sweep's
-    modules with one module above the 8-block cluster's limit
-    (``bench.cycle_ab.oversized_problem``: no tile plan; ten launches a
-    cycle within ``FOLD_MAX_EDGES``, cycle_extrap and cycle_select not
-    launched, else twelve), its ms per block timed; the csr_cycle kernels
-    at both shapes (``check_csr_cycle``).
-    Returns what it measured."""
+    R 16 and in float32, each a block's eight cycles on clusters and as
+    twelve launches a cycle, bit-equal and timed from CUDA graphs.  Then
+    the launch path through ``solver.solve``, a user's entry point: on a
+    problem above ``CLUSTER_MAX_EDGES`` (four blocks), and, unforced, on
+    the sweep's modules with one module above the 8-block cluster's limit
+    (``bench.cycle_ab.oversized_problem``: no tile plan; to its
+    convergence), each with em_step, pair_gain, cycle_extrap,
+    cycle_select and block_end launched and the cluster kernels not; the
+    second's ms per replayed block (``bench.cycle_ab.solve_ms``); the
+    csr_cycle kernels at both shapes (``check_csr_cycle``).  Returns what
+    it measured."""
     import numpy as np
     import torch
 
     from emsar_tpu_torch.bench import cluster_sweep as cs
     from emsar_tpu_torch.bench.cycle_ab import oversized_problem
-    from emsar_tpu_torch.model import loop, solver
+    from emsar_tpu_torch.model import solver
     out = {"sweeps": [cs.sweep(dev, R=1, log=log)]}
     for R, dt, sizes in ((3, torch.float64, (25_000, 90_000, 360_000)),
                          (16, torch.float64, (25_000, 90_000, 360_000)),
@@ -1291,10 +1269,7 @@ def phase_cluster_sweep(dev) -> dict:
     log(f"cluster sweep: the cluster path faster up to "
         f"{out['sweeps'][0]['crossover_edges']} edges at R 1 (the largest "
         f"size measured {out['sweeps'][0]['sizes'][-1]['edges']}); "
-        f"CLUSTER_MAX_EDGES {solver.CLUSTER_MAX_EDGES}; ten launches a "
-        f"cycle faster than twelve up to "
-        f"{out['sweeps'][0]['fold_crossover_edges']} edges; FOLD_MAX_EDGES "
-        f"{solver.FOLD_MAX_EDGES}")
+        f"CLUSTER_MAX_EDGES {solver.CLUSTER_MAX_EDGES}")
     rng = np.random.default_rng(7)
     problem = cs.random_problem(rng, solver.CLUSTER_MAX_EDGES * 101 // 100)
     E = len(problem.edge_cid)
@@ -1304,7 +1279,7 @@ def phase_cluster_sweep(dev) -> dict:
     launched = read_launches()
     log(f"CSR solve above the crossovers ({E} edges): {it} blocks, logL "
         f"{ll!r}, launches {launched}")
-    if (E <= max(solver.CLUSTER_MAX_EDGES, solver.FOLD_MAX_EDGES)
+    if (E <= solver.CLUSTER_MAX_EDGES
             or min(launched[k] for k in ("em_step", "pair_gain",
                                          "cycle_extrap", "cycle_select",
                                          "block_end")) <= 0
@@ -1318,7 +1293,8 @@ def phase_cluster_sweep(dev) -> dict:
                                                 "crossovers")
     del p, th
     # one module too large for a cluster sends the whole problem to the
-    # launches: ten a cycle
+    # launches
+    from emsar_tpu_torch.bench.cycle_ab import solve_ms
     problem = oversized_problem()
     p = solver.problem_to_device(problem, dev, torch.float64)
     if solver.cycle_plan(p, 1) is not None:
@@ -1328,25 +1304,20 @@ def phase_cluster_sweep(dev) -> dict:
     launched = read_launches()
     E = len(problem.edge_cid)
     th = torch.as_tensor(solver.read_attribution_start(problem))[None].to(dev)
-    t0 = time.perf_counter()
-    _, _, blocks = solver.em_solve(p, th, 1e-9, N_ITERS, 200000)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    timed = solve_ms(solver, p, th)
     over = {"edges": E, "segments": len(problem.eumaps),
             "transcripts": problem.n_transcripts, "blocks": it,
-            "launches": launched, "ms_per_block": wall * 1e3 / blocks,
-            "blocks_run": loop.LAST.blocks_run}
+            "launches": launched, **timed["median"]}
     log(f"CSR solve with one module above the 8-block cluster's limit "
         f"({E} edges, unforced: no tile plan): {it} blocks, logL {ll!r}, "
-        f"launches {launched}; {over['ms_per_block']:.4f} ms a block "
-        f"(graph loop, {blocks} blocks)")
-    fold = E <= solver.FOLD_MAX_EDGES
-    if (it != blocks or min(launched[k] for k in (
-            "em_step", "pair_gain", "block_end")) <= 0
-            or launched["cluster_em_pair"]
-            or (launched["cycle_extrap"] > 0) == fold
-            or (launched["cycle_select"] > 0) == fold
-            or not np.isfinite(ll)):
+        f"launches {launched}; {over['replay_ms_per_block']:.4f} ms a "
+        f"replayed block, first block {over['first_block_ms']:.3f} ms, "
+        f"capture {over['capture_ms']:.3f} ms ({timed['blocks']} blocks a "
+        f"solve, medians of {len(timed['runs'])})")
+    if (it != timed["blocks"] or min(launched[k] for k in (
+            "em_step", "pair_gain", "cycle_extrap", "cycle_select",
+            "block_end")) <= 0
+            or launched["cluster_em_pair"] or not np.isfinite(ll)):
         raise AssertionError("the solve with an oversized module did not "
                              "take the launch path")
     over["csr_cycle"] = check_csr_cycle(p, th, "oversized module")
@@ -1482,7 +1453,7 @@ def phase_csr_profile(problem, dev) -> dict:
     port's kernel launches and every kernel the profiler saw, per block
     run) and profiled (device busy share: kernel time on the card over the
     wall time of the solve, torch.profiler), on clusters and, forced, as
-    ten launches a cycle."""
+    twelve launches a cycle."""
     import numpy as np
     import torch
 
@@ -2646,13 +2617,13 @@ def _bits(x):
 
 
 def csr_block_bound_ms(p) -> float:
-    """A CSR block's bound off clusters (ten launches a cycle): 8 cycles,
-    then the block's end, each kernel of them at its own bound (its inputs
-    read once, its outputs written once: ``bench.cycle_ab.kernel_bounds``)
-    summed: per cycle the EM step from the accept (from theta in the
-    first), em_step_cycle (an EM step that also reads theta and writes
-    r * r and v * v), the two row sums of those, the EM step from the
-    extrapolation, pair_gain (writing both intensities in the last cycle)
+    """A CSR block's bound off clusters (twelve launches a cycle): 8
+    cycles, then the block's end, each kernel of them at its own bound
+    (its inputs read once, its outputs written once: ``bench.cycle_ab.
+    kernel_bounds``) summed: per cycle cycle_select (not in the first),
+    two em_step and one em_step_cycle (an EM step that also reads theta
+    and writes r * r and v * v), the two row sums of those,
+    cycle_extrap, pair_gain (writing both intensities in the last cycle)
     and the gain's row sum; then block_end and its row sum.  The loop's
     own bookkeeping (the masked state update, the stop test: a few
     scalars and two state copies) is left out.  ``p`` is a DeviceProblem,
@@ -2669,11 +2640,10 @@ def csr_block_bound_ms(p) -> float:
     em_cycle = b["em_step"] + bound(3 * T, 5 * T)
     row_sums = 2 * bound(T + 1, T)
     gain_sum = bound(C + 1, C)
-    cycle = (b["em_step_select"] + em_cycle + row_sums + b["em_step_extrap"]
-             + b["pair_gain"] + gain_sum)
-    return (N_ITERS * cycle - b["em_step_select"] + b["em_step"]
-            - b["pair_gain"] + b["pair_gain intensities"] + b["block_end"]
-            + gain_sum)
+    cycle = (b["cycle_select"] + 2 * b["em_step"] + em_cycle + row_sums
+             + b["cycle_extrap"] + b["pair_gain"] + gain_sum)
+    return (N_ITERS * cycle - b["cycle_select"] - b["pair_gain"]
+            + b["pair_gain intensities"] + b["block_end"] + gain_sum)
 
 
 def csr_cluster_block_bound_ms(p) -> float:
@@ -2765,7 +2735,8 @@ def phase_loops(problem, x, sp, dev) -> dict:
     cases.append((f"batched S={MS_SAMPLES}", lambda plain, c=None:
                   solve_sharded(sp, epsilon=eps, block_iters=N_ITERS,
                                 plain=plain, clusters=c)))
-    # the CSR loops again, their cycles forced off clusters (ten launches)
+    # the CSR loops again, their cycles forced off clusters (twelve
+    # launches)
     csr_loops = [cases[0][0], cases[1][0], cases[-1][0]]
     cases += [(f"{label} launches", lambda plain, fn=fn: fn(plain, False))
               for label, fn in cases if label in csr_loops]
@@ -2826,13 +2797,13 @@ def phase_loops(problem, x, sp, dev) -> dict:
             f"logL and blocks bit-equal {same}")
         if not same:
             failed.append(label)
-    for label in csr_loops:  # on clusters against ten launches
+    for label in csr_loops:  # on clusters against twelve launches
         a, b = graph_out[label], graph_out[f"{label} launches"]
         same = (a[2] == b[2] and np.array_equal(_bits(a[0]), _bits(b[0]))
                 and (a[1] is None or np.array_equal(_bits(a[1]),
                                                     _bits(b[1]))))
         measured[label]["bit_equal_to_launches"] = same
-        log(f"loop {label}: on clusters and as ten launches a cycle, "
+        log(f"loop {label}: on clusters and as twelve launches a cycle, "
             f"theta, logL and blocks bit-equal {same}")
         if not same:
             failed.append(f"{label} on clusters")
@@ -2929,11 +2900,11 @@ def main() -> int:
                      "cluster_em_pair": launches["csr"]["cluster_em_pair"],
                      "cluster_extrap_gain":
                          launches["csr"]["cluster_extrap_gain"]}
-    # em_step runs on the CSR path above CLUSTER_MAX_EDGES, pair_gain off
-    # clusters, cycle_extrap and cycle_select above FOLD_MAX_EDGES: their
-    # launches are those of phase 3's solves there, their times at those
-    # problems
-    above = (f"CSR solve above CLUSTER_MAX_EDGES and FOLD_MAX_EDGES "
+    # em_step, pair_gain, cycle_extrap and cycle_select run off clusters
+    # only: their launches are those of phase 3's solves there (above
+    # CLUSTER_MAX_EDGES; with a module too large for a cluster), their
+    # times at those problems
+    above = (f"CSR solve above CLUSTER_MAX_EDGES "
              f"({sweep['above']['edges']} edges)")
     paths = {"em_step": above, "cycle_extrap": above, "cycle_select": above,
              "pair_gain": f"CSR solve with a module above the 8-block "

@@ -1,9 +1,6 @@
-"""The CSR cycle on clusters against the launch path's cycle, on the card,
+"""The CSR cycle on clusters against the twelve-launch cycle, on the card,
 over random CSR problems of growing size: where the cluster path stops
-paying (``model/solver.py::CLUSTER_MAX_EDGES``), and where the launch
-path's EM steps stop gaining by taking the extrapolation and the accept
-as input modes (ten launches a cycle against twelve:
-``model/solver.py::FOLD_MAX_EDGES``).
+paying (``model/solver.py::CLUSTER_MAX_EDGES``).
 
     python3 -m emsar_tpu_torch.bench.cluster_sweep [--rows 1]
         [--dtype f64] [--sizes 10000,90000] [--parent DIR]
@@ -14,11 +11,10 @@ Each problem is made of modules as the smoke fixture's CSR problem is
 segments a transcript, 1 + Poisson(2.2) distinct transcripts a segment;
 about 3.2 edges a segment and 7.4 a transcript), read-less segments
 among them, float64 unless asked, R rows from the read-attribution start
-and uniform draws.  At each size: eight cycles (a block's) on clusters,
-as ten launches a cycle and as twelve must give the same bits; then each
-way's eight cycles captured in a CUDA graph, as the solver's loop
-replays them, and timed over replays with CUDA events (``graph_ms``),
-with the tile plan the cluster path took.
+and uniform draws.  At each size: eight cycles (a block's) both ways must
+give the same bits; then each way's eight cycles captured in a CUDA
+graph, as the solver's loop replays them, and timed over replays with
+CUDA events (``graph_ms``), with the tile plan the cluster path took.
 With ``--row-layouts``, the two row layouts of the cluster path at R 3
 and R 16 (``row_layouts``).  With ``--parent`` (the root of another
 checkout, for example a ``git
@@ -117,42 +113,22 @@ def graph_ms(fn, n: int = 20) -> float:
     return a.elapsed_time(b) / n
 
 
-def forced_fold(fold: bool, fn):
-    """``fn()`` with the launch path's cycles at ten launches (``fold``)
-    or twelve, whatever ``solver.FOLD_MAX_EDGES`` says."""
-    saved = solver.FOLD_MAX_EDGES
-    solver.FOLD_MAX_EDGES = float("inf") if fold else 0
-    try:
-        return fn()
-    finally:
-        solver.FOLD_MAX_EDGES = saved
-
-
 def time_block(p, theta: torch.Tensor, cycles: int = 8, n: int = 20
                ) -> dict:
     """``cycles`` cycles of ``p`` from ``theta`` on clusters (the tile plan
-    ``solver.cycle_plan`` makes), as ten launches a cycle and as twelve:
-    all must give the same bits.  Returns each way's device ms replayed
-    from a graph (cluster_ms, ten_ms, twelve_ms; launches_ms the one the
-    solver takes, by ``FOLD_MAX_EDGES``), and the plan's tiles and
-    cluster size."""
+    ``solver.cycle_plan`` makes) and as twelve launches a cycle: both must
+    give the same bits.  Returns each way's device ms replayed from a
+    graph, and the plan's tiles and cluster size."""
     plan = solver.cycle_plan(p, theta.shape[0], clusters=True)
-
-    def launches():
-        return solver._squarem_cycles(p, theta, cycles, None)
-    ways = {"cluster": lambda: solver._squarem_cycles(p, theta, cycles,
-                                                      plan),
-            "ten": lambda: forced_fold(True, launches),
-            "twelve": lambda: forced_fold(False, launches)}
-    blocks = {k: fn() for k, fn in ways.items()}
+    ways = {"cluster": plan, "launches": None}
+    blocks = {k: solver._squarem_cycles(p, theta, cycles, way)
+              for k, way in ways.items()}
     torch.cuda.synchronize()
-    if not (torch.equal(blocks["cluster"], blocks["ten"])
-            and torch.equal(blocks["ten"], blocks["twelve"])):
-        raise AssertionError("the cluster cycles, the ten and the twelve "
-                             "launches differ")
-    out = {f"{k}_ms": graph_ms(fn, n) for k, fn in ways.items()}
-    fold = theta.shape[0] * p.by_cid.idx.shape[0] <= solver.FOLD_MAX_EDGES
-    out["launches_ms"] = out["ten_ms" if fold else "twelve_ms"]
+    if not torch.equal(blocks["cluster"], blocks["launches"]):
+        raise AssertionError("the cluster cycles differ from the twelve "
+                             "launches")
+    out = {f"{k}_ms": graph_ms(lambda way=way: solver._squarem_cycles(
+        p, theta, cycles, way), n) for k, way in ways.items()}
     out.update(tiles=plan.n_tiles, cluster=plan.cluster)
     return out
 
@@ -160,11 +136,10 @@ def time_block(p, theta: torch.Tensor, cycles: int = 8, n: int = 20
 def sweep(dev: torch.device, sizes=SIZES, R: int = 1,
           dtype: torch.dtype = torch.float64, log=print) -> dict:
     """The sweep over ``sizes`` (edges asked for) at R rows: what
-    ``time_block`` measured at each, with the problem's shape, the
+    ``time_block`` measured at each, with the problem's shape, and the
     largest size at which the cluster path was faster ("crossover_edges";
-    None when it never was), and the largest at which ten launches a
-    cycle were faster than twelve ("fold_crossover_edges")."""
-    results, faster, folded = [], None, None
+    None when it never was)."""
+    results, faster = [], None
     for n_edges in sizes:
         rng = np.random.default_rng(n_edges + R)
         problem = random_problem(rng, n_edges)
@@ -178,23 +153,20 @@ def sweep(dev: torch.device, sizes=SIZES, R: int = 1,
         results.append(m)
         if m["cluster_ms"] < m["launches_ms"]:
             faster = E
-        if m["ten_ms"] < m["twelve_ms"]:
-            folded = E
         log(f"cluster sweep R={R} {str(dtype)[6:]} E={E}: eight cycles "
             f"{m['cluster_ms']:.4f} ms on clusters ({m['tiles']} tiles of "
-            f"{m['cluster']} blocks), {m['ten_ms']:.4f} ms as ten "
-            f"launches a cycle, {m['twelve_ms']:.4f} ms as twelve, graph "
-            f"replays; bit-equal")
+            f"{m['cluster']} blocks), {m['launches_ms']:.4f} ms as twelve "
+            f"launches a cycle, graph replays; bit-equal")
     return {"rows": R, "dtype": str(dtype)[6:], "sizes": results,
-            "crossover_edges": faster, "fold_crossover_edges": folded}
+            "crossover_edges": faster}
 
 
 def tilings(dev: torch.device, n_edges: int = 90_000, log=print) -> list:
     """Eight cycles of one sweep problem (R 1, float64) on each cluster
     size at the tiles the card holds at once, a half and a quarter of
     them (where a block's share fits), from CUDA graphs, each bit-equal
-    to the launch path: [{tiles, cluster, smem, ms}], and the launch
-    path's ms."""
+    to the twelve launches: [{tiles, cluster, smem, ms}], and the twelve
+    launches' ms."""
     from ..kernels import csr_cluster
     rng = np.random.default_rng(n_edges + 1)
     problem = random_problem(rng, n_edges)
@@ -213,11 +185,11 @@ def tilings(dev: torch.device, n_edges: int = 90_000, log=print) -> list:
             got = solver._squarem_cycles(p, th, 8, plan)
             if not torch.equal(got, want):
                 raise AssertionError(f"{n_tiles} tiles of {cl} blocks "
-                                     f"differ from the launch path")
+                                     f"differ from the twelve launches")
             out.append({"tiles": n_tiles, "cluster": cl, "smem": plan.smem,
                         "ms": graph_ms(lambda plan=plan: solver.
                                        _squarem_cycles(p, th, 8, plan))})
-    log(f"tilings at E={p.by_cid.idx.shape[0]}: launches "
+    log(f"tilings at E={p.by_cid.idx.shape[0]}: twelve launches "
         f"{out[0]['ms']:.4f} ms; " + ", ".join(
             f"{m['tiles']} x {m['cluster']} {m['ms']:.4f} ms" for m in
             out[1:]) + " (eight cycles from a graph, bit-equal)")
@@ -231,7 +203,7 @@ def row_layouts(dev: torch.device, sizes=(25_000, 90_000, 360_000),
     layouts of ``csr_cluster.plan_for``: a cluster a row (R x n_tiles
     clusters, the default) and a cluster over all R rows (n_tiles
     clusters, each staging its tile once and taking the rows one after
-    another), both bit-equal to the launch path, from CUDA graphs:
+    another), both bit-equal to the twelve launches, from CUDA graphs:
     [{rows, edges, row_ms, all_rows_ms, row_tiles, all_rows_tiles,
     cluster}]."""
     from ..kernels import csr_cluster
@@ -251,7 +223,7 @@ def row_layouts(dev: torch.device, sizes=(25_000, 90_000, 360_000),
                 got = solver._squarem_cycles(p, th, 8, plan)
                 if not torch.equal(got, want):
                     raise AssertionError(f"{k} layout differs from the "
-                                         f"launch path")
+                                         f"twelve launches")
                 m[f"{k}_ms"] = graph_ms(lambda plan=plan: solver.
                                         _squarem_cycles(p, th, 8, plan))
                 m[f"{k}_tiles"] = plan.n_tiles
@@ -342,8 +314,8 @@ def ab(parent: str, dev: torch.device, sizes=SIZES, R: int = 1,
         results.append({"edges": E, "median": med, "runs": runs})
         log(f"cluster sweep A/B R={R} {str(dtype)[6:]} E={E}: eight cycles "
             f"on clusters parent {med['parent']['cluster_ms']:.4f} ms, "
-            f"change {med['change']['cluster_ms']:.4f} ms (the launch "
-            f"path {med['parent']['launches_ms']:.4f} / "
+            f"change {med['change']['cluster_ms']:.4f} ms (twelve "
+            f"launches {med['parent']['launches_ms']:.4f} / "
             f"{med['change']['launches_ms']:.4f}); bit-equal")
     return {"rows": R, "dtype": str(dtype)[6:], "sizes": results}
 
@@ -375,8 +347,7 @@ def main(argv=None) -> int:
     else:
         result = sweep(dev, sizes, R=args.rows, dtype=dtype)
     result.update(card=card(), torch=torch.__version__,
-                  cluster_max_edges=solver.CLUSTER_MAX_EDGES,
-                  fold_max_edges=solver.FOLD_MAX_EDGES)
+                  cluster_max_edges=solver.CLUSTER_MAX_EDGES)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(result, fh, indent=1)

@@ -79,7 +79,7 @@
 // edge order from 0 (add_rn), the epilogues with the _rn intrinsics in
 // torch's order; the accept test, the step length, the extrapolation and
 // the gain term are csr_cycle.cu's, NaN as torch lets it through.  So both
-// launches give the ten launches' bits, and the row sums stay torch.sum
+// launches give the twelve launches' bits, and the row sums stay torch.sum
 // over the tensors they reduced.  Inputs are read-only and read through
 // __ldg.
 //

@@ -17,24 +17,22 @@
 //     accept), its intensities picked the same way, and their gain terms
 //     over the previous block's intensities s_prev (the block's gain
 //     before its sum); no pass over the edges;
-//   cycle_extrap and cycle_select (where rows x edges exceed
-//     model/solver.py::FOLD_MAX_EDGES only; below, the EM steps of
-//     csrc/segment_sum.cu take their work as input modes):
+//   cycle_extrap and cycle_select:
 //       alpha  = sqrt(vv) > 0 ? -sqrt(rr) / sqrt(vv) : -1, at most -1
 //       extrap = (theta - (2 alpha) r) + (alpha alpha) v
 //       x      = extrap > 0 ? extrap : t2      (the third EM step's input)
-//       theta  = gain[r] >= 0 ? cand : t2      (the accept)
+//       theta  = gain[r] >= 0 ? cand : t2      (the accept, the next
+//                                               cycle's theta)
 //
 // They replace the elementwise XLA ops of
 // emsar_tpu/model/solver.py::_em_solve's squarem_cycle (:150), gain_of
 // (:134) and the block's gain under the lax.while_loop (:181): on the card,
 // some 60 small torch kernels a cycle.  With the EM steps
-// (csrc/segment_sum.cu: mode 3 writes r * r and v * v, the input modes
-// take the accept and the extrapolation) and the three row sums, which
-// stay torch.sum over the tensors the torch body reduces, a cycle is ten
-// launches (twelve above the crossover); a block ends with one block_end.
-// On thread-block clusters (csrc/csr_cluster.cu) a cycle is five launches
-// and the block ends with the same block_end, the intensities from
+// (csrc/segment_sum.cu, mode 3 writing r * r and v * v) and the three row
+// sums, which stay torch.sum over the tensors the torch body reduces, a
+// cycle is twelve launches; a block ends with one block_end.  On
+// thread-block clusters (csrc/csr_cluster.cu) a cycle is five launches and
+// the block ends with the same block_end, the intensities from
 // cluster_extrap_gain's pass 3.
 //
 // Bits.  Every product, quotient, difference and root is rounded on its
@@ -63,17 +61,22 @@
 // in edge order and writes the gain term once.  A tile's edges beyond
 // kStaged (a segment of very many edges) are read from device memory by
 // the folding thread, in the same order.  Every launch of this path is
-// one grid, so no block waits on another.  (Staging the tile's ends,
-// weights and tids by TMA bulk copies onto an mbarrier first, as the
-// cluster kernels stage their images, measured 5-21% slower on the H100
-// at every shape but the 11.52 M-edge one, 4% faster there: PERF.md §6.)
+// one grid, so no block waits on another.  Built with EMSAR_PAIR_TMA=1,
+// the tile's tids, weights and group ends come into shared memory first
+// by TMA bulk copies onto an mbarrier (csrc/bulk_copy.cuh; the ends of
+// their 16-byte lines by the threads) while the threads load reads and
+// eumaps: the staging of csrc/csr_cluster.cu.  On the H100 it was 6-44%
+// slower than the direct loads at every shape measured, from a cold L2
+// (bench/pair_parts.py, which also times tiles of 256 and 128 segments:
+// 256 ~8% faster at R 1, 14-35% slower at every other shape), so the
+// default build loads directly, in tiles of 512.
 //
 // What bounds it on the H100: bytes, and in practice latency.  At the
 // smoke workload's CSR shape (R 1, f64; 27,619 segments, 89,744 edges,
 // 12,090 transcripts) pair_gain moves ~2.1 MB (the by-cid edges, two
-// thetas, reads, eumaps, the terms), block_end ~0.6 MB (three vectors of
+// thetas, reads, eumaps, the terms), block_end ~1.5 MB (three vectors of
 // C, two of T read, two of C and one of T written) and no edge:
-// ~0.8 us together at 3.35 TB/s against a few us of launch each.
+// ~1.1 us together at 3.35 TB/s against a few us of launch each.
 //
 // Layout: theta, t1, t2, cand, x and out [R, T] contiguous; rsum, vsum and
 // gain [R]; w [E]; idx [E] int32; offsets [G + 1] int64; tiles [2, n_tiles

@@ -25,29 +25,6 @@
 // four elementwise launches of r, v, r * r and v * v
 // (kernels/csr_cycle.py has the rest of the cycle's vector work).
 //
-// Input modes of an EM step (the theta of modes 1 and 2: gathered at each
-// edge's tid by cid, read at the transcript by tid), so that a cycle's
-// vector work needs no launch of its own:
-//
-//   in 0 (vector):  theta[r, t] = p0[r, t]
-//   in 1 (accept):  theta[r, t] = gain[r] >= 0 ? p0[r, t] : p1[r, t]
-//                   (gain = s0: the previous cycle's accept of cand p0
-//                   over t2 p1, kernels/csr_cycle.py::cycle_select's);
-//                   mode 2 also writes theta out (the next step's c)
-//   in 2 (extrap):  theta[r, t] = ex > 0 ? ex : p2[r, t] for
-//                   ex = (p0 - (2 alpha) r) + (alpha alpha) v, r = p1 - p0,
-//                   v = (p2 - p1) - r, alpha from the row sums s0 of r * r
-//                   and s1 of v * v (csr_cycle.cu::cycle_extrap's; p0 the
-//                   cycle's theta, p1 its t1, p2 its t2)
-//
-// Each thread takes its row's pointer or step length once (two loads, two
-// roots and a quotient, as cycle_extrap_kernel does); the extrapolation
-// then gathers three vectors at an edge where one was read, and the
-// update's epilogue recomputes its transcript's value from three loads.
-// Those gathers cost more than the launch they save once a launch is
-// more than latency (on the H100 from ~160,000 edges over all rows:
-// model/solver.py::FOLD_MAX_EDGES keeps the separate launches above).
-//
 // a[r, g] is a[r * a_stride + g]: a_stride 0 shares one row of a among
 // the R rows (one sample's reads and 1 / denom under its restart rounds),
 // a_stride G gives each row its own (the batched multisample solve of
@@ -60,9 +37,7 @@
 // kernel gives the plain version's bits on the CPU, and the same bits on
 // every launch.  The epilogues use IEEE division and separately rounded
 // products and differences in torch's order, so they give torch's bits
-// too; an input mode computes each theta exactly as the launch it saves
-// did (the same _rn operations on the same inputs), so an EM step from a
-// source gives the bits of that launch and then the EM step.
+// too.
 //
 // What bounds it on the H100: bytes.  One f64 launch by cid on the smoke
 // workload's CSR problem (27,619 segments, 89,744 edges, x of 12,090)
@@ -85,12 +60,11 @@
 // * The grid covers R x G groups: K times the threads of one thread per
 //   output, several blocks on every SM.
 // * idx is int32 (the wrapper checks the range once per problem).
-// * The EM epilogues save the six elementwise launches of each EM step,
-//   the input modes the cycle's extrapolation and accept.
+// * The EM epilogues save the six elementwise launches of each EM step.
 //
 // Layout: x [R, N] contiguous; w [E]; idx [E] int32; offsets [G + 1]
 // int64; a [G] (a_stride 0) or [R, G] (a_stride G); b, c, out, rr and vv
-// [R, G]; a source's p0, p1, p2 [R, N] and s0, s1 [R].  float or double.
+// [R, G].  float or double.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,75 +96,17 @@ __device__ __forceinline__ double sub_rn(double a, double b) {
   return __dsub_rn(a, b);
 }
 
-__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
-
 constexpr int kThreads = 256;
 
-// A launch's theta (see the input modes above).
-template <typename F>
-struct Source {
-  const F* p0;
-  const F* p1;
-  const F* p2;
-  const F* s0;
-  const F* s1;
-};
-
-// One row of a Source: its pointer (IN 0, 1) or its three vectors and step
-// length (IN 2), taken once by each thread.
-template <typename F, int IN>
-struct SourceRow {
-  const F* p0;
-  const F* p1;
-  const F* p2;
-  F two_alpha, alpha_sq;
-
-  __device__ __forceinline__ SourceRow(const Source<F>& s, long long r,
-                                       long long N) {
-    p0 = s.p0 + r * N;
-    p1 = p2 = nullptr;
-    two_alpha = alpha_sq = F(0);
-    if (IN == 1) {
-      if (!(__ldg(s.s0 + r) >= F(0))) p0 = s.p1 + r * N;
-    } else if (IN == 2) {
-      p1 = s.p1 + r * N;
-      p2 = s.p2 + r * N;
-      // the row's step length, as cycle_extrap_kernel computes it
-      const F rn = sqrt_rn(__ldg(s.s0 + r));
-      const F vn = sqrt_rn(__ldg(s.s1 + r));
-      F alpha = vn > F(0) ? div_rn(-rn, vn) : F(-1);
-      if (!(alpha != alpha) && !(alpha < F(-1))) alpha = F(-1);  // NaN stays
-      two_alpha = mul_rn(F(2), alpha);
-      alpha_sq = mul_rn(alpha, alpha);
-    }
-  }
-
-  __device__ __forceinline__ F at(long long j) const {
-    if (IN != 2) return __ldg(p0 + j);
-    const F th = __ldg(p0 + j), a = __ldg(p1 + j), b = __ldg(p2 + j);
-    const F res = sub_rn(a, th);
-    const F curv = sub_rn(sub_rn(b, a), res);
-    const F ex =
-        add_rn(sub_rn(th, mul_rn(two_alpha, res)), mul_rn(alpha_sq, curv));
-    return ex > F(0) ? ex : b;
-  }
-};
-
-// The gathered vector is the source where GIN (its input mode, mode 1
-// only) is not 0, else x; b is the source where BIN (mode 2 only) is not
-// 0, else b itself.
-template <typename F, int K, int MODE, int GIN, int BIN>
+template <typename F, int K, int MODE>
 __global__ void __launch_bounds__(kThreads)
-    segment_sum_kernel(Source<F> src, const F* __restrict__ x,
-                       const F* __restrict__ w,
+    segment_sum_kernel(const F* __restrict__ x, const F* __restrict__ w,
                        const int32_t* __restrict__ idx,
                        const int64_t* __restrict__ offsets,
                        const F* __restrict__ a, const F* __restrict__ b,
                        const F* __restrict__ c, F* __restrict__ out,
-                       F* __restrict__ rr, F* __restrict__ vv,
-                       F* __restrict__ theta_out, long long R, long long G,
-                       long long N, long long a_stride) {
+                       F* __restrict__ rr, F* __restrict__ vv, long long R,
+                       long long G, long long N, long long a_stride) {
   static_assert(K == 4 || K == 8 || K == 16 || K == 32, "lanes per group");
   const long long grp =
       (blockIdx.x * (long long)kThreads + threadIdx.x) / K;
@@ -202,15 +118,13 @@ __global__ void __launch_bounds__(kThreads)
               : ((1u << K) - 1u) << ((threadIdx.x & 31) & ~(K - 1));
   const long long r = grp / G;
   const long long g = grp - r * G;
-  const SourceRow<F, GIN> xr(
-      GIN != 0 ? src : Source<F>{x, nullptr, nullptr, nullptr, nullptr}, r,
-      N);
+  const F* xr = x + r * N;
   const long long e1 = __ldg(offsets + g + 1);
   F acc = F(0);
   for (long long base = __ldg(offsets + g); base < e1; base += K) {
     const long long e = base + lane;
     F p = F(0);
-    if (e < e1) p = mul_rn(__ldg(w + e), xr.at(__ldg(idx + e)));
+    if (e < e1) p = mul_rn(__ldg(w + e), __ldg(xr + __ldg(idx + e)));
     const long long left = e1 - base;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
@@ -228,13 +142,9 @@ __global__ void __launch_bounds__(kThreads)
     out[grp] = acc > F(0) ? div_rn(ag, acc) : F(0);
     return;
   }
-  const SourceRow<F, BIN> br(
-      BIN != 0 ? src : Source<F>{b, nullptr, nullptr, nullptr, nullptr}, r,
-      G);
-  const F t1 = br.at(g);
+  const F t1 = __ldg(b + grp);
   const F t2 = mul_rn(mul_rn(t1, acc), ag);
   out[grp] = t2;
-  if (BIN == 1 && theta_out != nullptr) theta_out[grp] = t1;
   if (MODE == 3) {
     const F res = sub_rn(t1, __ldg(c + grp));  // r
     const F curv = sub_rn(sub_rn(t2, t1), res);  // v
@@ -243,126 +153,72 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename F>
-struct Args {
-  Source<F> src;
-  const void *x, *w, *idx, *offsets, *a, *b, *c;
-  void *out, *rr, *vv, *theta_out;
-  long long R, G, N, a_stride;
-};
-
-template <typename F, int K, int MODE, int GIN, int BIN>
-int launch_mode(const Args<F>& p, cudaStream_t stream) {
-  const long long threads = p.R * p.G * K;
+template <typename F, int K, int MODE>
+int launch_mode(const void* x, const void* w, const void* idx,
+                const void* offsets, const void* a, const void* b,
+                const void* c, void* out, void* rr, void* vv, long long R,
+                long long G, long long N, long long a_stride,
+                cudaStream_t stream) {
+  const long long threads = R * G * K;
   const long long blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  segment_sum_kernel<F, K, MODE, GIN, BIN><<<
-      static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
-      p.src, static_cast<const F*>(p.x), static_cast<const F*>(p.w),
-      static_cast<const int32_t*>(p.idx),
-      static_cast<const int64_t*>(p.offsets), static_cast<const F*>(p.a),
-      static_cast<const F*>(p.b), static_cast<const F*>(p.c),
-      static_cast<F*>(p.out), static_cast<F*>(p.rr), static_cast<F*>(p.vv),
-      static_cast<F*>(p.theta_out), p.R, p.G, p.N, p.a_stride);
+  segment_sum_kernel<F, K, MODE><<<static_cast<unsigned int>(blocks),
+                                   kThreads, 0, stream>>>(
+      static_cast<const F*>(x), static_cast<const F*>(w),
+      static_cast<const int32_t*>(idx), static_cast<const int64_t*>(offsets),
+      static_cast<const F*>(a), static_cast<const F*>(b),
+      static_cast<const F*>(c), static_cast<F*>(out), static_cast<F*>(rr),
+      static_cast<F*>(vv), R, G, N, a_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode and input mode: 0-3 with input 0, 1 and 2 with input 1 or 2
-template <typename F, int K, int MODE>
-int launch_in(const Args<F>& p, int in, cudaStream_t stream) {
-  if constexpr (MODE == 0 || MODE == 3) {
-    if (in != 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_mode<F, K, MODE, 0, 0>(p, stream);
-  } else {
-    constexpr bool G = MODE == 1;  // the source is gathered, else it is b
-    switch (in) {
-      case 0:
-        return launch_mode<F, K, MODE, 0, 0>(p, stream);
-      case 1:
-        return launch_mode<F, K, MODE, G ? 1 : 0, G ? 0 : 1>(p, stream);
-      case 2:
-        return launch_mode<F, K, MODE, G ? 2 : 0, G ? 0 : 2>(p, stream);
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-}
-
 template <typename F, int K>
-int launch_k(const Args<F>& p, int mode, int in, cudaStream_t stream) {
+int launch_k(const void* x, const void* w, const void* idx,
+             const void* offsets, const void* a, const void* b,
+             const void* c, void* out, void* rr, void* vv, long long R,
+             long long G, long long N, long long a_stride, int mode,
+             cudaStream_t stream) {
   switch (mode) {
     case 0:
-      return launch_in<F, K, 0>(p, in, stream);
+      return launch_mode<F, K, 0>(x, w, idx, offsets, a, b, c, out, rr, vv,
+                                  R, G, N, a_stride, stream);
     case 1:
-      return launch_in<F, K, 1>(p, in, stream);
+      return launch_mode<F, K, 1>(x, w, idx, offsets, a, b, c, out, rr, vv,
+                                  R, G, N, a_stride, stream);
     case 2:
-      return launch_in<F, K, 2>(p, in, stream);
+      return launch_mode<F, K, 2>(x, w, idx, offsets, a, b, c, out, rr, vv,
+                                  R, G, N, a_stride, stream);
     case 3:
-      return launch_in<F, K, 3>(p, in, stream);
+      return launch_mode<F, K, 3>(x, w, idx, offsets, a, b, c, out, rr, vv,
+                                  R, G, N, a_stride, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename F>
-int launch(const Args<F>& p, int lanes, int mode, int in, void* stream_ptr) {
-  if (p.R * p.G <= 0) return 0;
+int launch(const void* x, const void* w, const void* idx, const void* offsets,
+           const void* a, const void* b, const void* c, void* out, void* rr,
+           void* vv, long long R, long long G, long long N,
+           long long a_stride, int lanes, int mode, void* stream_ptr) {
+  if (R * G <= 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (lanes) {
     case 4:
-      return launch_k<F, 4>(p, mode, in, stream);
+      return launch_k<F, 4>(x, w, idx, offsets, a, b, c, out, rr, vv, R,
+                            G, N, a_stride, mode, stream);
     case 8:
-      return launch_k<F, 8>(p, mode, in, stream);
+      return launch_k<F, 8>(x, w, idx, offsets, a, b, c, out, rr, vv, R,
+                            G, N, a_stride, mode, stream);
     case 16:
-      return launch_k<F, 16>(p, mode, in, stream);
+      return launch_k<F, 16>(x, w, idx, offsets, a, b, c, out, rr, vv, R,
+                             G, N, a_stride, mode, stream);
     case 32:
-      return launch_k<F, 32>(p, mode, in, stream);
+      return launch_k<F, 32>(x, w, idx, offsets, a, b, c, out, rr, vv, R,
+                             G, N, a_stride, mode, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-template <typename F>
-int plain(const void* x, const void* w, const void* idx, const void* offsets,
-          const void* a, const void* b, void* out, long long R, long long G,
-          long long N, long long a_stride, int lanes, int mode,
-          void* stream) {
-  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const Args<F> p{{nullptr, nullptr, nullptr, nullptr, nullptr},
-                  x, w, idx, offsets, a, b, nullptr, out, nullptr, nullptr,
-                  nullptr, R, G, N, a_stride};
-  return launch<F>(p, lanes, mode, 0, stream);
-}
-
-template <typename F>
-int cycle_update(const void* x, const void* w, const void* idx,
-                 const void* offsets, const void* a, const void* b,
-                 const void* c, void* out, void* rr, void* vv, long long R,
-                 long long G, long long N, long long a_stride, int lanes,
-                 void* stream) {
-  const Args<F> p{{nullptr, nullptr, nullptr, nullptr, nullptr},
-                  x, w, idx, offsets, a, b, c, out, rr, vv, nullptr, R, G, N,
-                  a_stride};
-  return launch<F>(p, lanes, 3, 0, stream);
-}
-
-template <typename F>
-int from_source(const void* p0, const void* p1, const void* p2,
-                const void* s0, const void* s1, int in, const void* x,
-                const void* w, const void* idx, const void* offsets,
-                const void* a, void* out, void* theta_out, long long R,
-                long long G, long long N, long long a_stride, int lanes,
-                int mode, void* stream) {
-  if ((mode != 1 && mode != 2) || in < 1 || in > 2 ||
-      (mode == 2) != (x != nullptr) || (theta_out != nullptr && in != 1) ||
-      (in == 2 && (p2 == nullptr || s1 == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Args<F> p{{static_cast<const F*>(p0), static_cast<const F*>(p1),
-                   static_cast<const F*>(p2), static_cast<const F*>(s0),
-                   static_cast<const F*>(s1)},
-                  x, w, idx, offsets, a, nullptr, nullptr, out, nullptr,
-                  nullptr, theta_out, R, G, N, a_stride};
-  return launch<F>(p, lanes, mode, in, stream);
 }
 
 }  // namespace
@@ -374,8 +230,9 @@ extern "C" int emsar_segment_sum_f32(const void* x, const void* w,
                                      long long R, long long G, long long N,
                                      long long a_stride, int lanes, int mode,
                                      void* stream) {
-  return plain<float>(x, w, idx, offsets, a, b, out, R, G, N, a_stride,
-                      lanes, mode, stream);
+  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(x, w, idx, offsets, a, b, nullptr, out, nullptr,
+                       nullptr, R, G, N, a_stride, lanes, mode, stream);
 }
 
 extern "C" int emsar_segment_sum_f64(const void* x, const void* w,
@@ -384,8 +241,9 @@ extern "C" int emsar_segment_sum_f64(const void* x, const void* w,
                                      long long R, long long G, long long N,
                                      long long a_stride, int lanes, int mode,
                                      void* stream) {
-  return plain<double>(x, w, idx, offsets, a, b, out, R, G, N, a_stride,
-                       lanes, mode, stream);
+  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<double>(x, w, idx, offsets, a, b, nullptr, out, nullptr,
+                        nullptr, R, G, N, a_stride, lanes, mode, stream);
 }
 
 // mode 3: x = the read ratio, a = inv_denom, b = t1, c = theta; writes
@@ -398,8 +256,8 @@ extern "C" int emsar_em_cycle_update_f32(const void* x, const void* w,
                                          long long R, long long G,
                                          long long N, long long a_stride,
                                          int lanes, void* stream) {
-  return cycle_update<float>(x, w, idx, offsets, a, b, c, out, rr, vv, R, G,
-                             N, a_stride, lanes, stream);
+  return launch<float>(x, w, idx, offsets, a, b, c, out, rr, vv, R, G, N,
+                       a_stride, lanes, 3, stream);
 }
 
 extern "C" int emsar_em_cycle_update_f64(const void* x, const void* w,
@@ -410,39 +268,6 @@ extern "C" int emsar_em_cycle_update_f64(const void* x, const void* w,
                                          long long R, long long G,
                                          long long N, long long a_stride,
                                          int lanes, void* stream) {
-  return cycle_update<double>(x, w, idx, offsets, a, b, c, out, rr, vv, R,
-                              G, N, a_stride, lanes, stream);
-}
-
-// mode 1 (x null: the source is gathered) or 2 (x the read ratio, the
-// source is b) from the source (p0, p1, p2, s0, s1) of input mode ``in``
-// (1 accept: p0 cand, p1 t2, s0 gain; 2 extrap: p0 theta, p1 t1, p2 t2,
-// s0 and s1 the row sums of r * r and v * v); theta_out (mode 2, input 1,
-// may be null) gets the accepted theta
-extern "C" int emsar_em_source_f32(const void* p0, const void* p1,
-                                   const void* p2, const void* s0,
-                                   const void* s1, int in, const void* x,
-                                   const void* w, const void* idx,
-                                   const void* offsets, const void* a,
-                                   void* out, void* theta_out, long long R,
-                                   long long G, long long N,
-                                   long long a_stride, int lanes, int mode,
-                                   void* stream) {
-  return from_source<float>(p0, p1, p2, s0, s1, in, x, w, idx, offsets, a,
-                            out, theta_out, R, G, N, a_stride, lanes, mode,
-                            stream);
-}
-
-extern "C" int emsar_em_source_f64(const void* p0, const void* p1,
-                                   const void* p2, const void* s0,
-                                   const void* s1, int in, const void* x,
-                                   const void* w, const void* idx,
-                                   const void* offsets, const void* a,
-                                   void* out, void* theta_out, long long R,
-                                   long long G, long long N,
-                                   long long a_stride, int lanes, int mode,
-                                   void* stream) {
-  return from_source<double>(p0, p1, p2, s0, s1, in, x, w, idx, offsets, a,
-                             out, theta_out, R, G, N, a_stride, lanes, mode,
-                             stream);
+  return launch<double>(x, w, idx, offsets, a, b, c, out, rr, vv, R, G, N,
+                        a_stride, lanes, 3, stream);
 }

@@ -6,9 +6,8 @@ _squarem_cycle_launches``) takes theta [R, T] through three EM steps.
 Around the steps it computes the step length and the extrapolation, the
 intensities of the double-EM value t2 and of the stabilized candidate,
 their likelihood gain per row, and keeps the candidate where that gain
-is >= 0.  The EM steps take the extrapolation and the accept as input
-modes (``segment_sum.em_step_extrap``, ``em_step_select``: no launch of
-their own), and these wrappers do the rest:
+is >= 0.  These wrappers do that work in three launches a cycle, and
+end a block in one:
 
 * ``pair_gain(g, reads, eumaps, t2, cand)``: the gain terms [R, C] of
   cand over t2, both intensities summed in one pass over the edges
@@ -22,11 +21,12 @@ their own), and these wrappers do the rest:
   block's intensities) their gain terms; one elementwise launch, no pass
   over the edges.  On clusters the intensities come from
   ``csr_cluster.extrap_gain``'s last pass;
-* ``cycle_extrap(theta, t1, t2, r_sq_sum, v_sq_sum)`` and
-  ``cycle_select(gain, cand, t2)``: the extrapolation and the accept as
-  launches of their own, where rows x edges exceed
-  ``model/solver.py::FOLD_MAX_EDGES`` (there the input modes' extra
-  gathers cost more than the launches they save).
+* ``cycle_extrap(theta, t1, t2, r_sq_sum, v_sq_sum)``: the third EM
+  step's input, ``where(extrap > 0, extrap, t2)``, from the row sums of
+  r * r and v * v (written by ``segment_sum.em_step_cycle``, summed with
+  ``torch.sum``);
+* ``cycle_select(gain, cand, t2)``: ``where(gain >= 0, cand, t2)`` by row
+  (the accept, the next cycle's theta).
 
 The gain of a row is ``torch.sum(terms, dim=-1)``: the reductions stay
 torch's, over the tensors the torch body reduced.  The kernels replace
@@ -35,10 +35,9 @@ the elementwise XLA ops of ``emsar_tpu/model/solver.py::_em_solve``'s
 is ``csrc/csr_cycle.cu`` (design, bits, NaN and what bounds it are
 written there): in ``pair_gain`` a thread an edge of the tile computes
 both products into shared memory and a thread a segment folds them in
-edge order; ``block_end``'s
-intensities are those a pass over the edges would sum from the accept,
-bit for bit, since the accept takes one whole row and each was folded in
-the same order.
+edge order; ``block_end``'s intensities are those a pass over the edges
+would sum from the accept, bit for bit, since the accept takes one whole
+row and each was folded in the same order.
 
 The plain versions are the torch body: ``gain_terms`` is
 ``model/solver.py::gain_of`` before its sum (the dense solvers' gain
@@ -60,8 +59,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from . import _build
-from .segment_sum import (TILE, EdgeGroups, cycle_extrap_ref,
-                          cycle_select_ref, segment_sum_ref)
+from .segment_sum import TILE, EdgeGroups, segment_sum_ref
 
 SOURCE = "csr_cycle.cu"
 LAUNCHES = 0
@@ -128,6 +126,33 @@ def block_end_ref(gain: torch.Tensor, cand: torch.Tensor, t2: torch.Tensor,
     s = cycle_select_ref(gain, s_cand, s_t2)
     return theta, s, (None if s_prev is None
                       else gain_terms(reads, eumaps, s_prev, s))
+
+
+def cycle_extrap_ref(theta: torch.Tensor, t1: torch.Tensor,
+                     t2: torch.Tensor, r_sq_sum: torch.Tensor,
+                     v_sq_sum: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``cycle_extrap``: the step length from the row
+    sums [R, 1] of r * r and v * v, never shorter than a plain step, and
+    the extrapolated theta, t2 where it is not positive."""
+    r = t1 - theta
+    v = t2 - t1 - r
+    rnorm = torch.sqrt(r_sq_sum)
+    vnorm = torch.sqrt(v_sq_sum)
+    alpha = torch.where(vnorm > 0, -rnorm / torch.where(vnorm > 0, vnorm, 1.0),
+                        -1.0)
+    alpha = torch.clamp(alpha, max=-1.0)  # never shorter than a plain step
+    # zero-crossing coordinates fall back to the plain double-EM value: an
+    # exact 0 is an absorbing boundary for multiplicative EM and can freeze
+    # a suboptimal KKT point
+    extrap = theta - 2.0 * alpha * r + (alpha * alpha) * v
+    return torch.where(extrap > 0, extrap, t2)
+
+
+def cycle_select_ref(gain: torch.Tensor, cand: torch.Tensor,
+                     t2: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``cycle_select``: cand in the rows whose gain is
+    >= 0, else t2."""
+    return torch.where((gain >= 0)[:, None], cand, t2)
 
 
 @functools.lru_cache(maxsize=None)

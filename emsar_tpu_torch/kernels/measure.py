@@ -9,7 +9,9 @@ and the kernel benchmarks.  Nothing on the solve or build path uses it.
 * ``device_ms_cold``: device time per call with a cold L2 cache: before
   each call a write of twice the card's L2 evicts what the last left
   there, and CUDA events around each call alone time it (the same sleep
-  holds the stream while the host enqueues them).  For kernels whose
+  holds the stream while the host enqueues them); the mean of the middle
+  80% of the calls' times, so that a rare stall of the host (the sleep
+  run out) does not count.  For kernels whose
   inputs fit in the L2 (the H100's is 50 MB), whose warm time would
   count each input's bytes as moved from HBM when they were not.
 * ``host_ms``: host time per call, ``perf_counter`` over ``n`` calls with
@@ -72,7 +74,8 @@ def device_ms_cold(fn: Callable[[], object], n: int = 50,
                    host_per_call_ms: float = 0.0) -> float:
     """Device milliseconds per call of ``fn`` from a cold L2: ``n`` times a
     write of twice the L2's bytes, then ``fn`` between CUDA events, all
-    enqueued behind one sleep; the mean of the calls' times."""
+    enqueued behind one sleep; the mean of the calls' times without the
+    tenth slowest and the tenth fastest."""
     dev = torch.cuda.current_device()
     l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
                  0) or 50 << 20
@@ -98,7 +101,10 @@ def device_ms_cold(fn: Callable[[], object], n: int = 50,
         b.record()
     torch.cuda.synchronize()
     del flush
-    return sum(a.elapsed_time(b) for a, b in events) / n
+    times = sorted(a.elapsed_time(b) for a, b in events)
+    cut = n // 10
+    kept = times[cut:n - cut]
+    return sum(kept) / len(kept)
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype=torch.float64

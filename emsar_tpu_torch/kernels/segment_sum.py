@@ -9,11 +9,7 @@ computes one EM step of the CSR solver (``model/solver.py::_em_iter``)
 from two such sums, by cid and by tid, with the elementwise work in their
 epilogues; ``em_step_cycle`` is the second EM step of a SQUAREM cycle,
 whose epilogue also writes the squares of the cycle's r and v (the
-step-length norms' summands).  ``em_step_select`` and ``em_step_extrap``
-are EM steps from a theta the kernel computes where it reads it (its
-input modes): the previous cycle's accept (``cycle_select_ref``, also
-written out) and the cycle's extrapolation (``cycle_extrap_ref``), so
-that neither takes a launch of its own.  Together they replace the
+step-length norms' summands).  Together they replace the
 ``jax.ops.segment_sum`` calls of
 ``emsar_tpu/model/solver.py::_em_solve``.  The CUDA source is
 ``csrc/segment_sum.cu`` (a group of lanes per output, products folded in
@@ -28,14 +24,13 @@ call.
 
 On CPU tensors the wrappers compute the plain versions (``segment_sum_ref``:
 ``index_add_``, which adds edges sequentially in edge order on the CPU;
-``em_step_ref``, ``em_step_cycle_ref``, ``em_step_select_ref``,
-``em_step_extrap_ref``: the torch body of the EM step and of the cycle's
-lines it takes).  On CUDA tensors they
+``em_step_ref``, ``em_step_cycle_ref``: the torch body of the EM step
+and of the cycle's lines it takes).  On CUDA tensors they
 launch the kernel or raise; they never fall back (``index_add_`` on CUDA
 sums with float atomics, in an order that changes between launches).  The
 kernel gives the CPU plain versions' bits.  ``LAUNCHES`` counts plain-sum
-launches, ``EM_LAUNCHES`` the launches of every EM step (two per
-step).
+launches, ``EM_LAUNCHES`` the launches of ``em_step`` and
+``em_step_cycle`` (two per step).
 """
 
 from __future__ import annotations
@@ -43,7 +38,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -62,12 +57,6 @@ ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4 + [
 # R, G, N, a_stride, lanes, stream)
 CYCLE_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 4 + [
     ctypes.c_int, ctypes.c_void_p]
-# emsar_em_source_f32/f64(p0, p1, p2, s0, s1, in, x, w, idx, offsets, a,
-# out, theta_out, R, G, N, a_stride, lanes, mode, stream)
-SOURCE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [
-    ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 4 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_ACCEPT, _EXTRAP = 1, 2  # the input modes
 # Groups of a tile of ``csr_cycle.pair_gain`` at most, and edges before
 # its last group fewer (csrc/csr_cycle.cu's EMSAR_PAIR_TILE): 512 f64
 # edges take ~41 KB of a block's shared memory, and the smoke's CSR
@@ -187,56 +176,6 @@ def em_step_cycle_ref(t1: torch.Tensor, theta: torch.Tensor,
     return t2, r * r, v * v
 
 
-def cycle_extrap_ref(theta: torch.Tensor, t1: torch.Tensor,
-                     t2: torch.Tensor, r_sq_sum: torch.Tensor,
-                     v_sq_sum: torch.Tensor) -> torch.Tensor:
-    """The extrapolation of a SQUAREM cycle (``csr_cycle.cycle_extrap``'s
-    plain version): the step length from the row sums [R, 1] of r * r and
-    v * v, never shorter than a plain step, and the extrapolated theta, t2
-    where it is not positive."""
-    r = t1 - theta
-    v = t2 - t1 - r
-    rnorm = torch.sqrt(r_sq_sum)
-    vnorm = torch.sqrt(v_sq_sum)
-    alpha = torch.where(vnorm > 0, -rnorm / torch.where(vnorm > 0, vnorm, 1.0),
-                        -1.0)
-    alpha = torch.clamp(alpha, max=-1.0)  # never shorter than a plain step
-    # zero-crossing coordinates fall back to the plain double-EM value: an
-    # exact 0 is an absorbing boundary for multiplicative EM and can freeze
-    # a suboptimal KKT point
-    extrap = theta - 2.0 * alpha * r + (alpha * alpha) * v
-    return torch.where(extrap > 0, extrap, t2)
-
-
-def cycle_select_ref(gain: torch.Tensor, cand: torch.Tensor,
-                     t2: torch.Tensor) -> torch.Tensor:
-    """The accept of a SQUAREM cycle (``csr_cycle.cycle_select``'s plain
-    version): cand in the rows whose gain is >= 0, else t2."""
-    return torch.where((gain >= 0)[:, None], cand, t2)
-
-
-def em_step_select_ref(gain: torch.Tensor, cand: torch.Tensor,
-                       t2: torch.Tensor, by_cid: EdgeGroups,
-                       by_tid: EdgeGroups, reads: torch.Tensor,
-                       inv_denom: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``em_step_select``: (theta, one EM step from it)
-    for theta = ``cycle_select_ref(gain, cand, t2)``."""
-    theta = cycle_select_ref(gain, cand, t2)
-    return theta, em_step_ref(theta, by_cid, by_tid, reads, inv_denom)
-
-
-def em_step_extrap_ref(theta: torch.Tensor, t1: torch.Tensor,
-                       t2: torch.Tensor, r_sq_sum: torch.Tensor,
-                       v_sq_sum: torch.Tensor, by_cid: EdgeGroups,
-                       by_tid: EdgeGroups, reads: torch.Tensor,
-                       inv_denom: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``em_step_extrap``: one EM step from
-    ``cycle_extrap_ref(theta, t1, t2, r_sq_sum, v_sq_sum)``."""
-    return em_step_ref(cycle_extrap_ref(theta, t1, t2, r_sq_sum, v_sq_sum),
-                       by_cid, by_tid, reads, inv_denom)
-
-
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
@@ -246,9 +185,6 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.emsar_em_cycle_update_f32, lib.emsar_em_cycle_update_f64):
         fn.restype = ctypes.c_int
         fn.argtypes = CYCLE_ARGTYPES
-    for fn in (lib.emsar_em_source_f32, lib.emsar_em_source_f64):
-        fn.restype = ctypes.c_int
-        fn.argtypes = SOURCE_ARGTYPES
     return lib
 
 
@@ -366,97 +302,6 @@ def em_step_cycle(t1: torch.Tensor, theta: torch.Tensor, by_cid: EdgeGroups,
                            f"error {rc}")
     EM_LAUNCHES += 2
     return t2, rr, vv
-
-
-def _from_source(what: str, like: torch.Tensor, ptrs: tuple, mode_in: int,
-                 by_cid: EdgeGroups, by_tid: EdgeGroups,
-                 reads: torch.Tensor, inv_denom: torch.Tensor,
-                 theta_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One EM step (two launches) from the source ``ptrs`` (p0, p1, p2, s0,
-    s1) of input mode ``mode_in``, [R, T] like ``like``: by cid gathering
-    the source, by tid reading it as theta (and writing it to
-    ``theta_out`` when given)."""
-    global EM_LAUNCHES
-    R = like.shape[0]
-    fn = (_lib().emsar_em_source_f64 if like.dtype == torch.float64 else
-          _lib().emsar_em_source_f32)
-    stream = torch.cuda.current_stream(like.device).cuda_stream
-    C, T = by_cid.n_groups, by_tid.n_groups
-    ratio = torch.empty((R, C), dtype=like.dtype, device=like.device)
-    rc = fn(*ptrs, mode_in, None, by_cid.mult.data_ptr(),
-            by_cid.idx.data_ptr(), by_cid.offsets.data_ptr(),
-            reads.data_ptr(), ratio.data_ptr(), None, R, C, by_cid.n_x,
-            _row_stride(reads, R, C, "reads"), by_cid.lanes, _RATIO, stream)
-    out = torch.empty((R, T), dtype=like.dtype, device=like.device)
-    if rc == 0:
-        rc = fn(*ptrs, mode_in, ratio.data_ptr(), by_tid.mult.data_ptr(),
-                by_tid.idx.data_ptr(), by_tid.offsets.data_ptr(),
-                inv_denom.data_ptr(), out.data_ptr(),
-                None if theta_out is None else theta_out.data_ptr(), R, T,
-                by_tid.n_x, _row_stride(inv_denom, R, T, "inv_denom"),
-                by_tid.lanes, _UPDATE, stream)
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
-                           f"{rc}")
-    EM_LAUNCHES += 2
-    return out
-
-
-def _same_kind(what: str, like: torch.Tensor, **tensors) -> None:
-    """Raise ValueError unless ``like`` is on a card and each tensor is on
-    its device in its dtype, contiguous, of the given shape."""
-    if like.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {like.device}")
-    for name, (t, shape) in tensors.items():
-        if t.device != like.device or t.dtype != like.dtype:
-            raise ValueError(f"{what}: {name} is {t.dtype} on {t.device}, "
-                             f"want {like.dtype} on {like.device}")
-        if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be a contiguous "
-                             f"{tuple(shape)} tensor, got {tuple(t.shape)}")
-
-
-def em_step_select(gain: torch.Tensor, cand: torch.Tensor, t2: torch.Tensor,
-                   by_cid: EdgeGroups, by_tid: EdgeGroups,
-                   reads: torch.Tensor, inv_denom: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(theta, one EM step from theta) for theta the accept of a cycle,
-    cand [R, T] in the rows whose gain [R] is >= 0, else t2
-    (``em_step_select_ref``).  Two launches on the card: the first gathers
-    the accept at each edge's tid, the second reads it and writes it out;
-    operands as ``em_step``'s."""
-    if cand.device.type == "cpu":
-        return em_step_select_ref(gain, cand, t2, by_cid, by_tid, reads,
-                                  inv_denom)
-    R, T = cand.shape
-    _same_kind("em_step_select", cand, gain=(gain, (R,)),
-               cand=(cand, (R, T)), t2=(t2, (R, T)))
-    theta = torch.empty_like(cand)
-    out = _from_source("em_step_select", cand, (
-        cand.data_ptr(), t2.data_ptr(), None, gain.data_ptr(), None),
-        _ACCEPT, by_cid, by_tid, reads, inv_denom, theta)
-    return theta, out
-
-
-def em_step_extrap(theta: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
-                   r_sq_sum: torch.Tensor, v_sq_sum: torch.Tensor,
-                   by_cid: EdgeGroups, by_tid: EdgeGroups,
-                   reads: torch.Tensor, inv_denom: torch.Tensor
-                   ) -> torch.Tensor:
-    """One EM step from the extrapolation of a cycle's theta, t1 and t2
-    [R, T] by the row sums [R, 1] of r * r and v * v
-    (``em_step_extrap_ref``).  Two launches on the card, each computing
-    the extrapolation where it reads it; operands as ``em_step``'s."""
-    if theta.device.type == "cpu":
-        return em_step_extrap_ref(theta, t1, t2, r_sq_sum, v_sq_sum, by_cid,
-                                  by_tid, reads, inv_denom)
-    R, T = theta.shape
-    _same_kind("em_step_extrap", theta, theta=(theta, (R, T)),
-               t1=(t1, (R, T)), t2=(t2, (R, T)),
-               r_sq_sum=(r_sq_sum, (R, 1)), v_sq_sum=(v_sq_sum, (R, 1)))
-    return _from_source("em_step_extrap", theta, (
-        theta.data_ptr(), t1.data_ptr(), t2.data_ptr(), r_sq_sum.data_ptr(),
-        v_sq_sum.data_ptr()), _EXTRAP, by_cid, by_tid, reads, inv_denom)
 
 
 def segment_sum(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,

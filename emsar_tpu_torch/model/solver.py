@@ -16,9 +16,8 @@ global (cid, tid, multiplicity) edge list.  Every segment sum goes through
 bits on every run (``index_add_`` on CUDA sums with float atomics), and
 the card gives the CPU's bits.  The rest of a SQUAREM cycle (step length,
 extrapolation, the accept test's intensities and gain) is
-``kernels.csr_cycle`` and the EM steps' input modes: a cycle is ten
-launches on the card (twelve where rows x edges exceed
-``FOLD_MAX_EDGES``), with the torch body's bits.  Below a size crossover
+``kernels.csr_cycle``: a cycle is twelve launches on the card, with the
+torch body's bits.  Below a size crossover
 (``CLUSTER_MAX_EDGES``) a cycle is five launches instead
 (``kernels.csr_cluster``: each row's modules packed into tiles, a
 thread-block cluster a tile, its passes split by hardware cluster
@@ -49,26 +48,16 @@ from ..kernels.csr_cluster import (Source, TilePlan, em_pair, extrap_gain,
 from ..kernels.csr_cycle import (block_end, cycle_extrap, cycle_select,
                                  gain_terms, pair_gain)
 from ..kernels.segment_sum import (EdgeGroups, em_step, em_step_cycle,
-                                   em_step_extrap, em_step_select, prepare,
-                                   sum_groups)
+                                   prepare, sum_groups)
 from . import loop
 from .modules import ModuleDecomposition, SegmentGraph
 
 # The CSR cycle runs on thread-block clusters (``kernels.csr_cluster``: five
 # launches a cycle) while a row's problem has at most this many edges and a
-# tile plan fits, as ten launches above.  The largest problem of
+# tile plan fits, as twelve launches above.  The largest problem of
 # ``bench/cluster_sweep.py``'s sweep (R 1, float64) at which the clusters
 # were faster; no larger one was measured.
 CLUSTER_MAX_EDGES = 11_520_000
-# Off clusters, a cycle's EM steps take the extrapolation and the accept as
-# input modes (ten launches a cycle) while its rows times its edges are at
-# most this, and launch cycle_extrap and cycle_select above (twelve): the
-# input modes' extra gathers cost more than a launch from there.  On the
-# H100 (``bench/cluster_sweep.py``, ``bench/cycle_ab.py``, float64) ten
-# launches were faster at R 1 up to 159,815 edges, slower from 179,927;
-# at R 3 faster at 74,730 row-edges, slower at 269,898; at R 16 slower
-# from 399,568.
-FOLD_MAX_EDGES = 160_000
 # ``cycle_plan``'s cache of tile plans: at most PLAN_CACHE plans and
 # PLAN_CACHE_BYTES of their tensors (``TilePlan.nbytes``: the tiled
 # groupings, the blocks' images and the problem's groupings they were
@@ -242,31 +231,18 @@ def _squarem_cycle_launches(p: DeviceProblem, src: Source,
                             intensities: bool = False) -> tuple:
     """One stabilized SQUAREM cycle as launches on the card, from ``src``:
     theta [R, T], or the previous cycle's (gain [R], cand, t2), whose
-    accept is this cycle's theta.  Three EM steps (the first from the
-    accept, the second also writing r * r and v * v, the third from the
-    extrapolation), the two step-length row sums, the gain terms of cand
-    over t2 and their row sum: ten launches, or twelve with cycle_select
-    and cycle_extrap launched apart where rows x edges exceed
-    ``FOLD_MAX_EDGES``.  Returns (gain, cand, t2), and with
+    accept (``cycle_select``) is this cycle's theta.  Three EM steps (the
+    second also writing r * r and v * v), the two step-length row sums,
+    the extrapolation, the gain terms of cand over t2 and their row sum:
+    twelve launches with the accept.  Returns (gain, cand, t2), and with
     ``intensities`` (t2's intensities, cand's) too."""
-    rows = (src if isinstance(src, torch.Tensor) else src[1]).shape[0]
-    fold = rows * p.by_cid.idx.shape[0] <= FOLD_MAX_EDGES
-    groups = (p.by_cid, p.by_tid, p.reads, p.inv_denom)
-    if isinstance(src, torch.Tensor):
-        theta = src
-        t1 = _em_iter(p, theta)
-    elif fold:
-        theta, t1 = em_step_select(*src, *groups)
-    else:
-        theta = cycle_select(*src)
-        t1 = _em_iter(p, theta)
-    t2, r_sq, v_sq = em_step_cycle(t1, theta, *groups)
-    sums = (torch.sum(r_sq, dim=1, keepdim=True),
-            torch.sum(v_sq, dim=1, keepdim=True))
-    if fold:
-        cand = em_step_extrap(theta, t1, t2, *sums, *groups)
-    else:
-        cand = _em_iter(p, cycle_extrap(theta, t1, t2, *sums))
+    theta = src if isinstance(src, torch.Tensor) else cycle_select(*src)
+    t1 = _em_iter(p, theta)
+    t2, r_sq, v_sq = em_step_cycle(t1, theta, p.by_cid, p.by_tid, p.reads,
+                                   p.inv_denom)
+    x = cycle_extrap(theta, t1, t2, torch.sum(r_sq, dim=1, keepdim=True),
+                     torch.sum(v_sq, dim=1, keepdim=True))
+    cand = _em_iter(p, x)  # stabilization
     gain = pair_gain(p.by_cid, p.reads, p.eumaps, t2, cand,
                      intensities=intensities)
     terms, s_pair = (gain[0], gain[1:]) if intensities else (gain, ())
@@ -315,7 +291,7 @@ def cycle_plan(p, rows: int, clusters: Optional[bool] = None
                ) -> Optional[TilePlan]:
     """The tile plan of the cycles of ``rows`` rows of ``p`` on clusters
     (``kernels.csr_cluster.plan_for``, made once per edge structure: see
-    ``_cached_plan``), or None for ten launches a cycle: by default on
+    ``_cached_plan``), or None for twelve launches a cycle: by default on
     clusters when ``clusters_for(p)`` and a plan fits; ``clusters`` forces
     the path (True raises when no plan fits)."""
     if clusters is False or (clusters is None and not clusters_for(p)):
@@ -343,7 +319,7 @@ def _squarem_block(p: DeviceProblem, theta: torch.Tensor, n: int,
     On clusters by ``plan`` (``cycle_plan``) a cycle is ``em_pair``
     (taking the previous cycle's accept as its theta), the two step-length
     row sums, ``extrap_gain`` and the gain's row sum: five launches; with
-    no plan ten launches a cycle (``_squarem_cycle_launches``).  The last
+    no plan twelve launches a cycle (``_squarem_cycle_launches``).  The last
     cycle also writes the intensities of t2 and cand, from which
     ``block_end`` picks the accepted row's.  Both give the same bits."""
     src = theta.contiguous()

@@ -3,7 +3,7 @@ the CPU, where its wrappers run their plain versions: the five-launch
 cycle of ``solver._squarem_cycles`` against ``emsar_tpu``'s
 ``squarem_cycle`` and ``_em_solve`` (f64, the tolerance of
 ``tests/test_torch_csr_cycle.py``: rel 1e-9), and bit for bit against the
-ten-launch cycle (R 1, 3 and 16, f32 and f64, the solves to their
+twelve-launch cycle (R 1, 3 and 16, f32 and f64, the solves to their
 stop, NaN stops included); the dispatch on either side of
 ``CLUSTER_MAX_EDGES``; the wrappers' refusals.  The kernels themselves run
 in ``tests/test_torch_cuda_emulated.py`` and, on the card,
@@ -100,7 +100,7 @@ def _sharded(problem, S, dtype):
 @pytest.mark.parametrize("R", [1, 3, 16])
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
 def test_cluster_cycles_are_the_launch_cycles(dtype, R):
-    """Ten cycles on clusters give the ten-launch cycles' bits, also
+    """Ten cycles on clusters give the twelve-launch cycles' bits, also
     cycle by cycle: R 1 and 3 share one row of reads (the CSR solve, its
     restart rounds), R 16 is the batched solve's ShardedProblem with a row
     each."""
@@ -128,7 +128,7 @@ def test_cluster_cycles_are_the_launch_cycles(dtype, R):
 @pytest.mark.parametrize("case", ["stop", "nan", "cap"])
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
 def test_em_solve_paths_agree(dtype, case):
-    """em_solve on clusters and on ten launches a cycle: the same
+    """em_solve on clusters and on twelve launches a cycle: the same
     theta, logL and blocks, three rows, to a real stop, to a NaN block
     gain (a read-less segment collapsing) and to the cap."""
     c = Case("csr", case)
@@ -184,7 +184,7 @@ def _count_calls(monkeypatch, names) -> dict:
 def test_dispatch_follows_the_crossover(monkeypatch, side):
     """A problem of E edges takes the cluster kernels when
     ``CLUSTER_MAX_EDGES`` is E (em_pair and extrap_gain once a cycle, the
-    launch path's kernels never) and the ten launches when it is E -
+    twelve launches' kernels never) and the twelve launches when it is E -
     1 (the reverse); both end at the same bits."""
     problem = _problem(7)
     p = tsolver.problem_to_device(problem, CPU, torch.float64)
@@ -281,7 +281,7 @@ def _module_problem(rng, n_modules=12):
 
 def test_plan_on_the_cpu_has_no_tiles():
     """On the CPU the plan carries only the problem's groupings (the plain
-    versions run), and the cycles on clusters give the ten launches'
+    versions run), and the cycles on clusters give the twelve launches'
     bits with it."""
     problem = _module_problem(np.random.default_rng(5))
     p = tsolver.problem_to_device(problem, CPU, torch.float64)

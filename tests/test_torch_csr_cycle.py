@@ -1,7 +1,7 @@
 """The CSR SQUAREM cycle's kernels (``kernels/csr_cycle.py``,
-``segment_sum.em_step_cycle`` and the EM steps' input modes) on the CPU,
-where the wrappers run their plain versions: the rebuilt
-``solver._squarem_cycle``, the ten- and twelve-launch cycles, ``em_solve``
+``segment_sum.em_step_cycle``) on the CPU, where the wrappers run their
+plain versions: the rebuilt ``solver._squarem_cycle``, the launch path's
+block of cycles, ``em_solve``
 and ``mesh.solve_sharded`` (tp 1) give the bits of the torch body they
 replaced (``tests/torch_loop_cases.py``: the cycle and gain as they were)
 at R 1, R 3 (one shared row of reads) and R 16 (per-sample reads, EUMAps
@@ -272,11 +272,6 @@ def test_wrappers_refuse_other_devices():
         csr_cycle.block_end(meta[:, 0], meta, meta, meta, meta, meta,
                             meta[0], meta[0])
     with pytest.raises(ValueError, match="device"):
-        ss.em_step_select(meta[:, 0], meta, meta, g, g, meta[0], meta[0])
-    with pytest.raises(ValueError, match="device"):
-        ss.em_step_extrap(meta, meta, meta, meta[:, :1], meta[:, :1], g, g,
-                          meta[0], meta[0])
-    with pytest.raises(ValueError, match="device"):
         ss.em_step_cycle(meta, meta, g, g, meta[0], meta[0])
     t1 = torch.ones((2, 5), dtype=torch.float64)
     with pytest.raises(ValueError, match="float32"):
@@ -345,17 +340,13 @@ def test_block_end_is_the_pass_it_replaced(dtype, R, shared):
     assert terms.shape == (R, C)
 
 
-@pytest.mark.parametrize("fold", [True, False], ids=["ten", "twelve"])
 @pytest.mark.parametrize("R", [1, 3, 16])
 @pytest.mark.parametrize("dtype", DTYPES, ids=DT_IDS)
-def test_launch_cycles_are_the_torch_body(dtype, R, fold, monkeypatch):
-    """Eight cycles off clusters, ten launches a cycle (the accept and the
-    extrapolation as the EM steps' input modes) or twelve (above
-    FOLD_MAX_EDGES: cycle_select and cycle_extrap apart), as one block:
-    theta the torch body's after eight cycles, its intensities those of
-    theta, and the block's gain terms over s_prev the body's."""
-    if not fold:
-        monkeypatch.setattr(tsolver, "FOLD_MAX_EDGES", 0)
+def test_launch_cycles_are_the_torch_body(dtype, R):
+    """Eight cycles off clusters (twelve launches a cycle) as one block,
+    ended by block_end: theta the torch body's after eight cycles, its
+    intensities those of theta, and the block's gain terms over s_prev
+    the body's."""
     problem = _problem(40 + R)
     if R == 16:
         p = _sharded(problem, R, dtype)
@@ -375,15 +366,13 @@ def test_launch_cycles_are_the_torch_body(dtype, R, fold, monkeypatch):
                  torch_body_gain_of(p.reads, p.eumaps, s_prev, s_want))
 
 
-@pytest.mark.parametrize("path", ["clusters", "ten", "twelve"])
+@pytest.mark.parametrize("path", ["clusters", "launches"])
 @pytest.mark.parametrize("seed", [1, 2])
-def test_em_solve_paths_match_jax(seed, path, monkeypatch):
-    """em_solve on clusters, on ten launches a cycle and on twelve: the
-    same bits on each path, logL within rel 1e-9 of emsar_tpu's
-    ``_em_solve`` from the same start (float64), and the same block count
-    (no NaN gain stops either)."""
-    if path == "twelve":
-        monkeypatch.setattr(tsolver, "FOLD_MAX_EDGES", 0)
+def test_em_solve_paths_match_jax(seed, path):
+    """em_solve on clusters and on twelve launches a cycle: the same bits
+    on each path, logL within rel 1e-9 of emsar_tpu's ``_em_solve`` from
+    the same start (float64), and the same block count (no NaN gain stops
+    either)."""
     problem = _problem(seed + 20)
     th0 = tsolver.read_attribution_start(problem)
     p = tsolver.problem_to_device(problem, CPU, torch.float64)

@@ -510,91 +510,6 @@ def test_em_cycle_update_source_matches_plain(emulated, dtype, lanes,
     assert (want[1] > 0).any() and (want[2] > 0).any()
 
 
-def _emulated_em_source(lib, ptrs, mode_in, like, p, lanes, reads, inv_denom,
-                     theta_out=False):
-    """The emulated EM step from a source of input mode ``mode_in`` (two
-    launches of csrc/segment_sum.cu): (out, theta written or None)."""
-    fn = (lib.emsar_em_source_f64 if like.dtype == torch.float64
-          else lib.emsar_em_source_f32)
-    fn.restype = ctypes.c_int
-    fn.argtypes = segment_sum.SOURCE_ARGTYPES
-    R, T = like.shape
-    C = p.by_cid.n_groups
-    ratio = torch.full((R, C), 7.0, dtype=like.dtype)
-    out = torch.full_like(like, 7.0)
-    th = torch.full_like(like, 7.0) if theta_out else None
-    assert fn(*ptrs, mode_in, None, p.by_cid.mult.data_ptr(),
-              p.by_cid.idx.data_ptr(), p.by_cid.offsets.data_ptr(),
-              reads.data_ptr(), ratio.data_ptr(), None, R, C, T,
-              C if reads.dim() == 2 else 0, lanes, 1, None) == 0
-    assert fn(*ptrs, mode_in, ratio.data_ptr(), p.by_tid.mult.data_ptr(),
-              p.by_tid.idx.data_ptr(), p.by_tid.offsets.data_ptr(),
-              inv_denom.data_ptr(), out.data_ptr(), _ptr(th), R, T, C,
-              T if inv_denom.dim() == 2 else 0, lanes, 2, None) == 0
-    return out, th
-
-
-@pytest.mark.parametrize("per_row", [False, True], ids=["shared", "per_row"])
-@pytest.mark.parametrize("lanes", [4, 32])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
-                         ids=["f32", "f64"])
-def test_em_source_modes_match_plain(emulated, dtype, lanes, per_row):
-    """The EM step's input modes at R = 3: from the accept (rows of NaN,
-    -0 and positive gain), the step and the accepted theta it writes
-    bit-equal to ``em_step_select_ref``; from the extrapolation, bit-equal
-    to the EM step from ``cycle_extrap``'s plain version (its square roots
-    correctly rounded, as the kernel's), also on rows whose alpha is NaN
-    or whose v is 0."""
-    rng = np.random.default_rng(lanes + 13 * per_row)
-    problem = _sum_problem(rng)
-    p = solver.problem_to_device(problem, torch.device("cpu"), dtype)
-    R, T = 3, problem.n_transcripts
-    reads, inv_denom = p.reads, p.inv_denom
-    if per_row:
-        reads = torch.stack([reads * k for k in (1, 2, 0.5)])
-        inv_denom = torch.stack([inv_denom.roll(k) for k in range(R)])
-    theta = rng.uniform(0, 10, (R, T))
-    theta[:, rng.random(T) < 0.2] = 0.0
-    theta = torch.as_tensor(theta).to(dtype)
-    theta[2] = 0.0
-    groups = (p.by_cid, p.by_tid, reads, inv_denom)
-    t1 = segment_sum.em_step_ref(theta, *groups)
-    t2, r_sq, v_sq = segment_sum.em_step_cycle_ref(t1, theta, *groups)
-    lib = emulated[segment_sum.SOURCE]
-    cand = torch.as_tensor(rng.uniform(0, 5, (R, T))).to(dtype)
-    gain = torch.tensor([np.nan, -0.0, 2.0], dtype=dtype)
-    out, th = _emulated_em_source(lib, (cand.data_ptr(), t2.data_ptr(),
-                                        None, gain.data_ptr(), None), 1,
-                                  cand, p, lanes, reads, inv_denom,
-                                  theta_out=True)
-    want = segment_sum.em_step_select_ref(gain, cand, t2, *groups)
-    assert torch.equal(th, want[0]) and torch.equal(out, want[1])
-    assert torch.equal(th[0], t2[0]) and torch.equal(th[1], cand[1])
-    rs = torch.sum(r_sq, dim=1, keepdim=True)
-    vs = torch.sum(v_sq, dim=1, keepdim=True)
-    assert vs[2, 0] == 0
-    for r_sum, v_sum in ((rs, vs), (torch.tensor([[np.nan], [4.0], [1.0]],
-                                                 dtype=dtype),
-                                    torch.tensor([[1.0], [0.0], [1.0]],
-                                                 dtype=dtype))):
-        out, none = _emulated_em_source(
-            lib, (theta.data_ptr(), t1.data_ptr(), t2.data_ptr(),
-                  r_sum.data_ptr(), v_sum.data_ptr()), 2, theta, p, lanes,
-            reads, inv_denom)
-        assert none is None
-        rnorm, vnorm = (torch.as_tensor(np.sqrt(a.numpy()))
-                        for a in (r_sum, v_sum))
-        alpha = torch.clamp(torch.where(
-            vnorm > 0, -rnorm / torch.where(vnorm > 0, vnorm, 1.0), -1.0),
-            max=-1.0)
-        r = t1 - theta
-        v = t2 - t1 - r
-        x = theta - 2.0 * alpha * r + (alpha * alpha) * v
-        want = segment_sum.em_step_ref(torch.where(x > 0, x, t2), *groups)
-        assert torch.equal(out.nan_to_num(), want.nan_to_num())
-        assert torch.equal(torch.isnan(out), torch.isnan(want))
-
-
 def _log1p_tolerance(got, want, reads, s_old, s_new):
     """The emulated gain terms against the plain version's: the same bits
     where the term has no log1p, and where it has one within 4 ulps of

@@ -323,9 +323,7 @@ def test_csr_cycle_kernels_match_plain(cuda, dtype, R):
     the CPU's; cycle_extrap, the tiled pair_gain (its intensities against
     sums on the CPU, the gain terms against torch on the card, so CUDA's
     log1p on both sides), block_end and cycle_select against torch on the
-    card; the EM steps from the extrapolation and from the accept against
-    em_step of cycle_extrap's and cycle_select's outputs; two calls equal;
-    the launch counts."""
+    card; two calls equal; the launch counts."""
     rng = np.random.default_rng(R + 31)
     pg, pc, th = _cycle_inputs(rng, R, dtype, cuda)
     thg = th.to(cuda)
@@ -375,17 +373,6 @@ def test_csr_cycle_kernels_match_plain(cuda, dtype, R):
         assert _same(a, w)
     assert torch.equal(end[0], out)
     assert csr_cycle.LAUNCHES == before + 7
-    before = ssum.EM_LAUNCHES
-    got = ssum.em_step_extrap(thg, t1, t2, rs, vs, pg.by_cid, pg.by_tid,
-                              pg.reads, pg.inv_denom)
-    assert torch.equal(got, cand)
-    theta, got = ssum.em_step_select(gain, cand, t2, pg.by_cid, pg.by_tid,
-                                     pg.reads, pg.inv_denom)
-    torch.cuda.synchronize()
-    assert ssum.EM_LAUNCHES == before + 4
-    assert torch.equal(theta, out)
-    assert torch.equal(got.cpu(), ssum.em_step_ref(
-        out.cpu(), pc.by_cid, pc.by_tid, pc.reads, pc.inv_denom))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -426,8 +413,7 @@ def test_squarem_cycle_is_the_torch_body_on_the_card(cuda, dtype, R):
     """Eight cycles of ``solver._squarem_cycle`` give the bits of the torch
     body they replaced, run on the card with the same EM-step and
     intensity kernels, after every cycle; and eight cycles as one block
-    of ten launches a cycle and of twelve (``FOLD_MAX_EDGES`` 0) give the
-    body's bits after the eighth."""
+    of twelve launches a cycle give the body's bits after the eighth."""
     rng = np.random.default_rng(R + 41)
     pg, _, th = _cycle_inputs(rng, R, dtype, cuda)
     th = want = th0 = th.to(cuda)
@@ -437,12 +423,6 @@ def test_squarem_cycle_is_the_torch_body_on_the_card(cuda, dtype, R):
         torch.cuda.synchronize()
         assert torch.equal(th, want)
     assert torch.equal(solver._squarem_cycles(pg, th0, 8, None), want)
-    fold = solver.FOLD_MAX_EDGES
-    try:
-        solver.FOLD_MAX_EDGES = 0
-        assert torch.equal(solver._squarem_cycles(pg, th0, 8, None), want)
-    finally:
-        solver.FOLD_MAX_EDGES = fold
 
 
 def _same(a, b):

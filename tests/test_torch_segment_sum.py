@@ -97,55 +97,6 @@ def test_segment_sum_wrapper_on_cpu_is_the_plain_version():
         ss.segment_sum(x.T, w, idx, off)
 
 
-@pytest.mark.parametrize("R", [1, 3, 16])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
-                         ids=["f32", "f64"])
-def test_em_step_modes_are_the_two_step_body(dtype, R):
-    """The EM steps from a source (``em_step_extrap``, ``em_step_select``)
-    and their plain versions: the bits of the two steps they fold, the
-    cycle's lines as the torch body wrote them (the extrapolation from the
-    row sums of r * r and v * v, the accept by row) and then the EM step;
-    the accept written out is the body's theta.  Rows of NaN, -0.0 and
-    negative gain, a row of r = v = 0 (alpha -1), reads and 1 / denom one
-    row or (R 16) a row each."""
-    rng = np.random.default_rng(R + 50)
-    problem = _random_problem(rng, 300, 120, 2000)
-    p = tsolver.problem_to_device(problem, CPU, dtype)
-    T = problem.n_transcripts
-    reads, inv_denom = p.reads, p.inv_denom
-    if R == 16:
-        reads = torch.as_tensor(rng.uniform(0.5, 2, (R, 1))).to(dtype) * reads
-        inv_denom = torch.stack([inv_denom.roll(k) for k in range(R)])
-    groups = (p.by_cid, p.by_tid, reads, inv_denom)
-    theta = rng.uniform(0, 10, (R, T))
-    theta[:, rng.random(T) < 0.2] = 0.0
-    theta = torch.as_tensor(theta).to(dtype)
-    theta[-1] = 0.0
-    t1 = ss.em_step_ref(theta, *groups)
-    t2 = ss.em_step_ref(t1, *groups)
-    r = t1 - theta
-    v = t2 - t1 - r
-    rs = torch.sum(r * r, dim=1, keepdim=True)
-    vs = torch.sum(v * v, dim=1, keepdim=True)
-    rnorm, vnorm = torch.sqrt(rs), torch.sqrt(vs)
-    alpha = torch.clamp(torch.where(
-        vnorm > 0, -rnorm / torch.where(vnorm > 0, vnorm, 1.0), -1.0),
-        max=-1.0)
-    extrap = theta - 2.0 * alpha * r + (alpha * alpha) * v
-    want = ss.em_step_ref(torch.where(extrap > 0, extrap, t2), *groups)
-    assert vs[-1, 0] == 0
-    for fn in (ss.em_step_extrap_ref, ss.em_step_extrap):
-        assert torch.equal(fn(theta, t1, t2, rs, vs, *groups), want)
-    gain = torch.as_tensor(np.resize([np.nan, -0.0, 1.0, -2.0], R)).to(dtype)
-    body = torch.where((gain >= 0)[:, None], want, t2)
-    for fn in (ss.em_step_select_ref, ss.em_step_select):
-        th, out = fn(gain, want, t2, *groups)
-        assert torch.equal(th, body)
-        assert torch.equal(out, ss.em_step_ref(body, *groups))
-    assert torch.equal(body[0], t2[0])
-    assert R == 1 or torch.equal(body[1], want[1])
-
-
 def test_tile_bounds_cut_the_groups():
     """Tiles of consecutive groups: every group in one tile, at most
     ``tile`` groups a tile and fewer than ``tile`` edges before a tile's
