@@ -57,10 +57,13 @@ exit, no result line):
    its CSR problem (bit-equal to the CPU); the CSR cycle's kernels
    (em_step_cycle, cycle_extrap, the tiled pair_gain with and without its
    intensities, cycle_select, block_end and a whole cycle of twelve
-   launches) and the cluster kernels (cluster_em_pair from theta and from
+   launches; two cycles replayed from a CUDA graph equal to the eager
+   ones, cycle_select equal to torch.where, timed beside it) and the
+   cluster kernels (cluster_em_pair from theta and from
    an accept, cluster_extrap_gain with and without its intensities,
    eight cycles of five launches) bit-equal to their plain versions at
-   the CSR shape (R 1, float64) and the CSR restart rounds' (R 3, float32
+   the CSR shape (R 1, float64; the CSR cycle's kernels in float32 too)
+   and the CSR restart rounds' (R 3, float32
    and float64); max abs error, device and host times, bounds, each
    kernel's share of its bound and the cluster plan's tiles and cluster
    size.  Then ``bench.cycle_ab`` on this checkout alone: the block end,
@@ -923,28 +926,46 @@ def plain_cycle(p, theta):
     return cc.cycle_select_ref(gain, cand, t2)
 
 
+def replayed(fn):
+    """What ``fn()`` returns when it is captured into a CUDA graph
+    (``bench.cluster_sweep.capture``) and replayed, its output
+    overwritten with -1 before the replay."""
+    import torch
+
+    from emsar_tpu_torch.bench.cluster_sweep import capture
+    graph, out = capture(fn)
+    out.fill_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
 def check_csr_cycle(p, theta, label: str) -> dict:
     """The CSR cycle's kernels on the card against their plain versions on
     the same inputs, bit for bit: em_step_cycle (t2, r * r, v * v)
-    against the CPU's; cycle_extrap, cycle_select, the
+    against the CPU's; cycle_extrap, cycle_select (and torch.where, its
+    library call), the
     tiled pair_gain's gain terms and block_end against torch on the card
     (the intensities summed on the CPU: index_add_ on the card sums with
     atomics), pair_gain's intensities against the CPU's; a whole
     ``solver._squarem_cycle`` off clusters (twelve launches) against
-    ``plain_cycle``, and on two calls.  ``p`` is a DeviceProblem or
+    ``plain_cycle``, and on two calls; two cycles replayed from a CUDA
+    graph against the same two run eagerly (cycle_extrap and
+    cycle_select may start before the row sum they wait on ends).  ``p`` is a DeviceProblem or
     ShardedProblem on the card (reads, eumaps, inv_denom one row or a row
     each), theta [R, T].  Times each csr_cycle kernel (device and host ms)
     and its plain version on the card, each call from a cold L2, beside
     its bound (``bench.cycle_ab.kernel_bounds``), em_step, em_step_cycle
-    and the whole cycle against ``plain_cycle``.  Returns {kernel: what
-    it measured, "cycle": the EM steps' and the cycle's times}."""
+    and the whole cycle against ``plain_cycle``, and cycle_select's
+    library call.  Returns {kernel: what it measured, "cycle": the EM
+    steps' and the cycle's times}."""
     import torch
 
     from emsar_tpu_torch.bench.cycle_ab import kernel_bounds
     from emsar_tpu_torch.kernels import csr_cycle as cc
     from emsar_tpu_torch.kernels import measure
     from emsar_tpu_torch.kernels import segment_sum as ss
-    from emsar_tpu_torch.model.solver import _squarem_cycle
+    from emsar_tpu_torch.model.solver import _squarem_cycle, _squarem_cycles
 
     theta = theta.contiguous()
     gc, gt = p.by_cid, p.by_tid
@@ -985,10 +1006,20 @@ def check_csr_cycle(p, theta, label: str) -> dict:
     if not all(_same_bits(a, b) for a, b in zip(end, cc.block_end_ref(
             gain, cand, t2, s_t2, s_cand, s_prev, p.reads, p.eumaps))):
         failed.append("block_end")
+    library = {"cycle_select": lambda: torch.where(
+        (gain >= 0)[:, None], cand, t2)}
+    if not _same_bits(library["cycle_select"](), out):
+        failed.append("cycle_select against torch.where")
     whole = [_squarem_cycle(p, theta, clusters=False) for _ in range(2)]
     if not (_same_bits(whole[0], plain_cycle(p, theta))
             and _same_bits(whole[0], whole[1])):
         failed.append("the whole cycle")
+    # a block of two cycles (cycle_select and cycle_extrap each launched
+    # behind the row sum they wait on) replayed from a CUDA graph
+    two = _squarem_cycles(p, theta, 2, None)
+    if not _same_bits(replayed(lambda: _squarem_cycles(p, theta, 2, None)),
+                      two):
+        failed.append("two cycles replayed from a CUDA graph")
     n_nan = int(torch.isnan(terms).sum())
     if failed:
         raise AssertionError(f"csr_cycle {label}: {failed} differ from "
@@ -1013,10 +1044,13 @@ def check_csr_cycle(p, theta, label: str) -> dict:
         host = measure.host_ms(fn)
         ms = measure.device_ms_cold(fn, host_per_call_ms=host)
         bound, by, n_bytes = bounds[name]
+        lib = library.get(name)
         measured[name] = {"err": 0.0, "ms": ms, "host_ms": host,
                           "plain_ms": measure.device_ms_cold(plain, n=20),
-                          "library_ms": None, "bound_ms": bound,
-                          "bound_by": by, "bytes": n_bytes}
+                          "library_ms": None if lib is None else
+                          measure.device_ms_cold(lib),
+                          "bound_ms": bound, "bound_by": by,
+                          "bytes": n_bytes}
     steps = {
         "em_step": lambda: ss.em_step(t1, *groups),
         "em_step_cycle": lambda: ss.em_step_cycle(t1, theta, *groups),
@@ -1037,11 +1071,14 @@ def check_csr_cycle(p, theta, label: str) -> dict:
         f"em_step_cycle, cycle_extrap, pair_gain (tiles of {ss.TILE} "
         f"segments, "
         f"{gc.tiles.shape[1] - 1} tiles), cycle_select, block_end and the "
-        f"whole cycle bit-equal to their plain versions ({n_nan} NaN gain "
+        f"whole cycle bit-equal to their plain versions, two cycles "
+        f"replayed from a CUDA graph to the eager ones ({n_nan} NaN gain "
         f"terms); " + "; ".join(
             f"{k} {m['ms']:.5f} ms on the card ({m['bound_ms'] / m['ms']:.1%}"
             f" of its bound {m['bound_ms']:.5f} ms, {m['bound_by']}), "
             f"{m['host_ms']:.4f} ms host, plain {m['plain_ms']:.4f} ms"
+            + ("" if m["library_ms"] is None else
+               f", torch.where {m['library_ms']:.5f} ms")
             for k, m in measured.items()) + "; " + "; ".join(
             f"{k} {m['ms']:.5f} ms" + (f" (bound {m['bound_ms']:.5f})"
                                        if "bound_ms" in m else "")
@@ -1406,6 +1443,7 @@ def phase_segment_sum_main(x, dev):
     em = check_em_step(p, theta, "main path")
     p32 = problem_to_device(problem, dev, torch.float32)
     check_em_step(p32, theta.float(), "main path")
+    check_csr_cycle(p32, theta.float(), "main path")
     cycle = check_csr_cycle(p, theta, "main path")
     cluster = check_csr_cluster(p, theta, "main path")
     # the restart rounds' shape: R 3 on the restricted problem

@@ -89,18 +89,25 @@ def rows(problem: solver.SolverProblem, R: int, rng) -> np.ndarray:
     return np.where(problem.denom > 0, th, 0.0)
 
 
-def graph_ms(fn, n: int = 20) -> float:
-    """Device ms of ``fn`` captured in a CUDA graph (warmed up on a side
-    stream first, as ``model/loop.py`` does) and replayed ``n`` times
-    between CUDA events."""
+def capture(fn, graph=None):
+    """(``graph``, or a new CUDA graph, holding ``fn`` captured after a
+    warm-up on a side stream, as ``model/loop.py`` does; what ``fn``
+    returned in the capture, which each replay writes)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph() if graph is None else graph
     with torch.cuda.graph(graph):
-        fn()
+        out = fn()
+    return graph, out
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Device ms of ``fn`` captured in a CUDA graph (``capture``) and
+    replayed ``n`` times between CUDA events."""
+    graph = capture(fn)[0]
     graph.replay()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)

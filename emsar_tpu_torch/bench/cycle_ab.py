@@ -22,13 +22,13 @@ problem (R 1, float64).
 At each, in turns (parent, change, change, parent), device ms and host ms
 a call of:
 
-* the block end: the parent's ``cycle_select`` and ``block_gain`` (a
-  pass over the edges) against ``block_end`` (the accept and its
-  intensities picked from those the last ``pair_gain`` wrote);
-* ``pair_gain``: the parent's (a group of lanes a segment) against the
-  tiled one, and the tiled one writing both intensities (a block's last
-  cycle);
-  both from a cold L2 (``kernels.measure.device_ms_cold``: their inputs
+* the block end, ``block_end`` (the accept and its intensities picked
+  from those the last ``pair_gain`` wrote);
+* ``pair_gain``, and writing both intensities (a block's last cycle);
+* ``cycle_extrap`` and ``cycle_select``, each side's, and beside
+  ``cycle_select`` the one PyTorch call that computes it,
+  ``torch.where((gain >= 0)[:, None], cand, t2)`` (``torch.where``);
+  all from a cold L2 (``kernels.measure.device_ms_cold``: their inputs
   fit in the H100's 50 MB L2 at most of these shapes);
 * eight cycles off clusters (twelve launches a cycle, ended by the
   block's end) replayed from a CUDA graph (``bench.cluster_sweep.
@@ -39,9 +39,10 @@ a call of:
   (``solve_ms``): ms per replayed block.
 
 Both sides' outputs must be bit-equal: theta, intensities and gain terms
-of the block end, the gain terms, eight cycles' theta, the solve's theta
-and blocks.  The script raises otherwise.  Prints one JSON object (with
-the card's name and power limit) and writes it to ``--out``.
+of the block end, the gain terms, the extrapolation, the accept (and
+``torch.where``'s), eight cycles' theta, the solve's theta and blocks.
+The script raises otherwise.  Prints one JSON object (with the card's
+name and power limit) and writes it to ``--out``.
 ``kernel_bounds`` is the roofline bound of each kernel here, which
 ``chip_smoke.py`` reports too.
 """
@@ -179,35 +180,50 @@ def cycle_inputs(p, th) -> dict:
     """The inputs of a block's end after one cycle from ``th`` off
     clusters, made by this checkout: gain, cand, t2 and their
     intensities, and s_prev (th's intensities); one row's gain set to
-    NaN and, at R > 2, one to -1, so that rows take t2."""
+    NaN and, at R > 2, one to -1, so that rows take t2.  Also the
+    extrapolation's inputs: theta, t1 and the row sums of r * r and
+    v * v."""
+    th = th.contiguous()
     gain, cand, t2, s_t2, s_cand = solver._squarem_cycle_launches(
-        p, th.contiguous(), intensities=True)
+        p, th, intensities=True)
     gain = gain.clone()
     gain[0] = np.nan
     if gain.shape[0] > 2:
         gain[2] = -1.0
+    groups = (p.by_cid, p.by_tid, p.reads, p.inv_denom)
+    t1 = ss.em_step(th, *groups)
+    _, r_sq, v_sq = ss.em_step_cycle(t1, th, *groups)
     return {"gain": gain, "cand": cand, "t2": t2, "s_t2": s_t2,
-            "s_cand": s_cand, "s_prev": ss.sum_groups(th.contiguous(),
-                                                      p.by_cid)}
+            "s_cand": s_cand, "s_prev": ss.sum_groups(th, p.by_cid),
+            "theta": th, "t1": t1,
+            "rs": torch.sum(r_sq, dim=1, keepdim=True),
+            "vs": torch.sum(v_sq, dim=1, keepdim=True)}
+
+
+def cycle_calls(mcc, v: dict) -> dict:
+    """{name: call()} of a side's ``cycle_extrap`` and ``cycle_select``
+    (``mcc``, its ``kernels.csr_cycle``) on the inputs ``v``."""
+    return {"cycle_extrap": lambda: mcc.cycle_extrap(
+                v["theta"], v["t1"], v["t2"], v["rs"], v["vs"]),
+            "cycle_select": lambda: mcc.cycle_select(v["gain"], v["cand"],
+                                                     v["t2"])}
+
+
+def where_call(v: dict):
+    """The one PyTorch call that computes ``cycle_select``."""
+    return lambda: torch.where((v["gain"] >= 0)[:, None], v["cand"],
+                               v["t2"])
 
 
 def side_calls(msolver, mcc, p, th, v: dict, parent: bool) -> dict:
     """{measurement: call()} of one side (``parent``: the parent's
-    kernels, else this checkout's)."""
+    kernels, else this checkout's, with ``torch.where`` beside them)."""
     g = p.by_cid
     rd, eu = p.reads, p.eumaps
 
     def cycles():
         return msolver._squarem_cycles(p, th, 8, None)
-    if parent:
-        def block_end():
-            theta = mcc.cycle_select(v["gain"], v["cand"], v["t2"])
-            s, terms = mcc.block_gain(g, rd, eu, v["s_prev"], theta)
-            return theta, s, terms
-        return {"block_end": block_end,
-                "pair_gain": lambda: mcc.pair_gain(g, rd, eu, v["t2"],
-                                                   v["cand"]),
-                "eight_cycles": cycles}
+    library = {} if parent else {"torch.where": where_call(v)}
     return {"block_end": lambda: mcc.block_end(
                 v["gain"], v["cand"], v["t2"], v["s_t2"], v["s_cand"],
                 v["s_prev"], rd, eu),
@@ -215,7 +231,7 @@ def side_calls(msolver, mcc, p, th, v: dict, parent: bool) -> dict:
                                                v["cand"]),
             "pair_gain_intensities": lambda: mcc.pair_gain(
                 g, rd, eu, v["t2"], v["cand"], intensities=True),
-            "eight_cycles": cycles}
+            **cycle_calls(mcc, v), **library, "eight_cycles": cycles}
 
 
 def _bits(t) -> np.ndarray:
@@ -313,6 +329,10 @@ def run(dev: torch.device, all_cases: dict, parent: Optional[str] = None,
         outs = {who: {k: fn() for k, fn in c.items()}
                 for who, c in calls.items()}
         torch.cuda.synchronize()
+        if not _equal(outs["change"]["torch.where"],
+                      outs["change"]["cycle_select"]):
+            raise AssertionError(f"{name}: cycle_select differs from "
+                                 f"torch.where")
         if parent:
             for k in outs["parent"]:
                 if not _equal(outs["parent"][k], outs["change"][k]):
@@ -332,7 +352,8 @@ def run(dev: torch.device, all_cases: dict, parent: Optional[str] = None,
                  "segments": p.by_cid.n_groups,
                  "transcripts": p.by_tid.n_groups, "median": med,
                  "runs": runs, "bounds": {k: bounds[k] for k in (
-                     "pair_gain", "pair_gain intensities", "block_end")}}
+                     "pair_gain", "pair_gain intensities", "block_end",
+                     "cycle_extrap", "cycle_select")}}
         if name.startswith("oversized"):
             if solver.cycle_plan(p, R) is not None:
                 raise AssertionError("the oversized problem found a tile "

@@ -24,10 +24,7 @@ limit) and writes it to ``--out``.
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
-import ctypes
 import os
-import subprocess
 
 import torch
 
@@ -39,35 +36,15 @@ from ..kernels import segment_sum as ss
 from ..model import solver
 from ..parallel import mesh
 
-PARTS_DIR = os.path.join(_build.BUILD_DIR, "parts")
-
 
 def build(variants: dict) -> dict:
     """{name: ctypes library} of {name: (tma, tile)}, built from
     csr_cycle.cu with the package's nvcc flags, all at once."""
-    os.makedirs(PARTS_DIR, exist_ok=True)
-    source = os.path.join(_build.CSRC_DIR, csr_cycle.SOURCE)
-
-    def one(item):
-        name, (tma, tile) = item
-        so = os.path.join(PARTS_DIR, f"pair_{name.replace(' ', '_')}.so")
-        proc = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
-             f"-DEMSAR_PAIR_TMA={int(tma)}", f"-DEMSAR_PAIR_TILE={tile}",
-             "-o", so, source], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-        return name, so
-    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
-        built = dict(pool.map(one, variants.items()))
-    libs = {}
-    for name, so in built.items():
-        lib = ctypes.CDLL(so)
-        for fn in ("emsar_pair_gain_f32", "emsar_pair_gain_f64"):
-            getattr(lib, fn).restype = ctypes.c_int
-            getattr(lib, fn).argtypes = csr_cycle.PAIR_ARGTYPES
-        libs[name] = lib
-    return libs
+    libs = _build.build_variants(csr_cycle.SOURCE, {
+        f"pair {name}": (f"-DEMSAR_PAIR_TMA={int(tma)}",
+                         f"-DEMSAR_PAIR_TILE={tile}")
+        for name, (tma, tile) in variants.items()})
+    return {name: csr_cycle.bind(libs[f"pair {name}"]) for name in variants}
 
 
 def pair_call(lib, tile: int, p, t2, cand, intensities: bool):

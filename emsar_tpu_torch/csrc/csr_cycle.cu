@@ -71,12 +71,40 @@
 // 256 ~8% faster at R 1, 14-35% slower at every other shape), so the
 // default build loads directly, in tiles of 512.
 //
+// cycle_extrap's and cycle_select's design.  Two short elementwise passes
+// that follow a torch.sum row sum (cycle_extrap the sum of v * v,
+// cycle_select the previous cycle's sum of the gain terms): most of their
+// time is the launch, the wait on that sum and a first load.  A block
+// takes a run of one row (blockIdx.y the row, blockIdx.x a run of kVecs *
+// kThreads 16-byte vectors, neighbouring threads on neighbouring
+// addresses), so no thread divides; the row's elements before its first
+// 16-byte line and after its last (a row of R > 1 starts inside a line
+// when T * sizeof(F) % 16 != 0) are loaded one by one by the first run's
+// threads, and a call whose arrays lie at different offsets within
+// their lines is made of one-element vectors.  cycle_extrap's step
+// length is a row's: one thread of a block computes it, broadcast through
+// shared memory.  Both are launched by cudaLaunchKernelEx with
+// programmatic stream serialization (Hopper's programmatic dependent
+// launch): a block may start while the kernel before it on the stream
+// still runs, does its index work and loads every input but the one that
+// kernel writes (theta, t1, t2 and the sum of r * r; cand and t2), waits
+// in cudaGridDependencySynchronize() for that kernel to finish, and only
+// then reads the last input (the sum of v * v; the gain) and writes.
+// Everything before the kernel directly before it on the stream had
+// finished when that one started, so the early loads are of finished
+// data; without the attribute (-DEMSAR_CYCLE_PDL=0, the build
+// bench/cycle_parts.py times against this one) the wait returns at once.
+// Where a row's cand and t2 are many bytes (above kSelectEarlyBytes a
+// call), cycle_select reads only the picked one, after the wait.
+//
 // What bounds it on the H100: bytes, and in practice latency.  At the
 // smoke workload's CSR shape (R 1, f64; 27,619 segments, 89,744 edges,
 // 12,090 transcripts) pair_gain moves ~2.1 MB (the by-cid edges, two
 // thetas, reads, eumaps, the terms), block_end ~1.5 MB (three vectors of
 // C, two of T read, two of C and one of T written) and no edge:
-// ~1.1 us together at 3.35 TB/s against a few us of launch each.
+// ~1.1 us together at 3.35 TB/s against a few us of launch each;
+// cycle_extrap ~0.4 MB (three vectors of T read, one written),
+// cycle_select ~0.2 MB (the picked vector read, one written).
 //
 // Layout: theta, t1, t2, cand, x and out [R, T] contiguous; rsum, vsum and
 // gain [R]; w [E]; idx [E] int32; offsets [G + 1] int64; tiles [2, n_tiles
@@ -86,6 +114,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #ifndef EMSAR_PAIR_TILE
 #define EMSAR_PAIR_TILE 512
@@ -100,6 +130,19 @@
 #endif
 #if EMSAR_PAIR_TMA
 #include "bulk_copy.cuh"
+#endif
+// 0: cycle_extrap and cycle_select launched without programmatic stream
+// serialization (bench/cycle_parts.py builds it to time against the
+// default 1)
+#ifndef EMSAR_CYCLE_PDL
+#define EMSAR_CYCLE_PDL 1
+#endif
+// the bytes of cand a call above which cycle_select reads only the picked
+// row, after the wait: below it the other row costs at most ~0.16 us of
+// HBM, and the gain's load overlaps the rows' (bench/cycle_parts.py times
+// both paths at every shape)
+#ifndef EMSAR_SELECT_EARLY_BYTES
+#define EMSAR_SELECT_EARLY_BYTES (512LL << 10)
 #endif
 
 namespace {
@@ -139,6 +182,10 @@ constexpr int kThreads = 256;
 constexpr int kTile = EMSAR_PAIR_TILE;
 constexpr int kStaged = 2 * kTile;
 constexpr int kTileThreads = EMSAR_PAIR_THREADS;
+// cycle_extrap and cycle_select: 16-byte vectors a thread (1 and 4 a
+// thread were no faster on the H100)
+constexpr int kVecs = 2;
+constexpr long long kSelectEarlyBytes = EMSAR_SELECT_EARLY_BYTES;
 
 // the gain term of one segment (gain_of's, before the sum over segments)
 template <typename F>
@@ -353,36 +400,194 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// A row's 16-byte lines: its elements [head, head + n W) lie on whole
+// lines of W = 16 / sizeof(F) elements, its first ``head`` and last
+// ``tail`` elements outside them (W = 1: no such element); a block's
+// threads take the vectors of its run, kVecs each, and the first run's
+// threads the loose elements, one each.
+template <typename F, int W>
+struct RowRun {
+  int head, tail;
+  long long n;  // the row's vectors
+  __device__ RowRun(const F* row, long long T) {
+    head = W == 1 ? 0
+                  : static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(row)
+                                             & 15)) & 15) / sizeof(F));
+    if (head > T) head = static_cast<int>(T);
+    n = (T - head) / W;
+    tail = static_cast<int>(T - head - n * W);
+  }
+  // the row's first element of this thread's k-th vector, -1 past the row
+  __device__ long long vec(int k) const {
+    const long long q = static_cast<long long>(blockIdx.x) * (kVecs *
+                                                              kThreads) +
+                        k * kThreads + threadIdx.x;
+    return q < n ? head + q * W : -1;
+  }
+  // this thread's loose element of the row, -1 for none
+  __device__ long long loose(long long T) const {
+    const int t = threadIdx.x;
+    if (blockIdx.x != 0) return -1;
+    if (t < head) return t;
+    if (t >= W && t < W + tail) return T - tail + (t - W);
+    return -1;
+  }
+};
+
+__device__ __forceinline__ void load_line(const double* p, double* e) {
+  const double2 v = __ldg(reinterpret_cast<const double2*>(p));
+  e[0] = v.x;
+  e[1] = v.y;
+}
+__device__ __forceinline__ void load_line(const float* p, float* e) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  e[0] = v.x;
+  e[1] = v.y;
+  e[2] = v.z;
+  e[3] = v.w;
+}
+__device__ __forceinline__ void store_line(double* p, const double* e) {
+  *reinterpret_cast<double2*>(p) = make_double2(e[0], e[1]);
+}
+__device__ __forceinline__ void store_line(float* p, const float* e) {
+  *reinterpret_cast<float4*>(p) = make_float4(e[0], e[1], e[2], e[3]);
+}
+template <int W, typename F>
+__device__ __forceinline__ void load_vec(const F* p, F* e) {
+  if constexpr (W == 1) {
+    e[0] = __ldg(p);
+  } else {
+    load_line(p, e);
+  }
+}
+template <int W, typename F>
+__device__ __forceinline__ void store_vec(F* p, const F* e) {
+  if constexpr (W == 1) {
+    p[0] = e[0];
+  } else {
+    store_line(p, e);
+  }
+}
+
+// squarem_cycle's extrapolation of one element, t2's value where it is not
+// positive, from 2 alpha and alpha alpha
 template <typename F>
+__device__ __forceinline__ F extrap_of(F th, F a, F b, F two_alpha,
+                                       F alpha_sq) {
+  const F r = sub_rn(a, th);
+  const F v = sub_rn(sub_rn(b, a), r);
+  const F ex = add_rn(sub_rn(th, mul_rn(two_alpha, r)), mul_rn(alpha_sq, v));
+  return ex > F(0) ? ex : b;
+}
+
+// A block per (run, row): the third EM step's input of the run's elements.
+// vsum is written by the kernel before (not read-only while this one runs:
+// read through L2 after the wait, never through the read-only cache).
+template <typename F, int W>
 __global__ void __launch_bounds__(kThreads)
     cycle_extrap_kernel(const F* __restrict__ theta,
                         const F* __restrict__ t1, const F* __restrict__ t2,
-                        const F* __restrict__ rsum,
-                        const F* __restrict__ vsum, F* __restrict__ out,
-                        long long R, long long T) {
-  const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
-  if (i >= R * T) return;
-  const long long row = i / T;
-  const F rn = sqrt_rn(__ldg(rsum + row));
-  const F vn = sqrt_rn(__ldg(vsum + row));
-  F alpha = vn > F(0) ? div_rn(-rn, vn) : F(-1);
-  if (!(alpha != alpha) && !(alpha < F(-1))) alpha = F(-1);  // NaN stays
-  const F th = __ldg(theta + i), a = __ldg(t1 + i), b = __ldg(t2 + i);
-  const F r = sub_rn(a, th);
-  const F v = sub_rn(sub_rn(b, a), r);
-  const F ex = add_rn(sub_rn(th, mul_rn(mul_rn(F(2), alpha), r)),
-                      mul_rn(mul_rn(alpha, alpha), v));
-  out[i] = ex > F(0) ? ex : b;
+                        const F* __restrict__ rsum, const F* vsum,
+                        F* __restrict__ out, long long T) {
+  __shared__ F coef[2];  // 2 alpha, alpha alpha
+  const long long row = blockIdx.y;
+  const long long o = row * T;
+  const RowRun<F, W> run(theta + o, T);
+  F th[kVecs][W], a[kVecs][W], b[kVecs][W];
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) {
+    const long long e = run.vec(k);
+    if (e >= 0) {
+      load_vec<W>(theta + o + e, th[k]);
+      load_vec<W>(t1 + o + e, a[k]);
+      load_vec<W>(t2 + o + e, b[k]);
+    }
+  }
+  const long long l = run.loose(T);
+  F lth = F(0), la = F(0), lb = F(0);
+  if (l >= 0) {
+    lth = __ldg(theta + o + l);
+    la = __ldg(t1 + o + l);
+    lb = __ldg(t2 + o + l);
+  }
+  const F rs = __ldg(rsum + row);
+  cudaGridDependencySynchronize();  // vsum: the kernel before has finished
+  if (threadIdx.x == 0) {
+    const F rn = sqrt_rn(rs);
+    const F vn = sqrt_rn(__ldcg(vsum + row));
+    F alpha = vn > F(0) ? div_rn(-rn, vn) : F(-1);
+    if (!(alpha != alpha) && !(alpha < F(-1))) alpha = F(-1);  // NaN stays
+    coef[0] = mul_rn(F(2), alpha);
+    coef[1] = mul_rn(alpha, alpha);
+  }
+  __syncthreads();
+  const F two_alpha = coef[0], alpha_sq = coef[1];
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) {
+    const long long e = run.vec(k);
+    if (e >= 0) {
+      F x[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        x[j] = extrap_of(th[k][j], a[k][j], b[k][j], two_alpha, alpha_sq);
+      store_vec<W>(out + o + e, x);
+    }
+  }
+  if (l >= 0) out[o + l] = extrap_of(lth, la, lb, two_alpha, alpha_sq);
 }
 
-template <typename F>
+// A block per (run, row): the run's elements of cand where the row's gain
+// is >= 0, else of t2.  kEarly: both loaded before the wait, else only the
+// picked one after it.  gain is written by the kernel before (read
+// through L2 after the wait).
+template <typename F, int W, bool kEarly>
 __global__ void __launch_bounds__(kThreads)
-    cycle_select_kernel(const F* __restrict__ gain,
-                        const F* __restrict__ cand, const F* __restrict__ t2,
-                        F* __restrict__ out, long long R, long long T) {
-  const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
-  if (i >= R * T) return;
-  out[i] = __ldg(gain + i / T) >= F(0) ? __ldg(cand + i) : __ldg(t2 + i);
+    cycle_select_kernel(const F* gain, const F* __restrict__ cand,
+                        const F* __restrict__ t2, F* __restrict__ out,
+                        long long T) {
+  const long long row = blockIdx.y;
+  const long long o = row * T;
+  const RowRun<F, W> run(cand + o, T);
+  const long long l = run.loose(T);
+  F c[kVecs][W], u[kVecs][W];  // cand's (or the picked row's), t2's
+  F lc = F(0), lu = F(0);
+  if constexpr (kEarly) {
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      const long long e = run.vec(k);
+      if (e >= 0) {
+        load_vec<W>(cand + o + e, c[k]);
+        load_vec<W>(t2 + o + e, u[k]);
+      }
+    }
+    if (l >= 0) {
+      lc = __ldg(cand + o + l);
+      lu = __ldg(t2 + o + l);
+    }
+  }
+  cudaGridDependencySynchronize();  // gain: the kernel before has finished
+  const bool take = __ldcg(gain + row) >= F(0);
+  if constexpr (!kEarly) {
+    const F* src = (take ? cand : t2) + o;
+#pragma unroll
+    for (int k = 0; k < kVecs; ++k) {
+      const long long e = run.vec(k);
+      if (e >= 0) load_vec<W>(src + e, c[k]);
+    }
+    if (l >= 0) lc = __ldg(src + l);
+  }
+  const bool keep_c = !kEarly || take;
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) {
+    const long long e = run.vec(k);
+    if (e >= 0) {
+      F x[W];  // picked element by element: the arrays stay in registers
+#pragma unroll
+      for (int j = 0; j < W; ++j) x[j] = keep_c ? c[k][j] : u[k][j];
+      store_vec<W>(out + o + e, x);
+    }
+  }
+  if (l >= 0) out[o + l] = keep_c ? lc : lu;
 }
 
 long long blocks_for(long long threads) {
@@ -436,32 +641,81 @@ int launch_block_end(const void* gain, const void* cand, const void* t2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// 16 / sizeof(F) where the arrays lie at one offset within their 16-byte
+// lines (torch's allocations: every one), else 1 (one element a vector)
+template <typename F>
+int width_of(std::initializer_list<const void*> arrays) {
+  uintptr_t apart = 0;
+  for (const void* p : arrays)
+    apart |= (reinterpret_cast<uintptr_t>(p) ^
+              reinterpret_cast<uintptr_t>(*arrays.begin())) & 15;
+  return apart ? 1 : 16 / int(sizeof(F));
+}
+
+// kernel on (runs of a row of T elements in vectors of W, R rows) blocks,
+// launched by cudaLaunchKernelEx with programmatic stream serialization
+// (EMSAR_CYCLE_PDL): it may start before the kernel before it ends
+template <typename... Params, typename... Args>
+int launch_runs(void (*kernel)(Params...), long long R, long long T, int W,
+                void* stream, Args... args) {
+  const long long per_run = static_cast<long long>(kVecs) * kThreads;
+  const long long runs = (T / W + per_run - 1) / per_run;
+  if (R > 65535 || runs > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = EMSAR_CYCLE_PDL;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(runs > 0 ? runs : 1),
+                     static_cast<unsigned>(R), 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
 template <typename F>
 int launch_extrap(const void* theta, const void* t1, const void* t2,
                   const void* rsum, const void* vsum, void* out, long long R,
-                  long long T, void* stream_ptr) {
+                  long long T, void* stream) {
   if (R * T <= 0) return 0;
-  const long long blocks = blocks_for(R * T);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cycle_extrap_kernel<F><<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const F*>(theta), static_cast<const F*>(t1),
-      static_cast<const F*>(t2), static_cast<const F*>(rsum),
-      static_cast<const F*>(vsum), static_cast<F*>(out), R, T);
-  return static_cast<int>(cudaGetLastError());
+  const F *th = static_cast<const F*>(theta), *a = static_cast<const F*>(t1),
+          *b = static_cast<const F*>(t2), *rs = static_cast<const F*>(rsum),
+          *vs = static_cast<const F*>(vsum);
+  F* x = static_cast<F*>(out);
+  constexpr int kLine = 16 / sizeof(F);
+  const int W = width_of<F>({theta, t1, t2, out});
+  if (W == 1)
+    return launch_runs(cycle_extrap_kernel<F, 1>, R, T, W, stream, th, a, b,
+                       rs, vs, x, T);
+  return launch_runs(cycle_extrap_kernel<F, kLine>, R, T, W, stream, th, a,
+                     b, rs, vs, x, T);
 }
 
 template <typename F>
 int launch_select(const void* gain, const void* cand, const void* t2,
-                  void* out, long long R, long long T, void* stream_ptr) {
+                  void* out, long long R, long long T, void* stream) {
   if (R * T <= 0) return 0;
-  const long long blocks = blocks_for(R * T);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cycle_select_kernel<F><<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream_ptr)>>>(
-      static_cast<const F*>(gain), static_cast<const F*>(cand),
-      static_cast<const F*>(t2), static_cast<F*>(out), R, T);
-  return static_cast<int>(cudaGetLastError());
+  const F *g = static_cast<const F*>(gain), *c = static_cast<const F*>(cand),
+          *u = static_cast<const F*>(t2);
+  F* x = static_cast<F*>(out);
+  constexpr int kLine = 16 / sizeof(F);
+  const int W = width_of<F>({cand, t2, out});
+  const bool early = R * T * static_cast<long long>(sizeof(F)) <=
+                     kSelectEarlyBytes;
+  if (W == 1)
+    return early ? launch_runs(cycle_select_kernel<F, 1, true>, R, T, W,
+                               stream, g, c, u, x, T)
+                 : launch_runs(cycle_select_kernel<F, 1, false>, R, T, W,
+                               stream, g, c, u, x, T);
+  return early ? launch_runs(cycle_select_kernel<F, kLine, true>, R, T, W,
+                             stream, g, c, u, x, T)
+               : launch_runs(cycle_select_kernel<F, kLine, false>, R, T, W,
+                             stream, g, c, u, x, T);
 }
 
 }  // namespace

@@ -10,6 +10,7 @@ is kept beside the library as ``<lib>.log``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -20,6 +21,8 @@ import subprocess
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
+# the measurement builds of bench/pair_parts.py and bench/cycle_parts.py
+PARTS_DIR = os.path.join(BUILD_DIR, "parts")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -65,3 +68,28 @@ def load(source: str) -> ctypes.CDLL:
             fh.write(proc.stdout + proc.stderr)
         os.replace(tmp, so)
     return ctypes.CDLL(so)
+
+
+def build_variants(source: str, variants: dict) -> dict:
+    """{name: ctypes library} of ``csrc/<source>`` built with each of
+    ``variants`` ({name: its extra nvcc flags, such as "-DNAME=1"}) into
+    ``PARTS_DIR``, one nvcc each, all started together: measurement
+    builds that the benches time against the package's, used nowhere
+    else.  Raises RuntimeError with the compiler's output when a build
+    fails."""
+    os.makedirs(PARTS_DIR, exist_ok=True)
+    stem = os.path.splitext(source)[0]
+
+    def one(item):
+        name, flags = item
+        so = os.path.join(PARTS_DIR, f"{stem}_{name.replace(' ', '_')}.so")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, *flags, "-o", so,
+             os.path.join(CSRC_DIR, source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {source} {name}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        return name, so
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        built = dict(pool.map(one, variants.items()))
+    return {name: ctypes.CDLL(so) for name, so in built.items()}

@@ -28,6 +28,15 @@ end a block in one:
 * ``cycle_select(gain, cand, t2)``: ``where(gain >= 0, cand, t2)`` by row
   (the accept, the next cycle's theta).
 
+``cycle_extrap`` and ``cycle_select`` are launched with programmatic
+stream serialization: each may start while the kernel launched directly
+before it on the stream still runs, loads every input but its last
+(``v_sq_sum``; ``gain``) then, and waits for that kernel before it reads
+the last one and writes.  So of their inputs only ``v_sq_sum`` and
+``gain`` may come from the kernel launched directly before them (as in
+the cycle, where that kernel is their ``torch.sum``); the rest must have
+been written before it.
+
 The gain of a row is ``torch.sum(terms, dim=-1)``: the reductions stay
 torch's, over the tensors the torch body reduced.  The kernels replace
 the elementwise XLA ops of ``emsar_tpu/model/solver.py::_em_solve``'s
@@ -155,9 +164,9 @@ def cycle_select_ref(gain: torch.Tensor, cand: torch.Tensor,
     return torch.where((gain >= 0)[:, None], cand, t2)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/csr_cycle.cu``) with its launchers'
+    argument and result types set."""
     for name, argtypes in (("emsar_pair_gain", PAIR_ARGTYPES),
                            ("emsar_block_end", BLOCK_END_ARGTYPES),
                            ("emsar_cycle_extrap", EXTRAP_ARGTYPES),
@@ -167,6 +176,11 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load(SOURCE))
 
 
 def build() -> None:
@@ -297,7 +311,9 @@ def cycle_extrap(theta: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
                  r_sq_sum: torch.Tensor, v_sq_sum: torch.Tensor
                  ) -> torch.Tensor:
     """The third EM step's input of a cycle from theta, t1 and t2 [R, T]
-    and the row sums [R, 1] of r * r and v * v (``cycle_extrap_ref``)."""
+    and the row sums [R, 1] of r * r and v * v (``cycle_extrap_ref``).
+    One launch on the card, which may overlap the kernel launched before
+    it: only ``v_sq_sum`` may come from that kernel (module note)."""
     if theta.device.type == "cpu":
         return cycle_extrap_ref(theta, t1, t2, r_sq_sum, v_sq_sum)
     _on_card(theta, "cycle_extrap")
@@ -317,7 +333,9 @@ def cycle_extrap(theta: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
 
 def cycle_select(gain: torch.Tensor, cand: torch.Tensor, t2: torch.Tensor
                  ) -> torch.Tensor:
-    """cand [R, T] in the rows whose gain [R] is >= 0, else t2."""
+    """cand [R, T] in the rows whose gain [R] is >= 0, else t2.  One
+    launch on the card, which may overlap the kernel launched before it:
+    only ``gain`` may come from that kernel (module note)."""
     if cand.device.type == "cpu":
         return cycle_select_ref(gain, cand, t2)
     _on_card(cand, "cycle_select")

@@ -13,7 +13,11 @@ and the kernel benchmarks.  Nothing on the solve or build path uses it.
   80% of the calls' times, so that a rare stall of the host (the sleep
   run out) does not count.  For kernels whose
   inputs fit in the L2 (the H100's is 50 MB), whose warm time would
-  count each input's bytes as moved from HBM when they were not.
+  count each input's bytes as moved from HBM when they were not.  The
+  write leaves the L2 full of dirty lines, which a call that reads many
+  bytes writes back to HBM as it evicts them (the solve's own writes
+  leave it so too); with ``clean=True`` the flush is a read of the same
+  bytes instead, so that a call pays for its own bytes alone.
 * ``host_ms``: host time per call, ``perf_counter`` over ``n`` calls with
   no synchronisation (the wrapper's Python, allocation and launch).
 * ``bound_ms``: the least time the card could take for the work, the
@@ -71,11 +75,12 @@ def device_ms(fn: Callable[[], object], n: int = 200,
 
 
 def device_ms_cold(fn: Callable[[], object], n: int = 50,
-                   host_per_call_ms: float = 0.0) -> float:
+                   host_per_call_ms: float = 0.0,
+                   clean: bool = False) -> float:
     """Device milliseconds per call of ``fn`` from a cold L2: ``n`` times a
-    write of twice the L2's bytes, then ``fn`` between CUDA events, all
-    enqueued behind one sleep; the mean of the calls' times without the
-    tenth slowest and the tenth fastest."""
+    write (``clean``: a read) of twice the L2's bytes, then ``fn`` between
+    CUDA events, all enqueued behind one sleep; the mean of the calls'
+    times without the tenth slowest and the tenth fastest."""
     dev = torch.cuda.current_device()
     l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size",
                  0) or 50 << 20
@@ -83,10 +88,13 @@ def device_ms_cold(fn: Callable[[], object], n: int = 50,
     if host_per_call_ms <= 0.0:
         host_per_call_ms = host_ms(fn, 20)
 
+    flush.zero_()
+    evict = flush.sum if clean else flush.zero_
+
     def step():
-        flush.zero_()
+        evict()
         fn()
-    flush_ms = host_ms(flush.zero_, 20)
+    flush_ms = host_ms(evict, 20)
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -95,7 +103,7 @@ def device_ms_cold(fn: Callable[[], object], n: int = 50,
     torch.cuda._sleep(int((2.0 * n * (host_per_call_ms + flush_ms + 0.01)
                            + 1.0) * _SLEEP_CYCLES_PER_MS))
     for a, b in events:
-        flush.zero_()
+        evict()
         a.record()
         fn()
         b.record()

@@ -11,7 +11,11 @@
 // this_cluster().sync() a barrier across them and map_shared_rank() a
 // pointer into another block's dynamic shared memory), clusters one after
 // another.  bulk_copy.cuh stands in for the package's bulk copies and
-// mbarriers.
+// mbarriers.  cudaLaunchKernelEx runs a kernel as emu_launch does, row y
+// of its grid after row y - 1 (blockIdx.y set in each block's threads);
+// its attributes are read by nothing, and cudaGridDependencySynchronize
+// (programmatic dependent launch's wait) returns at once: the launches run
+// one after another.
 // A kernel's cluster size is its __cluster_dims__ (a no-op attribute here):
 // tests/test_torch_cuda_emulated.py rewrites each `kernel<<<grid, block,
 // smem, stream>>>(args)` into emu_launch(grid, block, smem, [&] {
@@ -22,6 +26,7 @@
 #include <atomic>
 #include <barrier>
 #include <cmath>
+#include <cstdlib>
 #include <cstdint>
 #include <cstring>
 #include <functional>
@@ -40,14 +45,27 @@ inline dim3 gridDim;
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-inline int cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
+enum cudaLaunchAttributeID {
+  cudaLaunchAttributeProgrammaticStreamSerialization = 5
+};
+union cudaLaunchAttributeValue {
+  int programmaticStreamSerializationAllowed;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
 struct cudaLaunchConfig_t {
   dim3 gridDim, blockDim;
   size_t dynamicSmemBytes = 0;
+  cudaStream_t stream = nullptr;
+  cudaLaunchAttribute* attrs = nullptr;
+  unsigned numAttrs = 0;
 };
 // one cluster at a time, as the emulator runs them
 inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, const void*,
@@ -68,10 +86,12 @@ inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, const void*,
 struct uint4 {
   uint32_t x, y, z, w;
 };
-struct double2 {
+// 16-byte aligned as CUDA's: a load of one at another address aborts, as
+// the card faults on it
+struct alignas(16) double2 {
   double x, y;
 };
-struct float4 {
+struct alignas(16) float4 {
   float x, y, z, w;
 };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
@@ -79,8 +99,19 @@ inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
 }
 template <class T>
 T __ldg(const T* p) {
+  if (reinterpret_cast<uintptr_t>(p) % alignof(T)) std::abort();
   return *p;
 }
+template <class T>
+T __ldcg(const T* p) {
+  if (reinterpret_cast<uintptr_t>(p) % alignof(T)) std::abort();
+  return *p;
+}
+inline double2 make_double2(double x, double y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+inline void cudaGridDependencySynchronize() {}
 inline int __popc(uint32_t v) { return __builtin_popcount(v); }
 inline int __ffs(int v) { return __builtin_ffs(v); }
 // the block's threads run concurrently: atomics are real ones
@@ -226,4 +257,17 @@ inline void emu_launch(long long grid, int block, size_t smem,
         });
     for (auto& th : threads) th.join();
   }
+}
+
+template <class... Params, class... Args>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*kernel)(Params...), Args&&... args) {
+  gridDim.y = cfg->gridDim.y;
+  for (unsigned y = 0; y < cfg->gridDim.y; ++y)
+    emu_launch(cfg->gridDim.x, (int)cfg->blockDim.x, cfg->dynamicSmemBytes,
+               [&, y] {
+                 blockIdx.y = y;
+                 kernel(args...);
+               });
+  return cudaSuccess;
 }

@@ -110,6 +110,14 @@ PAIR_THREADS = 32
 # the emulated build of csrc/csr_cycle.cu whose pair_gain stages its tiles
 # by bulk copies (EMSAR_PAIR_TMA=1: bench/pair_parts.py's variant)
 PAIR_TMA = csr_cycle.SOURCE + " EMSAR_PAIR_TMA=1"
+# cycle_select reads only the picked row above this many bytes of cand a
+# call in the emulated build (512 KiB on the card): both of its paths run
+# (test_cycle_runs_match_plain: rows of several runs at R 1 load both rows
+# before the wait, at R 3 the picked one after it)
+SELECT_EARLY_BYTES = 32768
+# cycle_extrap's and cycle_select's elements a block in the emulated build
+# (csrc/csr_cycle.cu: 2 vectors of 16 bytes a thread, 256 threads)
+RUN_BYTES = 2 * 16 * 256
 
 
 @pytest.fixture(scope="module")
@@ -129,7 +137,9 @@ def emulated(tmp_path_factory):
         subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
                         "-pthread", f"-DEMSAR_CLUSTER_THREADS="
                         f"{CLUSTER_THREADS}", f"-DEMSAR_PAIR_TILE={PAIR_TILE}",
-                        f"-DEMSAR_PAIR_THREADS={PAIR_THREADS}", *flags,
+                        f"-DEMSAR_PAIR_THREADS={PAIR_THREADS}",
+                        f"-DEMSAR_SELECT_EARLY_BYTES={SELECT_EARLY_BYTES}",
+                        *flags,
                         "-I", EMU_DIR, "-o", so, str(cc)], check=True)
         libs[name] = ctypes.CDLL(so)
     return libs
@@ -152,6 +162,46 @@ def test_launches_are_rewritten():
     got = _emulated_source(src)
     assert re.search(r"emu_launch\(R \* 8, kThreads, 0, \[&\] \{ "
                      r"ck<float, 2 \* N>\(a\); \}, \(\(2 \* N\)\)\)", got)
+    # a cudaLaunchKernelEx launch stays as it is (the emulated header runs
+    # it), a <<<>>> launch beside it is rewritten
+    src = ("  cfg.numAttrs = 1;\n  const cudaError_t err = cudaLaunchKernelEx("
+           "&cfg, kernel, args...);\n  k<F><<<B, 32>>>(a);\n")
+    got = _emulated_source(src)
+    assert "cudaLaunchKernelEx(&cfg, kernel, args...);" in got
+    assert "<<<" not in got and "emu_launch(B, 32, 0, [&] { k<F>(a); }, 1)" in got
+
+
+def test_launch_kernel_ex_runs_every_block(tmp_path):
+    """The emulated cudaLaunchKernelEx runs each block of a 2-D grid once,
+    with its blockIdx.x and .y, every thread of it, and
+    cudaGridDependencySynchronize returns."""
+    src = tmp_path / "kex.cc"
+    src.write_text('''#include <cuda_runtime.h>
+__global__ void mark(int* seen, int nx) {
+  cudaGridDependencySynchronize();
+  atomicAdd(seen + blockIdx.y * nx + blockIdx.x, (int)(threadIdx.x + 1));
+}
+extern "C" int run(int* seen, int nx, int ny) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nx, ny, 1);
+  cfg.blockDim = dim3(8, 1, 1);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, mark, seen, nx);
+}
+''')
+    so = str(src) + ".so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-pthread", "-I", EMU_DIR, "-o", so, str(src)],
+                   check=True)
+    lib = ctypes.CDLL(so)
+    lib.run.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    seen = torch.zeros(3 * 5, dtype=torch.int32)
+    assert lib.run(seen.data_ptr(), 5, 3) == 0
+    assert torch.equal(seen, torch.full_like(seen, sum(range(1, 9))))
 
 
 def _hash_input(rng, n_genes, extra=()):
@@ -683,17 +733,8 @@ def test_csr_cycle_source_matches_plain(emulated, dtype, lanes, per_row):
     vs = torch.sum(v_sq, dim=1, keepdim=True)
     assert vs[2, 0] == 0
     lib = emulated[csr_cycle.SOURCE]
-    sums = [(rs, vs), (torch.tensor([[np.nan], [np.inf], [4.0]], dtype=dtype),
-                       torch.tensor([[1.0], [np.inf], [0.0]], dtype=dtype))]
-    for r_sum, v_sum in sums:
-        fn = (lib.emsar_cycle_extrap_f64 if dtype == torch.float64
-              else lib.emsar_cycle_extrap_f32)
-        fn.restype = ctypes.c_int
-        fn.argtypes = csr_cycle.EXTRAP_ARGTYPES
-        got = torch.full_like(theta, 7.0)
-        assert fn(theta.data_ptr(), t1.data_ptr(), t2.data_ptr(),
-                  r_sum.data_ptr(), v_sum.data_ptr(), got.data_ptr(), R, T,
-                  None) == 0
+    for r_sum, v_sum in [(rs, vs), _special_sums(R, dtype)]:
+        got = _emulated_extrap(lib, theta, t1, t2, r_sum, v_sum)
         want = csr_cycle.cycle_extrap_ref(theta, t1, t2, r_sum, v_sum)
         assert torch.equal(got.nan_to_num(), want.nan_to_num())
     x = csr_cycle.cycle_extrap_ref(theta, t1, t2, rs, vs)
@@ -710,16 +751,8 @@ def test_csr_cycle_source_matches_plain(emulated, dtype, lanes, per_row):
     assert torch.equal(s_o, s_t2) and torch.equal(s_n, s_cand)
     _log1p_tolerance(got, want, reads, s_t2, s_cand)
     s_prev = segment_sum.segment_sum_ref(theta, g.mult, g.idx, g.offsets)
-    fn = (lib.emsar_cycle_select_f64 if dtype == torch.float64
-          else lib.emsar_cycle_select_f32)
-    fn.restype = ctypes.c_int
-    fn.argtypes = csr_cycle.SELECT_ARGTYPES
-    for gain in (torch.sum(want, dim=-1),
-                 torch.tensor([np.nan, -0.0, -1e-300], dtype=dtype),
-                 torch.tensor([0.0, 1.0, -np.inf], dtype=dtype)):
-        got = torch.full_like(cand, 7.0)
-        assert fn(gain.data_ptr(), cand.data_ptr(), t2.data_ptr(),
-                  got.data_ptr(), R, T, None) == 0
+    for gain in [torch.sum(want, dim=-1), *_special_gains(R, dtype)]:
+        got = _emulated_select(lib, gain, cand, t2)
         assert torch.equal(got, csr_cycle.cycle_select_ref(gain, cand, t2))
         end = csr_cycle.block_end_ref(gain, cand, t2, s_t2, s_cand, s_prev,
                                       reads, eumaps)
@@ -730,6 +763,110 @@ def test_csr_cycle_source_matches_plain(emulated, dtype, lanes, per_row):
         out = _emulated_block_end(lib, gain, cand, t2, s_t2, s_cand, None,
                                   reads, eumaps)
         assert torch.equal(out[1], end[1]) and out[2] is None
+
+
+def _emulated_extrap(lib, theta, t1, t2, r_sum, v_sum, out=None):
+    """The emulated cycle_extrap launch, into ``out`` (a fresh tensor of
+    7s by default)."""
+    fn = (lib.emsar_cycle_extrap_f64 if theta.dtype == torch.float64
+          else lib.emsar_cycle_extrap_f32)
+    fn.restype = ctypes.c_int
+    fn.argtypes = csr_cycle.EXTRAP_ARGTYPES
+    out = torch.full_like(theta, 7.0) if out is None else out
+    R, T = theta.shape
+    assert fn(theta.data_ptr(), t1.data_ptr(), t2.data_ptr(),
+              r_sum.data_ptr(), v_sum.data_ptr(), out.data_ptr(), R, T,
+              None) == 0
+    return out
+
+
+def _emulated_select(lib, gain, cand, t2, out=None):
+    """The emulated cycle_select launch, into ``out`` (a fresh tensor of
+    7s by default)."""
+    fn = (lib.emsar_cycle_select_f64 if cand.dtype == torch.float64
+          else lib.emsar_cycle_select_f32)
+    fn.restype = ctypes.c_int
+    fn.argtypes = csr_cycle.SELECT_ARGTYPES
+    out = torch.full_like(cand, 7.0) if out is None else out
+    R, T = cand.shape
+    assert fn(gain.data_ptr(), cand.data_ptr(), t2.data_ptr(),
+              out.data_ptr(), R, T, None) == 0
+    return out
+
+
+def _special_sums(R, dtype):
+    """Row sums [R, 1] of r * r and v * v whose step length is NaN (a NaN
+    sum), NaN (inf / inf) and -1 (v * v summing to 0), the first R."""
+    return (torch.tensor([[np.nan], [np.inf], [4.0]], dtype=dtype)[:R],
+            torch.tensor([[1.0], [np.inf], [0.0]], dtype=dtype)[:R])
+
+
+def _special_gains(R, dtype):
+    """Gains [R] on the accept's edges: NaN (t2), -0.0 (cand), the least
+    negative (t2), 0, 1 (cand) and -inf (t2), R a tensor."""
+    vals = [np.nan, -0.0, -1e-300, 0.0, 1.0, -np.inf]
+    return [torch.tensor(vals[i:i + R], dtype=dtype)
+            for i in range(0, len(vals) - R + 1, R)]
+
+
+def _placed(t, shift):
+    """A contiguous copy of ``t`` that starts ``shift`` elements into its
+    allocation."""
+    buf = torch.full((t.numel() + shift,), 7.0, dtype=t.dtype)
+    buf[shift:] = t.reshape(-1)
+    return buf[shift:].view(t.shape)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "shifted", "apart"])
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("T", [1, 3, 5, 17, "runs"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_cycle_runs_match_plain(emulated, dtype, T, R, layout):
+    """cycle_extrap and cycle_select of csrc/csr_cycle.cu bit-equal to
+    their plain versions on every path of a block's run: rows of 1, 3, 5
+    and 17 elements (less than a 16-byte line, a line and one more: loose
+    elements before a row's first line and after its last; at R 3 rows
+    that start inside a line) and of more than three blocks' runs; the
+    arrays at the start of their allocations ("aligned"), all one element
+    in (a loose head, "shifted") or each at its own offset within its
+    16-byte lines (one-element vectors, "apart").  cycle_extrap on the
+    true row sums and on sums that make the step length NaN or -1,
+    cycle_select on gains NaN, -0.0, -1e-300, 0, 1 and -inf, both before
+    the wait (both rows loaded early) and after it (above the emulated
+    build's SELECT_EARLY_BYTES: the picked row alone); nothing written
+    outside the rows."""
+    item = torch.finfo(dtype).bits // 8
+    T = 3 * RUN_BYTES // item + 5 if T == "runs" else T
+    rng = np.random.default_rng(T + 7 * R)
+    theta = rng.uniform(0, 10, (R, T))
+    theta[:, rng.random(T) < 0.2] = 0.0
+    t1 = theta * rng.uniform(0.5, 1.5, (R, T))
+    t2 = t1 * rng.uniform(0.5, 1.5, (R, T)) - 0.5 * (rng.random((R, T))
+                                                       < 0.1)
+    theta, t1, t2 = (torch.as_tensor(a).to(dtype) for a in (theta, t1, t2))
+    r, v = t1 - theta, t2 - t1 - (t1 - theta)
+    sums = [(torch.sum(r * r, dim=1, keepdim=True),
+             torch.sum(v * v, dim=1, keepdim=True)), _special_sums(R, dtype)]
+    cand = torch.as_tensor(rng.uniform(0, 10, (R, T))).to(dtype)
+    shifts = {"aligned": (0,) * 5, "shifted": (1,) * 5,
+              "apart": (0, 1, 2, 3, 1)}[layout]
+    th_, t1_, t2_, cand_ = (_placed(a, k) for a, k in zip(
+        (theta, t1, t2, cand), shifts))
+    lib = emulated[csr_cycle.SOURCE]
+    for r_sum, v_sum in sums:
+        buf = _placed(torch.full((R * T + 1,), 7.0, dtype=dtype), shifts[4])
+        got = _emulated_extrap(lib, th_, t1_, t2_, r_sum, v_sum,
+                               buf[:R * T].view(R, T))
+        assert torch.equal(got, csr_cycle.cycle_extrap_ref(
+            theta, t1, t2, r_sum, v_sum))
+        assert buf[-1] == 7.0
+    assert (R * T * item > SELECT_EARLY_BYTES) == (T > 17 and R == 3)
+    for gain in _special_gains(R, dtype):
+        buf = _placed(torch.full((R * T + 1,), 7.0, dtype=dtype), shifts[4])
+        got = _emulated_select(lib, gain, cand_, t2_, buf[:R * T].view(R, T))
+        assert torch.equal(got, csr_cycle.cycle_select_ref(gain, cand, t2))
+        assert buf[-1] == 7.0
 
 
 def _collapse_problem(rng):

@@ -406,6 +406,95 @@ def test_gain_term_kernel_branches(cuda, dtype):
                        csr_cycle.cycle_extrap_ref(th, t1, t2, rs, vs))
 
 
+# (rows, transcripts) of cycle_extrap's and cycle_select's calls: the
+# smoke's CSR problem at R 1, 3 (its restart rounds) and 16 (the batched
+# solve), the oversized module's problem (159,815 edges), the 11.6 M-edge
+# problem above CLUSTER_MAX_EDGES, and rows that start inside a 16-byte
+# line; in float64 at R 16 and 11.6 M edges cycle_select reads only the
+# picked row (above 512 KiB of cand), elsewhere both
+CYCLE_SHAPES = [(1, 12090), (3, 12090), (16, 12090), (1, 20868),
+                (1, 1702913), (3, 17), (3, 12091), (5, 3)]
+
+
+@pytest.mark.parametrize("R,T", CYCLE_SHAPES,
+                         ids=[f"R{r}-T{t}" for r, t in CYCLE_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_cycle_extrap_select_match_plain(cuda, dtype, R, T):
+    """cycle_extrap and cycle_select on the card, bit for bit their plain
+    versions on the card at the shapes of the main path's calls, and on
+    arrays one element into their allocations: the step length from true
+    row sums and from sums that make it NaN and -1, the accept on gains
+    NaN, -0.0, -1e-300, 0, 1 and -inf by row; two calls equal; one launch
+    each counted."""
+    rng = np.random.default_rng(R * T % 1000)
+    theta = rng.uniform(0, 10, (R, T))
+    theta[:, rng.random(T) < 0.2] = 0.0
+    t1 = theta * rng.uniform(0.5, 1.5, (R, T))
+    t2 = t1 * rng.uniform(0.5, 1.5, (R, T)) - 0.5 * (rng.random((R, T))
+                                                       < 0.1)
+    cand = rng.uniform(0, 10, (R, T))
+    theta, t1, t2, cand = (torch.as_tensor(a).to(cuda, dtype)
+                           for a in (theta, t1, t2, cand))
+    r, v = t1 - theta, t2 - 2 * t1 + theta
+    special = (torch.tensor([np.nan, np.inf, 4.0] * R, dtype=dtype)[:R],
+               torch.tensor([1.0, np.inf, 0.0] * R, dtype=dtype)[:R])
+    sums = [(torch.sum(r * r, dim=1, keepdim=True),
+             torch.sum(v * v, dim=1, keepdim=True)),
+            tuple(a[:, None].to(cuda) for a in special)]
+    vals = [np.nan, -0.0, -1e-300, 0.0, 1.0, -np.inf]
+    gains = [torch.tensor([vals[(i + k) % 6] for i in range(R)],
+                          dtype=dtype, device=cuda) for k in range(6)]
+
+    def shifted(a):
+        buf = torch.zeros(a.numel() + 1, dtype=dtype, device=cuda)
+        buf[1:] = a.reshape(-1)
+        return buf[1:].view(a.shape)
+    for th, a, b, c in ((theta, t1, t2, cand),
+                        tuple(shifted(x) for x in (theta, t1, t2, cand))):
+        for rs, vs in sums:
+            before = csr_cycle.EXTRAP_LAUNCHES
+            x = csr_cycle.cycle_extrap(th, a, b, rs, vs)
+            assert csr_cycle.EXTRAP_LAUNCHES == before + 1
+            assert torch.equal(x, csr_cycle.cycle_extrap_ref(
+                theta, t1, t2, rs, vs))
+            assert torch.equal(x, csr_cycle.cycle_extrap(th, a, b, rs, vs))
+        for gain in gains:
+            before = csr_cycle.SELECT_LAUNCHES
+            out = csr_cycle.cycle_select(gain, c, b)
+            assert csr_cycle.SELECT_LAUNCHES == before + 1
+            assert torch.equal(out, csr_cycle.cycle_select_ref(gain, cand,
+                                                               t2))
+            assert torch.equal(out, csr_cycle.cycle_select(gain, c, b))
+
+
+@pytest.mark.parametrize("R", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_launch_cycles_replay_from_a_cuda_graph(cuda, dtype, R):
+    """A block of eight cycles off clusters (twelve launches a cycle:
+    cycle_extrap and cycle_select may start before the row sum they wait
+    on ends) captured into a CUDA graph and replayed gives the eager
+    block's bits, twice."""
+    rng = np.random.default_rng(R + 81)
+    pg, _, th = _cycle_inputs(rng, R, dtype, cuda)
+    static = th.to(cuda)
+    want = solver._squarem_cycles(pg, static, 8, None)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        solver._squarem_cycles(pg, static, 8, None)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = solver._squarem_cycles(pg, static, 8, None)
+    for _ in range(2):
+        out.fill_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
 @pytest.mark.parametrize("R", [1, 3, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
