@@ -1,0 +1,21 @@
+"""Convergence loops that stopped on a NaN block gain: spans "solve: dense
+batch" and "solve: csr" with ``stop=nan`` (``model/loop.py::finish``), per
+invocation."""
+
+from benchmark import spans
+
+LAYER = "model solve"
+UNIT = "loops"
+SOURCE = "program_span"
+MOVES = "reads_per_s"
+
+LOOPS = ("solve: dense batch", "solve: csr")
+
+
+def nan_stops(inv):
+    stops = [a.get("stop") for n, _, a in spans.spans(inv) if n in LOOPS]
+    return sum(s == "nan" for s in stops) if stops else None
+
+
+def read(run):
+    return spans.mean(run, nan_stops)

@@ -30,14 +30,23 @@ counterpart is easy to find:
 * ``model.quantify``      — per-sample orchestration
 * ``cli.emsar``           — the ``emsar`` quantifier (``-I``; ``-x`` for SE)
 * ``cli.emsar_build``     — the ``emsar-build`` SE index builder
+* ``utils.timing``        — the span store: the CLIs' phases and the steps
+  nested in them, with their attributes (grown from the JAX package's
+  phase timers)
 
 The host stages are copies of the JAX package's modules at the same
 relative paths, changed only in their imports: ``config``, ``sim``,
-``utils.timing``, ``io`` (FASTA, ``.rsh``, bowtie, SAM, BAM, writers),
+``io`` (FASTA, ``.rsh``, bowtie, SAM, BAM, writers),
 ``ingest`` (the collapser and the C++ ingest and f64 polish of
 ``csrc/ingest.cc`` and ``csrc/solver.cc``, built with g++ at first use into
 ``_build/``), ``model.modules``, ``index.pack`` and ``cli.common``.  This
 package imports ``torch``, never ``jax`` and nothing of ``emsar_tpu``.
 """
+
+import time as _time
+
+# the package's first line, by the clock of the span store
+# (``utils.timing``): the start of the span "imports"
+IMPORT_NS = _time.time_ns()
 
 __version__ = "0.1.0"

@@ -32,9 +32,12 @@ parent makes them anew, so each of those is timed once more with the
 cache emptied first: ``change_plan_made_ms``), and its blocks
 (the batched solve's count its loop blocks, after its first).  Both sides
 must give the same blocks and theta bits; the script raises otherwise.
-Then the change alone at each ``CHECK_EVERY`` of ``--every``: the
-solves' ms and the blocks they ran.  Prints one JSON object (with the
-median ms a block of each side) and writes it to ``--out``.
+Then each side's device ms a replayed block, in the same turns: CUDA
+events around ``REPLAYS`` replays of the block its loop captured (no
+capture, as in a solve that stops after its first block: none).  Then
+the change alone at each ``CHECK_EVERY`` of ``--every``: the solves' ms
+and the blocks they ran.  Prints one JSON object (with the median ms a
+block of each side) and writes it to ``--out``.
 """
 
 from __future__ import annotations
@@ -109,6 +112,38 @@ def cases(mods, x, b, dev):
     return out
 
 
+REPLAYS = 200
+
+
+def replay_ms(fn, mloop):
+    """Device ms of one replay of the block that ``fn()``'s loop captured
+    (``mloop``: the side's ``model.loop``), or None without a capture."""
+    kept = []
+    base = mloop._CudaGraph
+
+    class Kept(base):
+        def capture(self, block):
+            super().capture(block)
+            kept.append((self, block))  # the block holds the loop's state
+
+    mloop._CudaGraph = Kept
+    try:
+        fn()
+    finally:
+        mloop._CudaGraph = base
+    if not kept:
+        return None
+    graph = kept[-1][0]
+    graph.replay()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(REPLAYS):
+        graph.replay()
+    ev[1].record()
+    ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]) / REPLAYS
+
+
 def timed(fn):
     """(wall ms of ``fn()`` after a warm call, synced; its result)."""
     fn()
@@ -134,10 +169,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     x = smoke_sample(args.rsh, args.aln)
     b = batched_sample(args.rsh, args.aln)[3]
-    fns = {"parent": cases(load_parent(args.parent, "model.solver",
-                                       "model.dense", "parallel.mesh"),
-                           x, b, dev),
+    parent = load_parent(args.parent, "model.solver", "model.dense",
+                         "parallel.mesh")
+    fns = {"parent": cases(parent, x, b, dev),
            "change": cases((solver, dense, mesh), x, b, dev)}
+    loops = {"parent": parent[1].loop, "change": loop}
     res = {who: {name: [] for name in fns[who]} for who in fns}
     blocks, theta = {}, {}
     for who in ORDER:
@@ -151,6 +187,13 @@ def main(argv=None) -> int:
                 not np.array_equal(theta[name]["parent"],
                                    theta[name]["change"]):
             raise AssertionError(f"{name}: parent and change differ")
+    replays = {who: {name: [] for name in fns[who]} for who in fns}
+    for who in ORDER:
+        for name, fn in fns[who].items():
+            replays[who][name].append(replay_ms(fn, loops[who]))
+    replay_median = {who: {name: statistics.median(v) if v[0] else None
+                           for name, v in r.items()}
+                     for who, r in replays.items()}
     # the change's CSR loops with their tile plans made anew (the plan
     # cache emptied before the timed solve), as a solve of new edges pays
     cold = {}
@@ -181,6 +224,7 @@ def main(argv=None) -> int:
     write_result({"card": card(), "order": ORDER,
                   "blocks": {n: v["change"] for n, v in blocks.items()},
                   "median_ms": median, "median_ms_per_block": per_block,
+                  "replay_ms": replay_median, "replay_runs_ms": replays,
                   "runs_ms": res, "change_plan_made_ms": cold,
                   "check_every": sweep}, args.out)
     return 0

@@ -32,13 +32,14 @@ import getopt
 import os
 import sys
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..config import BuildConfig, MAX_N_ALNFILES, QuantConfig, StrandType
-from ..device import resolve_device
+from ..device import resolve_device, start_up
 from ..index.build import build_pe_index, build_se_index
 from ..ingest import native as native_mod
 from ..ingest.collapse import (PosBias, ReadCollapser, SampleCounts,
@@ -55,7 +56,7 @@ from ..io.sam import (probe_readlength_range_sam_bam,
 from ..model.quantify import (index_modules, quantify_sample,
                               quantify_samples_batched)
 from ..parallel import dist
-from ..utils.timing import phase
+from ..utils.timing import note, phase, record_imports
 from .common import die
 
 SHORT = "vqPs:b:p:h:t:F:f:n:e:r:d:gm:MHBSW:w:k:i:l:TRI:x:"
@@ -191,6 +192,7 @@ def main(argv=None) -> int:
             cfg.verbose = 2
         elif o in ("-q", "--no_verbose"):
             cfg.verbose = 0
+    record_imports(IMPORTED_NS, cfg.verbose)
 
     if not rshfile and not fastafile:
         die("error: either fasta file or an rsh file must be used as an "
@@ -231,6 +233,7 @@ def main(argv=None) -> int:
     dist.maybe_init_from_env()
     try:
         device = dist.rank_device(resolve_device())
+        start_up(device, cfg.verbose)
         return run_quantifier(cfg, rshfile, outdir, outprefix, alnfiles,
                               device, fastafile=fastafile)
     finally:
@@ -413,19 +416,22 @@ def run_quantifier(cfg: QuantConfig, rshfile: str, outdir: str,
 
 def _write_sample(cfg: QuantConfig, index: RshIndex, outdir: str,
                   outprefix: str, i: int, result, fraglength_counts) -> None:
-    """Sample i's .fpkm, .fraglength_effect and (-g) .segments."""
-    fpkm_path = os.path.join(outdir, f"{outprefix}.{i}.fpkm")
-    write_fpkm(fpkm_path, index.names, result.fpkm_rounds, result.ieuma,
-               result.total_read_count, cfg.verbose)
-    fl_path = os.path.join(outdir, f"{outprefix}.{i}.fraglength_effect")
-    write_fraglength_dist(fl_path, index.fraglen_min, index.n_fraglen,
-                          fraglength_counts, result.wf)
-    if cfg.print_segments:
-        write_segments(os.path.join(outdir, f"{outprefix}.{i}.segments"),
-                       index.names, result.graph.ct_offsets,
-                       result.graph.ct_tids, result.modules.cs,
-                       result.adj_euma, result.graph.read_count,
-                       result.fpkm, result.total_read_count)
+    """Sample i's .fpkm, .fraglength_effect and (-g) .segments, as the
+    phase "writing outputs"."""
+    with phase("writing outputs", cfg.verbose):
+        note(sample=i)
+        fpkm_path = os.path.join(outdir, f"{outprefix}.{i}.fpkm")
+        write_fpkm(fpkm_path, index.names, result.fpkm_rounds, result.ieuma,
+                   result.total_read_count, cfg.verbose)
+        fl_path = os.path.join(outdir, f"{outprefix}.{i}.fraglength_effect")
+        write_fraglength_dist(fl_path, index.fraglen_min, index.n_fraglen,
+                              fraglength_counts, result.wf)
+        if cfg.print_segments:
+            write_segments(
+                os.path.join(outdir, f"{outprefix}.{i}.segments"),
+                index.names, result.graph.ct_offsets, result.graph.ct_tids,
+                result.modules.cs, result.adj_euma, result.graph.read_count,
+                result.fpkm, result.total_read_count)
     if cfg.verbose > 0:
         print(f"Complete: Output file :\n  {fpkm_path}\n  {fl_path}")
 
@@ -523,6 +529,10 @@ def _collapse_python(index: RshIndex, name_to_tid, cfg: QuantConfig,
     collapser.consume(group_alignments(stream))
     return collapser.finish()
 
+
+# the end of the span "imports": this module and all it imports are loaded
+# (a profiler started between here and main() is not the program's)
+IMPORTED_NS = time.time_ns()
 
 if __name__ == "__main__":
     raise SystemExit(main())

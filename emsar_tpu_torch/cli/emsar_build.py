@@ -25,14 +25,15 @@ from __future__ import annotations
 import getopt
 import os
 import sys
+import time
 
 from ..config import BuildConfig, StrandType
-from ..device import resolve_device
+from ..device import resolve_device, start_up
 from ..index.build import build_pe_index, build_se_index
 from ..io.fasta import read_fasta
 from ..io.rsh import RshIndex
 from ..parallel import dist
-from ..utils.timing import phase
+from ..utils.timing import phase, record_imports
 from .common import die
 
 SHORT = "vqPs:b:p:h:t:F:f:m:W:w:Tk:"
@@ -110,6 +111,7 @@ def main(argv=None) -> int:
                     or perpos_freq_impute_len > perpos_freq_len):
                 die("error: Option -w(--posbias_impute_len) must be "
                     "between 1 and posbias_training_len.")
+    record_imports(IMPORTED_NS, cfg.verbose)
 
     if cfg.min_fraglength > cfg.max_fraglength or cfg.min_fraglength < 1 \
             or cfg.max_fraglength < 1:
@@ -161,17 +163,23 @@ def _build(cfg: BuildConfig, tx, readlength_str: str, outdir: str,
     sharded = dist.maybe_init_from_env() and cfg.pe
     shard = (dist.process_index(), dist.process_count()) if sharded \
         else None
+    device = None
+    if sfa_path is None:  # -T builds on the host
+        device = resolve_device()
+        if sharded:
+            device = dist.rank_device(device)
+        start_up(device, cfg.verbose)
     if cfg.pe:
-        idx = build_pe_index(
-            tx, int(readlength_str), cfg, sfa_path=sfa_path, shard=shard,
-            device=dist.rank_device(resolve_device()) if sharded else None)
+        idx = build_pe_index(tx, int(readlength_str), cfg,
+                             sfa_path=sfa_path, shard=shard, device=device)
     else:
         if "-" in readlength_str:
             lo_s, hi_s = readlength_str.split("-", 1)
             lo, hi = int(lo_s), int(hi_s)
         else:
             lo = hi = int(readlength_str)
-        idx = build_se_index(tx, lo, hi, cfg, sfa_path=sfa_path)
+        idx = build_se_index(tx, lo, hi, cfg, sfa_path=sfa_path,
+                             device=device)
 
     rsh_path = os.path.join(outdir, outprefix + ".rsh")
     if sharded:
@@ -193,6 +201,10 @@ def _build(cfg: BuildConfig, tx, readlength_str: str, outdir: str,
         print(f"Complete: Output file :\n  {rsh_path}")
     return 0
 
+
+# the end of the span "imports": this module and all it imports are loaded
+# (a profiler started between here and main() is not the program's)
+IMPORTED_NS = time.time_ns()
 
 if __name__ == "__main__":
     raise SystemExit(main())

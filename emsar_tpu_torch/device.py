@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from .utils.timing import note, phase
+
 ENV_VAR = "EMSAR_TORCH_DEVICE"
 
 
@@ -38,3 +40,15 @@ def resolve_device(name: Optional[str] = None) -> torch.device:
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("could not disable TF32 matmuls")
     return dev
+
+
+def start_up(dev: torch.device, verbose: int = 1) -> None:
+    """The phase "device start-up": create ``dev``'s CUDA context (one
+    allocation, one synchronise) where the CLI resolved it, so that the
+    first step to touch the card does not pay for it.  Nothing to do on
+    the CPU."""
+    with phase("device start-up", verbose):
+        note(device=str(dev))
+        if dev.type == "cuda":
+            torch.empty(1, device=dev)
+            torch.cuda.synchronize(dev)

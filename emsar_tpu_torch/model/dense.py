@@ -258,6 +258,7 @@ def _solve_loop(db: DeviceBatch, theta0: torch.Tensor, epsilon: float,
     th = theta0.clone()
     s_prev = _mt(db.m, th)
     active = torch.ones(th.shape[0], dtype=torch.bool, device=th.device)
+    last = torch.zeros_like(active, dtype=th.dtype)
     it = torch.zeros((), dtype=torch.int64, device=th.device)
 
     def block():
@@ -269,10 +270,11 @@ def _solve_loop(db: DeviceBatch, theta0: torch.Tensor, epsilon: float,
                           dim=-1)
         # rounds that already stopped keep their state (vmap'd while_loop)
         loop.advance(active, it, ((th, new), (s_prev, s_new)))
+        loop.keep_gain(last, gain, active)
         active.logical_and_((gain >= epsilon) & (it < max_blocks))
 
     loop.while_loop(block, active, plain=plain)
-    return th, int(it)
+    return th, loop.finish(it, last, lambda n: n >= max_blocks)
 
 
 def _dense_solve_pallas(db: DeviceBatch, epsilon: float, block_iters: int,
@@ -286,6 +288,7 @@ def _dense_solve_pallas(db: DeviceBatch, epsilon: float, block_iters: int,
     th = _theta0(db)
     s_prev = _mt(db.m, th)
     active = torch.ones((), dtype=torch.bool, device=th.device)
+    last = torch.zeros_like(active, dtype=th.dtype)
     it = torch.zeros((), dtype=torch.int64, device=th.device)
 
     def block():
@@ -294,10 +297,11 @@ def _dense_solve_pallas(db: DeviceBatch, epsilon: float, block_iters: int,
         s_new = _mt(db.m, new)
         gain = torch.max(gain_of(db.reads, db.eumaps, s_prev, s_new))
         loop.advance(active, it, ((th, new), (s_prev, s_new)))
+        loop.keep_gain(last, gain, active)
         active.logical_and_((gain >= epsilon) & (it < max_blocks))
 
     loop.while_loop(block, active, plain=plain)
-    return th, int(it)
+    return th, loop.finish(it, last, lambda n: n >= max_blocks)
 
 
 def subset_batch(batch: DenseBatch, rows: np.ndarray) -> DenseBatch:

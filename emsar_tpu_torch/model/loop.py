@@ -11,11 +11,18 @@ function of that state that updates it in place:
     new, s_new, gain <- block_iters SQUAREM cycles from theta
     theta <- where(active, new, theta); s_prev likewise     (``advance``)
     it += any(active)                                       (``advance``)
+    last <- where(active, gain, last)                       (``keep_gain``)
     active &= (gain >= epsilon) & cap(it)                   (the solve's)
 
 so a block after a row stopped leaves that row as it was, as the vmapped
 ``while_loop`` does, and ``it`` counts the blocks in which something was
 still active: the JAX loop's block count, whatever ran after the stop.
+A NaN gain fails ``gain >= epsilon`` as a converged one does; ``last``
+(the loop's shape of ``active``: each row's gain of its last active
+block, one element-wise op a block) tells them apart.  ``finish`` reads
+whether it holds a NaN on the host together with ``it``, in the one
+transfer that read the block count, and puts the stop reason in
+``LAST.stop``.
 
 ``while_loop`` runs the first block eagerly (JAX calls ``block(state)``
 before its ``while_loop``), then more blocks until nothing is active,
@@ -72,12 +79,16 @@ COUNTERS = ((segment_sum, "LAUNCHES"), (segment_sum, "EM_LAUNCHES"),
 class LoopStats:
     """What the last ``while_loop`` did: blocks it ran (the first
     included, no-op blocks after the stop too), host reads of the stop
-    flag, whether it replayed a graph, and the capture's seconds."""
+    flag, whether it replayed a graph, the capture's seconds, and (set by
+    ``finish``) why it stopped: ``converged`` (the gain fell below
+    epsilon), ``nan`` (a row's last active block's gain was NaN) or
+    ``cap`` (the block cap)."""
 
     blocks_run: int = 0
     reads: int = 0
     graph: bool = False
     capture_s: float = 0.0
+    stop: str = ""
 
 
 LAST = LoopStats()
@@ -93,6 +104,27 @@ def advance(active: torch.Tensor, it: torch.Tensor,
                               + (1,) * (state.dim() - active.dim()))
         state.copy_(torch.where(mask, new, state))
     it.add_(active.any())
+
+
+def keep_gain(last: torch.Tensor, gain: torch.Tensor,
+              active: torch.Tensor) -> None:
+    """last <- where(active, gain, last), in place (one launch): each
+    row's gain of its last active block.  Call before the block updates
+    ``active``."""
+    torch.where(active, gain, last, out=last)
+
+
+def finish(it: torch.Tensor, last: torch.Tensor,
+           capped: Callable[[int], bool]) -> int:
+    """The loop's block count, read in one transfer with whether a row's
+    last active gain (``keep_gain``) was NaN; the stop reason goes to
+    ``LAST.stop`` (``capped(blocks)``: whether the count reached the
+    solve's cap)."""
+    blocks, any_nan = torch.stack(
+        (it, last.isnan().any().to(it.dtype))).tolist()
+    LAST.stop = ("nan" if any_nan else "cap" if capped(blocks)
+                 else "converged")
+    return blocks
 
 
 def while_loop(block: Callable[[], None], active: torch.Tensor, *,
@@ -138,7 +170,7 @@ def _run_graph(block: Callable[[], None], active: torch.Tensor,
                check_every: int, graph) -> LoopStats:
     """The replayed loop over ``graph`` (``_CudaGraph``; tests give a
     stand-in with the same three methods)."""
-    stats = LoopStats(graph=True)
+    stats = LoopStats()
     graph.warm_up(block)
     stats.blocks_run = stats.reads = 1
     if not bool(active.any()):
@@ -146,7 +178,7 @@ def _run_graph(block: Callable[[], None], active: torch.Tensor,
     before = _counts()
     t0 = time.perf_counter()
     graph.capture(block)
-    stats.capture_s = time.perf_counter() - t0
+    stats.graph, stats.capture_s = True, time.perf_counter() - t0
     per_block = [now - was for now, was in zip(_counts(), before)]
     _add_counts(per_block, -1)  # the capture launched nothing
     while True:

@@ -20,7 +20,8 @@ import torch
 from ..config import QuantConfig
 from ..ingest.collapse import SampleCounts
 from ..io.rsh import RshIndex
-from ..utils.timing import phase
+from ..utils.timing import note, phase, span
+from . import loop
 from .modules import (ModuleDecomposition, SegmentGraph, build_segment_graph,
                       decompose_modules)
 from .solver import (SolverProblem, build_problem, polish_host_f64, solve,
@@ -38,7 +39,6 @@ class QuantResult:
     modules: ModuleDecomposition
     total_read_count: int
     loglik: float
-    em_blocks: int
 
 
 def _resolve_dtype(cfg: QuantConfig):
@@ -131,29 +131,35 @@ def quantify_sample(index: RshIndex, counts: SampleCounts, cfg: QuantConfig,
 
     with phase("EM solve", cfg.verbose):
         dtype = _resolve_dtype(cfg)
-        # the problem keeps f64 masters; solve() casts to the device dtype
-        problem = build_problem(graph, modules, eumaps, x.read_count,
-                                dtype=np.float64)
+        with span("solve: problem", cfg.verbose):
+            # the problem keeps f64 masters; solve() casts to the device
+            # dtype
+            problem = build_problem(graph, modules, eumaps, x.read_count,
+                                    dtype=np.float64)
+            note(edges=len(problem.edge_cid),
+                 transcripts=problem.n_transcripts)
         part = None
         if cfg.solver_mode == "auto":
-            fpkm, blocks, part = _solve_auto(graph, modules, eumaps,
-                                             x.read_count, problem, cfg,
-                                             dtype, device)
+            fpkm, _, part = _solve_auto(graph, modules, eumaps,
+                                        x.read_count, problem, cfg, dtype,
+                                        device)
             ll = float("nan")
         else:
-            fpkm, ll, blocks = solve(problem, device, epsilon=cfg.epsilon,
-                                     max_iters=cfg.max_niter_mle,
-                                     block_iters=cfg.solver_block_iters,
-                                     dtype=dtype)
+            with span("solve: csr", cfg.verbose):
+                fpkm, ll, blocks = solve(
+                    problem, device, epsilon=cfg.epsilon,
+                    max_iters=cfg.max_niter_mle,
+                    block_iters=cfg.solver_block_iters, dtype=dtype)
+                note(edges=len(problem.edge_cid), blocks=blocks,
+                     stop=_stop(blocks))
             fpkm = fpkm.astype(np.float64)
         if dtype == np.float32 or cfg.solver_mode == "auto":
             # close the float32 convergence floor / dense-CSR seams with a
             # short host f64 SQUAREM polish (C++, csrc/solver.cc)
-            fpkm = polish_host_f64(problem, fpkm,
-                                   epsilon=max(cfg.epsilon, 1e-9),
-                                   max_cycles=200)[0]
+            fpkm = _polish(problem, fpkm, cfg)
         if not np.isfinite(ll):
-            ll = _host_loglik(problem, fpkm)
+            with span("solve: loglik", cfg.verbose):
+                ll = _host_loglik(problem, fpkm)
 
     with phase("iEUMA", cfg.verbose):
         # iEUMA[tid] = sum over ALL cids containing tid (with multiplicity),
@@ -169,7 +175,25 @@ def quantify_sample(index: RshIndex, counts: SampleCounts, cfg: QuantConfig,
                        adj_euma=x.adj_euma, wf=x.wf, graph=graph,
                        modules=modules,
                        total_read_count=counts.total_read_count,
-                       loglik=ll, em_blocks=blocks)
+                       loglik=ll)
+
+
+def _stop(blocks: int) -> str:
+    """The stop reason of the solve that just ran ``blocks`` blocks
+    (``loop.LAST``; none ran: an empty problem, converged)."""
+    return loop.LAST.stop if blocks else "converged"
+
+
+def _polish(problem: SolverProblem, theta: np.ndarray, cfg: QuantConfig,
+            max_cycles: int = 200) -> np.ndarray:
+    """The host f64 SQUAREM polish as the span "solve: polish": its cycles,
+    and whether it met epsilon or ran to ``max_cycles``."""
+    with span("solve: polish", cfg.verbose):
+        theta, cycles = polish_host_f64(problem, theta,
+                                        epsilon=max(cfg.epsilon, 1e-9),
+                                        max_cycles=max_cycles)
+        note(cycles=cycles, stop="cap" if cycles >= max_cycles else "eps")
+    return theta
 
 
 def _restart_eps(cfg: QuantConfig) -> float:
@@ -309,34 +333,48 @@ def _host_loglik(problem, theta: np.ndarray) -> float:
 
 def _solve_auto(graph, modules, eumaps, read_count, problem, cfg, dtype,
                 device: torch.device):
-    """Dense batched solve for small modules + CSR for the rest."""
+    """Dense batched solve for small modules + CSR for the rest; returns
+    (fpkm, the blocks of every loop, the partition).  Each step is a span
+    (``solve: partition``, a ``solve: dense batch`` a size class,
+    ``solve: csr``) with its blocks and stop reason."""
     from .dense import partition_modules, solve_dense_batch
 
-    part = partition_modules(graph, modules, eumaps, read_count, dtype=dtype)
+    with span("solve: partition", cfg.verbose):
+        part = partition_modules(graph, modules, eumaps, read_count,
+                                 dtype=dtype)
+        note(batches=len(part.batches), csr_modules=len(part.csr_sids))
     eps = max(cfg.epsilon, 1e-5) if dtype == np.float32 else cfg.epsilon
     fpkm = np.zeros(graph.n_transcripts, dtype=np.float64)
     blocks_total = 0
     for batch in part.batches:
-        theta, blocks = solve_dense_batch(batch, eps, device,
-                                          block_iters=cfg.solver_block_iters,
-                                          use_pallas=cfg.solver_pallas)
-        blocks_total += blocks
-        mask = batch.tid_map >= 0
-        fpkm[batch.tid_map[mask]] = theta[mask].astype(np.float64)
+        with span("solve: dense batch", cfg.verbose):
+            theta, blocks = solve_dense_batch(
+                batch, eps, device, block_iters=cfg.solver_block_iters,
+                use_pallas=cfg.solver_pallas)
+            note(shape="x".join(map(str, batch.shape)), blocks=blocks,
+                 stop=loop.LAST.stop, graph=loop.LAST.graph,
+                 capture_s=loop.LAST.capture_s)
+            blocks_total += blocks
+            mask = batch.tid_map >= 0
+            fpkm[batch.tid_map[mask]] = theta[mask].astype(np.float64)
     if len(part.csr_sids):
-        keep = np.isin(modules.cs, part.csr_sids)
-        modules_csr = dataclasses.replace(modules,
-                                          cs=np.where(keep, modules.cs, -1))
-        csr_problem = build_problem(graph, modules_csr, eumaps, read_count,
-                                    dtype=np.float64)
-        theta, _, blocks = solve(csr_problem, device, epsilon=cfg.epsilon,
-                                 max_iters=cfg.max_niter_mle,
-                                 block_iters=cfg.solver_block_iters,
-                                 dtype=dtype)
-        blocks_total += blocks
-        touched = np.zeros(graph.n_transcripts, dtype=bool)
-        touched[csr_problem.edge_tid] = True
-        fpkm[touched] = theta.astype(np.float64)[touched]
+        with span("solve: csr", cfg.verbose):
+            keep = np.isin(modules.cs, part.csr_sids)
+            modules_csr = dataclasses.replace(
+                modules, cs=np.where(keep, modules.cs, -1))
+            csr_problem = build_problem(graph, modules_csr, eumaps,
+                                        read_count, dtype=np.float64)
+            theta, _, blocks = solve(csr_problem, device,
+                                     epsilon=cfg.epsilon,
+                                     max_iters=cfg.max_niter_mle,
+                                     block_iters=cfg.solver_block_iters,
+                                     dtype=dtype)
+            note(edges=len(csr_problem.edge_cid), blocks=blocks,
+                 stop=_stop(blocks))
+            blocks_total += blocks
+            touched = np.zeros(graph.n_transcripts, dtype=bool)
+            touched[csr_problem.edge_tid] = True
+            fpkm[touched] = theta.astype(np.float64)[touched]
     return fpkm, blocks_total, part
 
 
@@ -421,16 +459,22 @@ def quantify_samples_batched(index: RshIndex, counts_list, cfg: QuantConfig,
     batch's total, as in the JAX package."""
     from ..parallel.mesh import make_mesh, shard_problem, solve_sharded
 
-    b = batched_inputs(index, counts_list, cfg)
+    S = len(counts_list)
+    with span("solve: batched inputs", cfg.verbose):
+        b = batched_inputs(index, counts_list, cfg)
+        note(samples=S)
     if b is None:
         return None
     ntid = index.n_transcripts
     dtype = _resolve_dtype(cfg)
-    sp = shard_problem(b.problem, b.R, make_mesh(device=device), dtype=dtype,
-                       eumaps_per_sample=b.E, denom_per_sample=b.denom)
-    theta, ll, blocks = solve_sharded(
-        sp, epsilon=max(cfg.epsilon, 1e-5) if dtype == np.float32
-        else cfg.epsilon, block_iters=cfg.solver_block_iters)
+    with span("solve: sharded loop", cfg.verbose):
+        sp = shard_problem(b.problem, b.R, make_mesh(device=device),
+                           dtype=dtype, eumaps_per_sample=b.E,
+                           denom_per_sample=b.denom)
+        theta, ll, blocks = solve_sharded(
+            sp, epsilon=max(cfg.epsilon, 1e-5) if dtype == np.float32
+            else cfg.epsilon, block_iters=cfg.solver_block_iters)
+        note(samples=S, blocks=blocks, stop=loop.LAST.stop)
     theta = theta.astype(np.float64)
 
     results = []
@@ -441,8 +485,7 @@ def quantify_samples_batched(index: RshIndex, counts_list, cfg: QuantConfig,
         ps = dataclasses.replace(b.problem, eumaps=b.E[s], reads=b.R[s],
                                  denom=b.denom[s])
         if dtype == np.float32:
-            fpkm = polish_host_f64(ps, fpkm, epsilon=max(cfg.epsilon, 1e-9),
-                                   max_cycles=200)[0]
+            fpkm = _polish(ps, fpkm, cfg)
         ieuma = np.zeros(ntid)
         np.add.at(ieuma, graph.ct_tids, b.adjs[s][ct_rep])
         fpkm_rounds = _make_rounds(ps, fpkm, cfg, dtype, device)
@@ -452,5 +495,5 @@ def quantify_samples_batched(index: RshIndex, counts_list, cfg: QuantConfig,
             graph=dataclasses.replace(graph, adj_euma=b.adjs[s],
                                       read_count=b.rcs[s]),
             modules=b.modules, total_read_count=counts.total_read_count,
-            loglik=float(ll), em_blocks=blocks))
+            loglik=float(ll)))
     return results

@@ -368,6 +368,7 @@ def em_solve(p: DeviceProblem, theta0: torch.Tensor, epsilon: float,
     s_prev = _intensities(p, theta)
     active = torch.ones(theta.shape[0], dtype=torch.bool,
                         device=theta.device)
+    last = torch.zeros_like(active, dtype=theta.dtype)
     it = torch.zeros((), dtype=torch.int64, device=theta.device)
 
     def block():
@@ -376,11 +377,14 @@ def em_solve(p: DeviceProblem, theta0: torch.Tensor, epsilon: float,
         gain = torch.sum(terms, dim=-1)
         # rows that already stopped keep their state (vmap'd while_loop)
         loop.advance(active, it, ((theta, th), (s_prev, s_new)))
+        loop.keep_gain(last, gain, active)
         active.logical_and_((gain >= epsilon)
                             & (it * (block_iters * 3) < max_iters))
 
     loop.while_loop(block, active, plain=plain)
-    return theta, loglik_of(p.reads, p.eumaps, s_prev), int(it)
+    ll = loglik_of(p.reads, p.eumaps, s_prev)
+    return theta, ll, loop.finish(
+        it, last, lambda n: n * (block_iters * 3) >= max_iters)
 
 
 def polish_host_f64(problem: SolverProblem, theta: np.ndarray,

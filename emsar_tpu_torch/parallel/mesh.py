@@ -336,6 +336,7 @@ def solve_sharded(sp: ShardedProblem, epsilon: float = 1e-6,
     dev = th.device
     # JAX's first cond, the initial gain being +inf
     active = torch.tensor(max_blocks > 0, device=dev)
+    last = torch.zeros_like(active, dtype=th.dtype)
     it = torch.zeros((), dtype=torch.int64, device=dev)
 
     def block():
@@ -343,12 +344,14 @@ def solve_sharded(sp: ShardedProblem, epsilon: float = 1e-6,
                                                    plan)
         g = _psum(gain.sum().reshape(1), m.dp_group)
         loop.advance(active, it, ((th, th_new), (s, s_new), (ll, ll_new)))
+        loop.keep_gain(last, g[0], active)
         active.logical_and_((g[0] >= epsilon) & (it < max_blocks))
 
     collective = m.dp_group is not None or m.tp_group is not None
     loop.while_loop(block, active, plain=plain or collective)
     ll_tot = float(_psum(ll.sum().reshape(1), m.dp_group))
-    return gather_theta(sp, th), ll_tot, int(it)
+    return gather_theta(sp, th), ll_tot, loop.finish(
+        it, last, lambda n: n >= max_blocks)
 
 
 def gather_theta(sp: ShardedProblem, th: torch.Tensor) -> np.ndarray:
