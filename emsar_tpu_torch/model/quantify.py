@@ -24,7 +24,8 @@ from ..utils.timing import note, phase, span
 from . import loop
 from .modules import (ModuleDecomposition, SegmentGraph, build_segment_graph,
                       decompose_modules)
-from .solver import (SolverProblem, build_problem, polish_host_f64, solve,
+from .solver import (SolverProblem, build_problem, polish_device,
+                     polish_host_f64, problem_to_device, solve,
                      solve_restart_rounds)
 
 
@@ -155,8 +156,8 @@ def quantify_sample(index: RshIndex, counts: SampleCounts, cfg: QuantConfig,
             fpkm = fpkm.astype(np.float64)
         if dtype == np.float32 or cfg.solver_mode == "auto":
             # close the float32 convergence floor / dense-CSR seams with a
-            # short host f64 SQUAREM polish (C++, csrc/solver.cc)
-            fpkm = _polish(problem, fpkm, cfg)
+            # short f64 SQUAREM polish (on the card, or C++ on the host)
+            fpkm = _polish(problem, fpkm, cfg, device=device)
         if not np.isfinite(ll):
             with span("solve: loglik", cfg.verbose):
                 ll = _host_loglik(problem, fpkm)
@@ -185,14 +186,31 @@ def _stop(blocks: int) -> str:
 
 
 def _polish(problem: SolverProblem, theta: np.ndarray, cfg: QuantConfig,
-            max_cycles: int = 200) -> np.ndarray:
-    """The host f64 SQUAREM polish as the span "solve: polish": its cycles,
-    and whether it met epsilon or ran to ``max_cycles``."""
+            max_cycles: int = 200,
+            device: Optional[torch.device] = None) -> np.ndarray:
+    """The f64 SQUAREM polish as the span "solve: polish": its cycles, and
+    whether it met epsilon or ran to ``max_cycles``.  On a CUDA
+    ``device`` it runs on the card (``solver.polish_device``: the problem
+    uploaded once, theta read back once; the span adds the device and
+    ``loop.LAST``'s ``graph`` and ``capture_s``), elsewhere on the host
+    (``polish_host_f64``, C++), as does a problem without segments."""
+    epsilon = max(cfg.epsilon, 1e-9)
     with span("solve: polish", cfg.verbose):
-        theta, cycles = polish_host_f64(problem, theta,
-                                        epsilon=max(cfg.epsilon, 1e-9),
-                                        max_cycles=max_cycles)
-        note(cycles=cycles, stop="cap" if cycles >= max_cycles else "eps")
+        if (device is not None and device.type == "cuda"
+                and len(problem.eumaps)):
+            p = problem_to_device(problem, device, torch.float64)
+            th, cycles = polish_device(
+                p, torch.as_tensor(theta, dtype=torch.float64).to(device),
+                epsilon, max_cycles)
+            theta = th.cpu().numpy()
+            extra = dict(device=str(device), graph=loop.LAST.graph,
+                         capture_s=loop.LAST.capture_s)
+        else:
+            theta, cycles = polish_host_f64(problem, theta, epsilon=epsilon,
+                                            max_cycles=max_cycles)
+            extra = {}
+        note(cycles=cycles, stop="cap" if cycles >= max_cycles else "eps",
+             **extra)
     return theta
 
 
@@ -485,7 +503,7 @@ def quantify_samples_batched(index: RshIndex, counts_list, cfg: QuantConfig,
         ps = dataclasses.replace(b.problem, eumaps=b.E[s], reads=b.R[s],
                                  denom=b.denom[s])
         if dtype == np.float32:
-            fpkm = _polish(ps, fpkm, cfg)
+            fpkm = _polish(ps, fpkm, cfg, device=device)
         ieuma = np.zeros(ntid)
         np.add.at(ieuma, graph.ct_tids, b.adjs[s][ct_rep])
         fpkm_rounds = _make_rounds(ps, fpkm, cfg, dtype, device)

@@ -32,7 +32,10 @@ The convergence loop is ``model/loop.py``'s ``while_loop`` (JAX's
 graph on the card, the stop flag read once per ``loop.CHECK_EVERY``
 blocks.  Restart rounds, vmapped in the JAX package, ride a leading
 ``[R, ntid]`` axis with a per-round convergence mask, so every round stops
-exactly where it would stop alone.
+exactly where it would stop alone.  The short f64 polish after a solve runs
+the same cycle under the host polish's stop rules: on the card as
+``polish_device`` (a cycle a block of that loop), on the host as
+``polish_host_f64`` (C++).
 """
 
 from __future__ import annotations
@@ -260,20 +263,26 @@ def _same_groups(a: EdgeGroups, b: EdgeGroups) -> bool:
         and torch.equal(a.idx, b.idx) and torch.equal(a.mult, b.mult))
 
 
-def _cached_plan(p, rows: int) -> Optional[TilePlan]:
-    """``plan_for``'s plan of ``rows`` rows of ``p``'s edges, from the
-    cache when a plan of the same edge groupings (by content), rows, dtype
-    and device is there; else made (``PLANS_MADE``) and kept, the oldest
-    plans dropped while the cache holds more than ``PLAN_CACHE`` of them
-    or ``PLAN_CACHE_BYTES`` (the newest always kept)."""
+def _new_plan(p, rows: int) -> Optional[TilePlan]:
+    """``plan_for``'s plan of ``rows`` rows of ``p``'s edges, counted in
+    ``PLANS_MADE``."""
     global PLANS_MADE
+    PLANS_MADE += 1
+    return plan_for(p.by_cid, p.by_tid, rows)
+
+
+def _cached_plan(p, rows: int) -> Optional[TilePlan]:
+    """``_new_plan``, from the cache when a plan of the same edge
+    groupings (by content), rows, dtype and device is there; else made
+    and kept, the oldest plans dropped while the cache holds more than
+    ``PLAN_CACHE`` of them or ``PLAN_CACHE_BYTES`` (the newest always
+    kept)."""
     for i, (r, by_cid, by_tid, plan, _) in enumerate(_PLANS):
         if (r == rows and _same_groups(by_cid, p.by_cid)
                 and _same_groups(by_tid, p.by_tid)):
             _PLANS.append(_PLANS.pop(i))
             return plan
-    plan = plan_for(p.by_cid, p.by_tid, rows)
-    PLANS_MADE += 1
+    plan = _new_plan(p, rows)
     size = plan.nbytes() if plan is not None else 0
     _PLANS.append((rows, p.by_cid, p.by_tid, plan, size))
     while len(_PLANS) > 1 and (len(_PLANS) > PLAN_CACHE or sum(
@@ -385,6 +394,38 @@ def em_solve(p: DeviceProblem, theta0: torch.Tensor, epsilon: float,
     ll = loglik_of(p.reads, p.eumaps, s_prev)
     return theta, ll, loop.finish(
         it, last, lambda n: n * (block_iters * 3) >= max_iters)
+
+
+def polish_device(p: DeviceProblem, theta: torch.Tensor, epsilon: float,
+                  max_cycles: int) -> Tuple[torch.Tensor, int]:
+    """``polish_host_f64``'s SQUAREM polish of ``theta`` [T] on ``p``'s
+    device, under the host polish's rules: one cycle a block of
+    ``loop.while_loop`` (replayed from a CUDA graph on the card), the same
+    accept, a stop test every cycle that stops where ``gain < epsilon``
+    (a NaN gain runs on, where ``em_solve``'s ``gain >= epsilon`` stops)
+    and a cap of ``max_cycles`` cycles.  Returns (theta [T], the cycles
+    run, the one that met ``epsilon`` included); ``loop.LAST.stop`` is
+    ``converged`` or ``cap``.  The cycles' path is ``cycle_plan``'s, but
+    its plan is not cached: the ~80 B an edge it holds would stay
+    allocated through the restart rounds that follow a polish."""
+    theta = theta.reshape(1, -1).clone()
+    if max_cycles <= 0:
+        return theta[0], 0
+    plan = _new_plan(p, 1) if clusters_for(p) else None
+    s_prev = _intensities(p, theta)
+    active = torch.ones(1, dtype=torch.bool, device=theta.device)
+    it = torch.zeros((), dtype=torch.int64, device=theta.device)
+
+    def block():
+        th, s_new, terms = _squarem_block(p, theta, 1, plan, s_prev)
+        gain = torch.sum(terms, dim=-1)
+        loop.advance(active, it, ((theta, th), (s_prev, s_new)))
+        active.logical_and_(~(gain < epsilon) & (it < max_cycles))
+
+    loop.while_loop(block, active)
+    cycles = int(it)
+    loop.LAST.stop = "cap" if cycles >= max_cycles else "converged"
+    return theta[0], cycles
 
 
 def polish_host_f64(problem: SolverProblem, theta: np.ndarray,

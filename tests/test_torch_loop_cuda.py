@@ -2,17 +2,25 @@
 each solver's loop replayed from a CUDA graph gives the bits of the plain
 host-synced loop and of the parent's loop on the card (theta, logL,
 blocks), counts the same kernel launches, and a block that cannot be
-captured raises.  These need an NVIDIA GPU with nvcc and skip elsewhere;
-the file imports neither JAX nor ``emsar_tpu``:
+captured raises.  The f64 polish on the card (``solver.polish_device``)
+runs the host's C++ polish's cycles to its answer, and a sample's peak
+of allocated memory stays as with the host's polish.  These need an
+NVIDIA GPU with nvcc and skip elsewhere; the file imports neither JAX nor
+``emsar_tpu``:
 
     python -m pytest --noconftest -m cuda tests/test_torch_loop_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
-from emsar_tpu_torch.model import loop
-from torch_loop_cases import CASES, LOOPS, Case, same_bits
+from emsar_tpu_torch.config import QuantConfig
+from emsar_tpu_torch.model import loop, quantify, solver
+from emsar_tpu_torch.utils import timing
+from torch_loop_cases import (CASES, LOOPS, POLISH_CAPS, POLISH_CASES, Case,
+                              check_polish, gene_family_problem, polish_case,
+                              same_bits)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +94,57 @@ def test_a_block_that_cannot_be_captured_raises(cuda):
     with pytest.raises(RuntimeError):
         loop.while_loop(block, active)
     assert float(torch.ones(3, device=cuda).sum()) == 3.0
+
+
+@pytest.mark.parametrize("max_cycles", POLISH_CAPS)
+@pytest.mark.parametrize("case", POLISH_CASES)
+def test_device_polish_matches_host_on_the_card(cuda, case, max_cycles):
+    """The polish on the card (clusters, a cycle a replayed block) against
+    the C++ polish on the host from the same start."""
+    problem, theta = polish_case(case, cuda)
+    cycles = check_polish(problem, theta, max_cycles, cuda)
+    assert loop.LAST.graph is (cycles > 1)
+
+
+def test_device_polish_keeps_the_samples_peak(cuda):
+    """The smoke's transcriptome (``chip_smoke.py``: 2000 genes, seed
+    1234, l50) with Poisson read counts of 0.05 a unit of EUMA, sparse
+    enough that the dense batches stop on a NaN gain after a few blocks
+    and the polish runs to its cap (as in the sample cell; on the CPU 4
+    blocks, 200 cycles), run as ``quantify_sample`` runs a sample: the
+    default solve's dense batches, the polish, the restart rounds.  With
+    the polish on the card the peak of allocated memory is no higher than
+    with the host's polish, and the polish leaves nothing allocated (its
+    tile plan is not cached); its span names the card and the graph."""
+    problem, graph, modules, eumaps, rc = gene_family_problem(
+        2000, 1234, 50, reads_per_euma=0.05)
+    cfg = QuantConfig(verbose=0)
+
+    def sample(device):
+        solver.clear_plans()
+        torch.cuda.synchronize(cuda)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        fpkm, _, part = quantify._solve_auto(graph, modules, eumaps, rc,
+                                             problem, cfg, np.float64, cuda)
+        assert part.batches and not len(part.csr_sids)
+        torch.cuda.synchronize(cuda)
+        before = torch.cuda.memory_allocated(cuda)
+        fpkm = quantify._polish(problem, fpkm, cfg, device=device)
+        torch.cuda.synchronize(cuda)
+        kept = torch.cuda.memory_allocated(cuda) - before
+        quantify._make_rounds(problem, fpkm, cfg, np.float64, cuda,
+                              part=part, graph=graph, modules=modules,
+                              eumaps=eumaps, read_count=rc)
+        torch.cuda.synchronize(cuda)
+        return torch.cuda.max_memory_allocated(cuda), kept
+
+    host_peak, _ = sample(None)
+    timing.reset_phases()
+    card_peak, kept = sample(cuda)
+    (s,) = [s for s in timing.spans() if s.name == "solve: polish"]
+    timing.reset_phases()
+    assert kept == 0
+    assert card_peak <= host_peak
+    assert s.attrs["device"] == str(cuda) and s.attrs["graph"]
+    assert s.attrs["cycles"] > 1 and s.attrs["capture_s"] > 0

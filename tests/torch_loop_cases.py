@@ -13,6 +13,7 @@ import torch
 
 from emsar_tpu_torch.kernels import squarem
 from emsar_tpu_torch.model import dense as tdense
+from emsar_tpu_torch.model import loop
 from emsar_tpu_torch.model import solver as tsolver
 from emsar_tpu_torch.parallel import mesh as tmesh
 
@@ -338,3 +339,101 @@ def same_bits(a, b):
     np.testing.assert_array_equal(bits(th_a), bits(th_b))
     if ll_a is not None:
         np.testing.assert_array_equal(bits(ll_a), bits(ll_b))
+
+
+# ---- the f64 polish on the device (``solver.polish_device``) against the
+# host's C++ polish (``solver.polish_host_f64``) --------------------------
+
+POLISH_CASES = ["gene_family", "stop", "one_cycle", "nan_gain"]
+POLISH_CAPS = [200, 2]
+POLISH_EPSILON = 1e-9
+# the read-less segment's EUMAp in the NaN-gain case: from the
+# read-attribution start its transcript falls by ~1e30 a cycle, so the
+# stop gain is NaN in cycles 1 and 3-6 (``_nan_module``)
+NAN_GAIN_EUMAP = 1e10
+
+
+def gene_family_problem(n_genes=25, seed=0, readlen=20, reads_per_euma=1.5,
+                        **shape):
+    """The likelihood problem (float64) of a gene-family transcriptome
+    indexed by the port's NumPy builder, with Poisson read counts
+    (``tests/test_dense_solver.py::_problem``'s recipe; ``shape`` goes to
+    ``sim.gene_family_transcriptome``): (problem, graph, modules, eumaps,
+    read counts)."""
+    from emsar_tpu_torch.config import BuildConfig
+    from emsar_tpu_torch.index.build import build_se_index
+    from emsar_tpu_torch.io.fasta import build_transcriptome
+    from emsar_tpu_torch.model.modules import (build_segment_graph,
+                                               decompose_modules)
+    from emsar_tpu_torch.sim import gene_family_transcriptome
+
+    rng = np.random.default_rng(seed)
+    names, seqs, _ = gene_family_transcriptome(rng, n_genes, **shape)
+    idx = build_se_index(build_transcriptome(names, seqs), readlen, readlen,
+                         BuildConfig(verbose=0), backend="numpy")
+    adj = np.concatenate([idx.single_euma[:, 0],
+                          idx.multi_euma[:, 0]]).astype(np.float64)
+    rc = rng.poisson(adj * reads_per_euma).astype(np.int64)
+    graph = build_segment_graph(idx, adj, rc)
+    modules = decompose_modules(graph)
+    eumaps = adj / 1e3 * (max(int(rc.sum()), 1) / 1e6)
+    problem = tsolver.build_problem(graph, modules, eumaps, rc)
+    return problem, graph, modules, eumaps, rc
+
+
+def polish_case(case, device=torch.device("cpu")):
+    """(SolverProblem, float64 start [T]) of a polish case: ``gene_family``
+    from its float32 solve on ``device``; ``stop`` (``Case("dense",
+    "stop")``'s modules) from the read-attribution start; ``one_cycle``
+    from those modules' polished theta, which meets epsilon in its first
+    cycle; ``nan_gain`` the same modules with ``_nan_module``'s last, its
+    read-less segment's EUMAp ``NAN_GAIN_EUMAP``, from the
+    read-attribution start: NaN stop gains, on which the polish runs on."""
+    if case == "gene_family":
+        problem = gene_family_problem(n_exons=6, min_exon=40,
+                                      max_exon=150)[0]
+        theta, _, _ = tsolver.solve(problem, device, dtype=np.float32)
+        return problem, theta.astype(np.float64)
+    batch = _modules(STOP_SEED, 0.0)
+    if case == "nan_gain":
+        batch = _nan_module(batch, NAN_GAIN_EUMAP)
+    problem = tsolver.SolverProblem(**_csr_fields(batch))
+    theta = tsolver.read_attribution_start(problem)
+    if case == "one_cycle":
+        theta = tsolver.polish_host_f64(problem, theta, POLISH_EPSILON)[0]
+    return problem, theta
+
+
+def first_stop_gain(problem, theta, device=torch.device("cpu")):
+    """The stop gain of the polish's first cycle from ``theta``."""
+    p = tsolver.problem_to_device(problem, device, torch.float64)
+    th = torch.as_tensor(theta, dtype=torch.float64).to(device)[None]
+    s = tsolver._intensities(p, th)
+    return float(tsolver._squarem_block(p, th, 1, None, s)[2].sum())
+
+
+def check_polish(problem, theta, max_cycles, device=torch.device("cpu")):
+    """``polish_device`` on ``device`` against ``polish_host_f64`` (C++)
+    from ``theta``: the same cycles and stop, logL within rel 1e-10,
+    segment intensities within rtol 1e-7 (theta itself is not compared:
+    it is not identifiable inside collinear isoform groups).  Returns the
+    cycles."""
+    want, cycles = tsolver.polish_host_f64(problem, theta, POLISH_EPSILON,
+                                           max_cycles, native=True)
+    p = tsolver.problem_to_device(problem, device, torch.float64)
+    got, got_cycles = tsolver.polish_device(
+        p, torch.as_tensor(theta, dtype=torch.float64).to(device),
+        POLISH_EPSILON, max_cycles)
+    assert got.shape == (problem.n_transcripts,)
+    assert got.dtype == torch.float64 and got.device.type == device.type
+    assert got_cycles == cycles
+    assert loop.LAST.stop == ("cap" if cycles >= max_cycles
+                              else "converged")
+    s_want, s_got = (tsolver._intensities(
+        p, torch.as_tensor(th, dtype=torch.float64).to(device)[None])[0]
+        for th in (want, got))
+    ll_want, ll_got = (float(tsolver.loglik_of(p.reads, p.eumaps, s))
+                       for s in (s_want, s_got))
+    assert abs(ll_got - ll_want) <= 1e-10 * abs(ll_want), (ll_got, ll_want)
+    torch.testing.assert_close(s_got, s_want, rtol=1e-7, atol=1e-12)
+    return cycles
