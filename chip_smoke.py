@@ -48,19 +48,24 @@ exit, no result line):
    FPKM) within rel 1e-9 (1e-7 for float32), gene-level inferred read
    counts within 1e-3, gene-level TPM within rel 1e-3 (5e-3 for float32)
    of max(TPM, 1), .fraglength_effect byte-equal.
-   The CSR run's logL must be CSR_LOGL, and its cycles must run on the
-   cluster kernels.  Then the default solve's dense batches, torch.bmm
-   and kernel path: each one's blocks and why it stopped (its last
-   gain: NaN or real), and the host f64 polish's cycles and seconds.
+   The CSR run's logL must be CSR_LOGL_REPAIRED (the default gain), and
+   its cycles must run on the cluster kernels; a sixth run, csr_jax, with
+   the JAX package's gain (``solver_gain`` 'jax'), must give CSR_LOGL.
+   Then the solve's dense batches with each gain, torch.bmm and kernel
+   path: each one's blocks, seconds and why it stopped (its last gain:
+   NaN or real), and the host f64 polish's cycles and seconds.
 6. Kernels against plain versions at the main path's shapes: the SQUAREM
-   block on its dense batches (float64), the segment sums and em_step on
+   block on its dense batches (float64; with each gain, timed with the
+   main path's), the segment sums and em_step on
    its CSR problem (bit-equal to the CPU); the CSR cycle's kernels
    (em_step_cycle, cycle_extrap, the tiled pair_gain with and without its
-   intensities, cycle_select, block_end and a whole cycle of twelve
+   intensities and block_end, each with either gain, cycle_select and a
+   whole cycle of twelve
    launches; two cycles replayed from a CUDA graph equal to the eager
    ones, cycle_select equal to torch.where, timed beside it) and the
    cluster kernels (cluster_em_pair from theta and from
-   an accept, cluster_extrap_gain with and without its intensities,
+   an accept, cluster_extrap_gain with and without its intensities, with
+   either gain,
    eight cycles of five launches) bit-equal to their plain versions at
    the CSR shape (R 1, float64; the CSR cycle's kernels in float32 too)
    and the CSR restart rounds' (R 3, float32
@@ -72,7 +77,8 @@ exit, no result line):
    problem, with its solve's ms per replayed block.  Then the CSR solve through
    ``solver.solve``, its blocks replayed from a CUDA graph
    (``model/loop.py``) on clusters:
-   CSR_BLOCKS blocks to its end; the tile plan's host ms, made and taken
+   CSR_BLOCKS blocks to its end with the JAX package's gain (a NaN
+   stop), CSR_BLOCKS_REPAIRED to a real stop with the default one; the tile plan's host ms, made and taken
    from the plan cache; the whole solve's ms per block, capture ms,
    kernel launches per block run and device busy share (torch.profiler),
    on clusters and forced off them (twelve launches a cycle).
@@ -131,10 +137,15 @@ exit, no result line):
    restart loops); the tile plans each run made (the plan cache emptied
    before it): the 16 samples' restart loops must make one between them;
    each batched .fpkm's logL within rel 1e-9 of the
-   same batched solve on the CPU (the plain versions); the loop-vs-batched
-   logL and gene-TPM gaps printed (the batched solve stops on one gain
-   summed over the samples, JAX's rule).  The batched solve timed on the
-   card: blocks, ms per block.  (b) em_step at the batched shape (R = 16,
+   same batched solve on the CPU (the plain versions, the CLI's gain);
+   the loop-vs-batched logL and gene-TPM gaps printed (the batched solve
+   stops on one gain summed over the samples, JAX's rule).  The batched
+   solve with each gain on the card against the CPU: logL within rel
+   1e-9, with the JAX package's gain the same blocks (both stop on the
+   first block's NaN), with the repaired one both ``converged`` (their
+   roundings may end them a few blocks apart); timed on the card: blocks,
+   ms per block; the first block's per-sample gains with either gain (NaN
+   only with the JAX package's).  (b) em_step at the batched shape (R = 16,
    per-sample reads and 1 / denom) against its plain version on the CPU:
    bit-equal, two calls equal; times and bound; the CSR cycle's kernels
    and the cluster kernels there as in phase 6.  (c) ``-M
@@ -169,6 +180,8 @@ The last lines are the kernels JSON, the card line, and
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import functools
 import itertools
 import json
 import os
@@ -185,9 +198,13 @@ SEED = 1234
 N_ITERS = 8
 # the CSR run's logL (from its .fpkm) and the CSR solve's block count on the
 # smoke fixture: fixed by the deterministic segment sums, whose order any
-# redesign keeps bit for bit
+# redesign keeps bit for bit.  CSR_LOGL and CSR_BLOCKS are the JAX
+# package's gain's (solver_gain 'jax': the solve stops on a NaN block
+# gain); the _REPAIRED pair the default gain's, which stops on a real one
 CSR_LOGL = 3262461.230667876
 CSR_BLOCKS = 136
+CSR_LOGL_REPAIRED = 3262461.2306709792
+CSR_BLOCKS_REPAIRED = 289
 KERNELS = {
     "squarem_block": {"name": "squarem_block", "route": "cuda",
                       "source": "emsar_tpu_torch/csrc/squarem_block.cu",
@@ -466,7 +483,37 @@ RUNS = (("kernel", ["--solver_pallas"]),
         ("kernel_f32", ["--solver_pallas", "--solver_dtype", "float32"]),
         ("bmm", []),
         ("csr", ["--solver_mode", "csr"]),
-        ("csr_again", ["--solver_mode", "csr"]))
+        ("csr_again", ["--solver_mode", "csr"]),
+        ("csr_jax", ["--solver_mode", "csr"]))
+# runs of the CLI with the JAX package's gain (QuantConfig.solver_gain
+# 'jax', which no flag selects)
+JAX_GAIN_RUNS = ("csr_jax",)
+
+
+@contextlib.contextmanager
+def cli_gain(cli, gain: str):
+    """The CLI's configurations with ``solver_gain`` ``gain`` inside."""
+    made = cli.QuantConfig
+    cli.QuantConfig = functools.partial(made, solver_gain=gain)
+    try:
+        yield
+    finally:
+        cli.QuantConfig = made
+
+
+@contextlib.contextmanager
+def dense_route(name: str):
+    """Inside, the "bmm" run's dense batches take torch.bmm on the card
+    (``dense.KERNEL_CLASSES`` emptied), as every run's did before the
+    hand kernel became the card's route for the one-warp classes."""
+    from emsar_tpu_torch.model import dense
+    classes = dense.KERNEL_CLASSES
+    if name == "bmm":
+        dense.KERNEL_CLASSES = ()
+    try:
+        yield
+    finally:
+        dense.KERNEL_CLASSES = classes
 
 
 def phase_main_path(rsh: str, aln: str, out_root: str):
@@ -492,7 +539,9 @@ def phase_main_path(rsh: str, aln: str, out_root: str):
         reset_phases()
         reset_launches()
         t0 = time.perf_counter()
-        rc = cli.main(["-q"] + flags + ["-I", rsh, out, "s", aln])
+        with cli_gain(cli, "jax" if name in JAX_GAIN_RUNS else "repaired"), \
+                dense_route(name):
+            rc = cli.main(["-q"] + flags + ["-I", rsh, out, "s", aln])
         wall = time.perf_counter() - t0
         launches[name] = read_launches()
         if rc != 0:
@@ -538,13 +587,15 @@ def phase_main_path(rsh: str, aln: str, out_root: str):
                 raise AssertionError(f"run {name} never launched {kernel}")
     same = fpkm_bytes["csr"] == fpkm_bytes["csr_again"]
     log(f"csr vs csr_again: .fpkm byte-identical {same}; CSR logL "
-        f"{lls['csr']!r} (want {CSR_LOGL!r})")
+        f"{lls['csr']!r} (want {CSR_LOGL_REPAIRED!r}), with the JAX "
+        f"package's gain {lls['csr_jax']!r} (want {CSR_LOGL!r})")
     if not same:
         raise AssertionError("two CSR runs on the same input gave different "
                              ".fpkm bytes")
-    if lls["csr"] != CSR_LOGL:
-        raise AssertionError(f"the CSR run's logL {lls['csr']!r} moved from "
-                             f"{CSR_LOGL!r}")
+    for name, want in (("csr", CSR_LOGL_REPAIRED), ("csr_jax", CSR_LOGL)):
+        if want is not None and lls[name] != want:
+            raise AssertionError(f"the {name} run's logL {lls[name]!r} "
+                                 f"moved from {want!r}")
     # EM approaches an isoform whose ML abundance is 0 sublinearly, so the
     # paths stop at the same 1e-9 logL gain with such isoforms at different
     # small FPKM; EM keeps each module's read total, so that mass moves to
@@ -578,12 +629,13 @@ def phase_main_path(rsh: str, aln: str, out_root: str):
 
 
 def dense_stops(x, dev) -> dict:
-    """Why the default solve's dense batches stop, and what the host f64
-    polish then costs, on the main path's sample (f64): per size class and
-    path (torch.bmm, ``--solver_pallas``) its blocks and its last block's
-    gain (the best module's; NaN, or real below epsilon, or the cap), from
-    the same solve run once more with the cap one block short; then
-    ``quantify._solve_auto`` and the polish's cycles
+    """Why the solve's dense batches stop, and what the host f64 polish
+    then costs, on the main path's sample (f64), with each gain (the JAX
+    package's, 'jax', and the default, 'repaired'): per size class and
+    path (torch.bmm, ``--solver_pallas``) its blocks, seconds and its last
+    block's gain (the best module's; NaN, or real below epsilon, or the
+    cap), from the same solve run once more with the cap one block short;
+    then ``quantify._solve_auto`` and the polish's cycles
     (``solver.polish_host_f64``) and seconds.  Changes no result."""
     import numpy as np
     import torch
@@ -596,52 +648,62 @@ def dense_stops(x, dev) -> dict:
     from emsar_tpu_torch.model.quantify import _solve_auto
     from emsar_tpu_torch.model.solver import (build_problem, gain_of,
                                               polish_host_f64)
-    cfg = QuantConfig(verbose=0)
-    eps, cap = cfg.epsilon, 2048
+    eps, cap = QuantConfig.epsilon, 2048
     part = partition_modules(x.graph, x.modules, x.eumaps, x.read_count,
                              dtype=np.float64)
     out = {}
-    for pallas in (False, True):
-        path = "kernel" if pallas else "bmm"
-        for batch in part.batches:
-            cls = "x".join(map(str, batch.shape[1:]))
-            th, it = solve_dense_batch(batch, eps, dev, N_ITERS, cap,
-                                       use_pallas=pallas)
-            if it > 1:
-                prev, _ = solve_dense_batch(batch, eps, dev, N_ITERS,
-                                            it - 1, use_pallas=pallas)
-            else:  # the first block's start
+    for skip in (False, True):
+        gain_name = "repaired" if skip else "jax"
+        for pallas in (False, True):
+            path = "kernel" if pallas else "bmm"
+            for batch in part.batches:
+                cls = "x".join(map(str, batch.shape[1:]))
+                t0 = time.perf_counter()
+                th, it = solve_dense_batch(batch, eps, dev, N_ITERS, cap,
+                                           use_pallas=pallas,
+                                           skip_unread=skip)
+                solve_s = time.perf_counter() - t0
+                if it > 1:
+                    prev, _ = solve_dense_batch(batch, eps, dev, N_ITERS,
+                                                it - 1, use_pallas=pallas,
+                                                skip_unread=skip)
+                else:  # the first block's start
+                    db = batch_to_device(batch, dev, torch.float64)
+                    prev = _theta0(db).cpu().numpy()
                 db = batch_to_device(batch, dev, torch.float64)
-                prev = _theta0(db).cpu().numpy()
-            db = batch_to_device(batch, dev, torch.float64)
-            s_old, s_new = (_mt(db.m, torch.as_tensor(a).to(dev))
-                            for a in (prev, th))
-            gain = float(torch.max(gain_of(db.reads, db.eumaps, s_old,
-                                           s_new)))
-            stop = ("NaN" if np.isnan(gain) else "cap" if it >= cap
-                    else "real")
-            out[f"{path} {cls}"] = {"blocks": it, "gain": gain,
-                                    "stop": stop}
-    problem = build_problem(x.graph, x.modules, x.eumaps, x.read_count)
-    fpkm, _, _ = _solve_auto(x.graph, x.modules, x.eumaps, x.read_count,
-                             problem, cfg, np.float64, dev)
-    t0 = time.perf_counter()
-    _, cycles = polish_host_f64(problem, fpkm, epsilon=max(cfg.epsilon,
-                                                           1e-9),
-                                max_cycles=200)
-    out["polish"] = {"cycles": cycles, "s": time.perf_counter() - t0}
-    log("default solve's dense batches (f64, epsilon "
+                s_old, s_new = (_mt(db.m, torch.as_tensor(a).to(dev))
+                                for a in (prev, th))
+                gain = float(torch.max(gain_of(db.reads, db.eumaps, s_old,
+                                               s_new, skip)))
+                stop = ("NaN" if np.isnan(gain) else "cap" if it >= cap
+                        else "real")
+                out[f"{gain_name} {path} {cls}"] = {
+                    "blocks": it, "gain": gain, "stop": stop, "s": solve_s}
+        cfg = QuantConfig(verbose=0, solver_gain=gain_name)
+        problem = build_problem(x.graph, x.modules, x.eumaps, x.read_count)
+        fpkm, _, _ = _solve_auto(x.graph, x.modules, x.eumaps, x.read_count,
+                                 problem, cfg, np.float64, dev)
+        t0 = time.perf_counter()
+        _, cycles = polish_host_f64(problem, fpkm,
+                                    epsilon=max(cfg.epsilon, 1e-9),
+                                    max_cycles=200, skip_unread=skip)
+        out[f"{gain_name} polish"] = {"cycles": cycles,
+                                      "s": time.perf_counter() - t0}
+    log("the solve's dense batches (f64, epsilon "
         f"{eps:g}): " + "; ".join(
             f"{k}: {v['blocks']} blocks, stop {v['stop']} (last gain "
-            f"{v['gain']!r})" for k, v in out.items() if k != "polish")
-        + f"; then the host f64 polish: {cycles} cycles in "
-        f"{out['polish']['s']:.3f} s")
+            f"{v['gain']!r}), {v['s']:.3f} s" for k, v in out.items()
+            if "polish" not in k)
+        + "; then the host f64 polish: " + "; ".join(
+            f"{k}: {v['cycles']} cycles in {v['s']:.3f} s"
+            for k, v in out.items() if "polish" in k))
     return out
 
 
 def phase_main_path_shapes(x, dev):
     """Kernel vs plain version on the main path's own dense batches
-    (float64, one block from the read-attribution start).  ``x`` is the
+    (float64, one block from the read-attribution start), with the JAX
+    package's gain and with the main path's (``skip_unread``).  ``x`` is the
     sample's ``prepare_sample`` result.  Returns what it measured: times
     and bounds summed over the batches, host ms per call their mean.  The
     bound counts each batch's inputs and output once and 16 C T
@@ -665,26 +727,30 @@ def phase_main_path_shapes(x, dev):
     for batch in part.batches:
         db = batch_to_device(batch, dev, torch.float64)
         args = [db.m, db.eumaps, db.reads, db.inv_denom, _theta0(db)]
-        got = squarem.squarem_block(*args, N_ITERS)
-        want = squarem.squarem_block_ref(*args, N_ITERS)
-        err, diff, n = block_agreement(got, want, *args, N_ITERS)
+        # with the JAX package's gain, then the main path's (timed)
+        for skip in (False, True):
+            got = squarem.squarem_block(*args, N_ITERS, skip)
+            want = squarem.squarem_block_ref(*args, N_ITERS, skip)
+            err, diff, n = block_agreement(got, want, *args, N_ITERS, skip)
+            log(f"main-path batch {batch.shape} skip_unread={skip}: max rel "
+                f"diff {err:.3e} over {n} modules, max abs diff {diff:.3e}")
+            if err > block_tol(torch.float64, N_ITERS):
+                raise AssertionError(f"kernel disagrees on batch "
+                                     f"{batch.shape} (skip_unread={skip})")
         host = measure.host_ms(lambda: squarem.squarem_block(*args,
-                                                             N_ITERS))
+                                                             N_ITERS, True))
         k_ms = measure.device_ms(lambda: squarem.squarem_block(*args,
-                                                               N_ITERS),
+                                                               N_ITERS, True),
                                  host_per_call_ms=host)
         p_ms = measure.device_ms(lambda: squarem.squarem_block_ref(
-            *args, N_ITERS), n=5)
+            *args, N_ITERS, True), n=5)
         B, C, T = batch.shape
         bound, by = measure.bound_ms(measure.nbytes(*args, got),
                                      16 * B * C * T * N_ITERS)
         bound_by[by] = bound_by.get(by, 0.0) + bound
-        log(f"main-path batch {batch.shape}: max rel diff {err:.3e} over "
-            f"{n} modules, max abs diff {diff:.3e}; kernel {k_ms:.4f} ms on "
+        log(f"main-path batch {batch.shape}: kernel {k_ms:.4f} ms on "
             f"the card, {host:.4f} ms host per call; plain {p_ms:.4f} ms "
             f"per {N_ITERS}-cycle block; bound {bound:.4f} ms ({by})")
-        if err > block_tol(torch.float64, N_ITERS):
-            raise AssertionError(f"kernel disagrees on batch {batch.shape}")
         tot["err"] = max(tot["err"], diff)
         for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", bound),
                      ("host_ms", host / len(part.batches))):
@@ -988,24 +1054,30 @@ def check_csr_cycle(p, theta, label: str) -> dict:
     s_t2, s_cand = (ss.segment_sum_ref(a.cpu(), cpu[0].mult, cpu[0].idx,
                                        cpu[0].offsets).to(theta.device)
                     for a in (t2, cand))
-    terms = cc.gain_terms(p.reads, p.eumaps, s_t2, s_cand)
-    got = cc.pair_gain(gc, p.reads, p.eumaps, t2, cand)
-    got_i, s_o, s_n = cc.pair_gain(gc, p.reads, p.eumaps, t2, cand,
-                                   intensities=True)
-    if not (_same_bits(got, terms) and _same_bits(got_i, terms)
-            and _same_bits(s_o, s_t2) and _same_bits(s_n, s_cand)):
-        failed.append("pair_gain")
+    # the main path's gain, then the JAX package's (whose terms the
+    # checks below take)
+    for skip in (True, False):
+        terms = cc.gain_terms(p.reads, p.eumaps, s_t2, s_cand, skip)
+        got = cc.pair_gain(gc, p.reads, p.eumaps, t2, cand,
+                           skip_unread=skip)
+        got_i, s_o, s_n = cc.pair_gain(gc, p.reads, p.eumaps, t2, cand,
+                                       intensities=True, skip_unread=skip)
+        if not (_same_bits(got, terms) and _same_bits(got_i, terms)
+                and _same_bits(s_o, s_t2) and _same_bits(s_n, s_cand)):
+            failed.append(f"pair_gain skip_unread={skip}")
     gain = torch.sum(got, dim=-1)
     gain[0] = float("nan")  # the accept's NaN branch: t2
     out = cc.cycle_select(gain, cand, t2)
     if not _same_bits(out, cc.cycle_select_ref(gain, cand, t2)):
         failed.append("cycle_select")
     s_prev = ss.sum_groups(theta, gc)
-    end = cc.block_end(gain, cand, t2, s_t2, s_cand, s_prev, p.reads,
-                       p.eumaps)
-    if not all(_same_bits(a, b) for a, b in zip(end, cc.block_end_ref(
-            gain, cand, t2, s_t2, s_cand, s_prev, p.reads, p.eumaps))):
-        failed.append("block_end")
+    for skip in (True, False):
+        end = cc.block_end(gain, cand, t2, s_t2, s_cand, s_prev, p.reads,
+                           p.eumaps, skip)
+        if not all(_same_bits(a, b) for a, b in zip(end, cc.block_end_ref(
+                gain, cand, t2, s_t2, s_cand, s_prev, p.reads, p.eumaps,
+                skip))):
+            failed.append(f"block_end skip_unread={skip}")
     library = {"cycle_select": lambda: torch.where(
         (gain >= 0)[:, None], cand, t2)}
     if not _same_bits(library["cycle_select"](), out):
@@ -1171,6 +1243,14 @@ def check_csr_cluster(p, theta, label: str) -> dict:
             and _same_bits(cand_i, cand) and _same_bits(terms_i, terms)
             and _same_bits(s_t2_k, s_t2) and _same_bits(s_cand_k, s_cand)):
         failed.append("cluster_extrap_gain")
+    # the main path's gain: the same candidate, the repaired terms
+    terms_r = csr_cycle.gain_terms(p.reads, p.eumaps, s_t2, s_cand, True)
+    cand_r, got_r = cc.extrap_gain(*ex, skip_unread=True)
+    cand_ri, got_ri, _, _ = cc.extrap_gain(*ex, intensities=True,
+                                           skip_unread=True)
+    if not (_same_bits(cand_r, cand) and _same_bits(cand_ri, cand)
+            and _same_bits(got_r, terms_r) and _same_bits(got_ri, terms_r)):
+        failed.append("cluster_extrap_gain skip_unread=True")
     gain = torch.sum(terms, dim=-1)
     src = (gain, cand, t2)
     got = cc.em_pair(src, plan, p.reads, p.inv_denom)
@@ -1499,17 +1579,24 @@ def phase_csr_profile(problem, dev) -> dict:
     from emsar_tpu_torch.model.solver import (clear_plans, cycle_plan,
                                               em_solve, problem_to_device,
                                               read_attribution_start, solve)
-    reset_launches()
-    _, ll, blocks = solve(problem, dev, dtype=np.float64)
-    cluster_launches = {k: v for k, v in read_launches().items()
-                        if k.startswith("cluster")}
-    log(f"CSR solve: {blocks} blocks (want {CSR_BLOCKS}), logL {ll!r}, "
-        f"cluster launches {cluster_launches}")
-    if blocks != CSR_BLOCKS:
-        raise AssertionError(f"the CSR solve took {blocks} blocks, not "
-                             f"{CSR_BLOCKS}")
-    if min(cluster_launches.values()) <= 0:
-        raise AssertionError("the CSR solve did not run on clusters")
+    for skip, want in ((False, CSR_BLOCKS), (True, CSR_BLOCKS_REPAIRED)):
+        reset_launches()
+        _, ll, blocks = solve(problem, dev, dtype=np.float64,
+                              skip_unread=skip)
+        cluster_launches = {k: v for k, v in read_launches().items()
+                            if k.startswith("cluster")}
+        gain = "repaired" if skip else "jax"
+        log(f"CSR solve ({gain} gain): {blocks} blocks (want {want}), "
+            f"stop {loop.LAST.stop}, logL {ll!r}, cluster launches "
+            f"{cluster_launches}")
+        if want is not None and blocks != want:
+            raise AssertionError(f"the CSR solve ({gain} gain) took "
+                                 f"{blocks} blocks, not {want}")
+        if skip and loop.LAST.stop != "converged":
+            raise AssertionError(f"the CSR solve ({gain} gain) stopped on "
+                                 f"{loop.LAST.stop}")
+        if min(cluster_launches.values()) <= 0:
+            raise AssertionError("the CSR solve did not run on clusters")
     p = problem_to_device(problem, dev, torch.float64)
     th0 = torch.as_tensor(read_attribution_start(problem))[None].to(dev)
     cycle_plan(p, 1, clusters=True)
@@ -2365,7 +2452,7 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
     from emsar_tpu_torch.bench import MS_SAMPLES, batched_sample
     from emsar_tpu_torch.cli import emsar as cli
     from emsar_tpu_torch.config import QuantConfig
-    from emsar_tpu_torch.model import solver
+    from emsar_tpu_torch.model import loop, solver
     from emsar_tpu_torch.model.quantify import _host_loglik
     from emsar_tpu_torch.model.solver import gain_of
     from emsar_tpu_torch.parallel import mesh
@@ -2442,41 +2529,61 @@ def phase_multisample(rsh: str, aln: str, out_root: str, dev):
     res, problems = _sample_checks(index, counts, runs)
     cfg = QuantConfig(verbose=0)
 
-    # the batched solve: on the CPU (the plain versions) as the reference,
-    # on the card timed
+    # the batched solve with each gain: on the CPU (the plain versions) as
+    # the reference, on the card timed.  With the JAX package's gain both
+    # stop on the first block's NaN, bit for bit the same blocks; with the
+    # repaired one both run to a real stop, whose last blocks' gains, near
+    # epsilon, the card's and the CPU's roundings may take across it a few
+    # blocks apart: the logL must agree, and both stop converged
     solved = {}
-    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
-        sp = shard_problem(b.problem, b.R, make_mesh(device=d),
-                           dtype=np.float64, eumaps_per_sample=b.E,
-                           denom_per_sample=b.denom)
-        solve_sharded(sp, epsilon=cfg.epsilon, block_iters=N_ITERS)
-        t0 = time.perf_counter()
-        theta, ll, it = solve_sharded(sp, epsilon=cfg.epsilon,
-                                      block_iters=N_ITERS)
-        solved[where] = (theta, ll, it, time.perf_counter() - t0, sp)
-    theta_c, ll_c, it_c, _, _ = solved["cpu"]
-    _, ll_g, it_g, wall_g, sp = solved["card"]
+    for gain in ("jax", "repaired"):
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            sp = shard_problem(b.problem, b.R, make_mesh(device=d),
+                               dtype=np.float64, eumaps_per_sample=b.E,
+                               denom_per_sample=b.denom,
+                               skip_unread=gain == "repaired")
+            solve_sharded(sp, epsilon=cfg.epsilon, block_iters=N_ITERS)
+            t0 = time.perf_counter()
+            theta, ll, it = solve_sharded(sp, epsilon=cfg.epsilon,
+                                          block_iters=N_ITERS)
+            solved[gain, where] = (theta, ll, it, time.perf_counter() - t0,
+                                   sp, loop.LAST.stop)
+        _, ll_c, it_c, _, _, stop_c = solved[gain, "cpu"]
+        _, ll_g, it_g, wall_g, _, stop_g = solved[gain, "card"]
+        log(f"batched solve ({MS_SAMPLES} x {b.R.shape[1]} segments, "
+            f"{len(b.problem.edge_cid)} edges, {b.problem.n_transcripts} "
+            f"transcripts, f64, {gain} gain): card {it_g} blocks after the "
+            f"first, stop {stop_g}, logL {ll_g!r}, {wall_g * 1e3:.1f} ms, "
+            f"{wall_g * 1e3 / (it_g + 1):.3f} ms per block; CPU {it_c} "
+            f"blocks, stop {stop_c}, logL {ll_c!r}")
+        if abs(ll_g - ll_c) > 1e-9 * abs(ll_c) or (
+                gain == "jax" and it_g != it_c) or (
+                gain == "repaired" and not stop_g == stop_c == "converged"):
+            raise AssertionError(f"the batched solve on the card disagrees "
+                                 f"with the CPU ({gain} gain)")
+    # the CLI's runs took the default gain
+    theta_c = solved[cfg.solver_gain, "cpu"][0]
+    _, _, it_g, wall_g, sp, _ = solved[cfg.solver_gain, "card"]
     ms_per_block = wall_g * 1e3 / (it_g + 1)
-    log(f"batched solve ({MS_SAMPLES} x {b.R.shape[1]} segments, "
-        f"{len(b.problem.edge_cid)} edges, {b.problem.n_transcripts} "
-        f"transcripts, f64): card {it_g} blocks after the first, logL "
-        f"{ll_g!r}, {wall_g * 1e3:.1f} ms, {ms_per_block:.3f} ms per block; "
-        f"CPU {it_c} blocks, logL {ll_c!r}")
-    if it_g != it_c or abs(ll_g - ll_c) > 1e-9 * abs(ll_c):
-        raise AssertionError("the batched solve on the card disagrees with "
-                             "the CPU")
-    # why it stopped: each sample's gain over the first loop block.  One
-    # NaN ends every sample there, in both packages (one stop test over the
-    # summed gain; tests/test_torch_mesh.py::test_nan_gain_stops_the_batch
-    # _as_in_jax holds the port to emsar_tpu on such a batch)
+    # each sample's gain over the first loop block with either gain.  With
+    # the JAX package's, one NaN ends every sample there, in both packages
+    # (one stop test over the summed gain; tests/test_torch_mesh.py::
+    # test_nan_gain_stops_the_batch_as_in_jax holds the port to emsar_tpu
+    # on such a batch); the repaired gain has no NaN
     th1, s1, _ = _block(sp, sp.theta0, N_ITERS)
     s2 = _block(sp, th1, N_ITERS)[1]
-    g = gain_of(sp.reads, sp.eumaps, s1, s2).cpu().numpy()[:MS_SAMPLES]
-    nan_samples = np.flatnonzero(np.isnan(g)).tolist()
-    log(f"batched solve's first loop block: gain NaN in samples "
-        f"{nan_samples}, the other samples' gains sum to "
-        f"{float(np.nansum(g))!r} (epsilon {cfg.epsilon})")
-    if nan_samples and it_g != 1:
+    nans = {}
+    for name, skip_unread in (("jax", False), ("repaired", True)):
+        g = gain_of(sp.reads, sp.eumaps, s1, s2,
+                    skip_unread).cpu().numpy()[:MS_SAMPLES]
+        nans[name] = np.flatnonzero(np.isnan(g)).tolist()
+        log(f"batched solve's first loop block, {name} gain: NaN in "
+            f"samples {nans[name]}, the other samples' gains sum to "
+            f"{float(np.nansum(g))!r} (epsilon {cfg.epsilon})")
+    nan_samples = nans["jax"]
+    if nans["repaired"]:
+        raise AssertionError("the repaired gain was NaN")
+    if nan_samples and solved["jax", "card"][2] != 1:
         raise AssertionError("a NaN block gain did not stop the batch")
 
     failed = []
@@ -2585,7 +2692,9 @@ def phase_distribution(rsh: str, aln: str, pe_fa: str, out_root: str,
     if cli.main(flags + [out1, "s", lists[MERGE_SHARDS]]) != 0:
         raise AssertionError("--dist_merge_shards in one process failed")
     wall1 = time.perf_counter() - t0
-    same1 = fpkm(out1) == fpkm(os.path.join(out_root, "bmm"))
+    # the whole-file run of the default route: on the card the smoke's
+    # classes take the hand kernel, as the --solver_pallas run does
+    same1 = fpkm(out1) == fpkm(os.path.join(out_root, "kernel"))
     torch.cuda.empty_cache()
     out2 = os.path.join(out_root, "merge2")
     t0 = time.perf_counter()

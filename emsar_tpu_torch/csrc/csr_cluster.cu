@@ -181,14 +181,16 @@ struct Sums {
 
 // the gain term of one segment: csr_cycle.cu's gain_term
 template <typename F>
-__device__ __forceinline__ F gain_term(F reads, F eumaps, F s_old, F s_new) {
+__device__ __forceinline__ F gain_term(F reads, F eumaps, F s_old, F s_new,
+                                       bool skip_unread) {
   const bool both = s_old > F(0) && s_new > F(0);
   const F d = sub_rn(s_new, s_old);
   const F ratio = log1p_of(both ? div_rn(d, s_old) : F(0));
   const bool died = s_old > F(0) && s_new <= F(0) && reads > F(0);
   const bool born = s_old <= F(0) && s_new > F(0) && reads > F(0);
-  const F term = both ? mul_rn(reads, ratio)
-                      : mul_rn(sub_rn(F(born), F(died)), F(1e30));
+  const bool read_term = both && (!skip_unread || reads > F(0));
+  const F term = read_term ? mul_rn(reads, ratio)
+                           : mul_rn(sub_rn(F(born), F(died)), F(1e30));
   return sub_rn(term, mul_rn(eumaps, d));
 }
 
@@ -446,6 +448,7 @@ struct ExtrapGainArgs {
   F* terms;   // [R, C]
   F* s_t2;    // [R, C], or null: the intensities of t2 and of cand
   F* s_cand;  // [R, C]
+  int skip_unread;  // gain_term's: the read term left out where reads == 0
 };
 
 template <typename F, int CL>
@@ -533,7 +536,8 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(kThreads, 1)
         [&] { sync_all<CL>(cluster); },
         [&](int i, const Sums<F, 2>& s) {
           const long long o = r * a.C + by_cid.orig[i];
-          a.terms[o] = gain_term(rd[i], eu[i], s.s[0], s.s[1]);
+          a.terms[o] = gain_term(rd[i], eu[i], s.s[0], s.s[1],
+                                 a.skip_unread != 0);
           if (a.s_t2 != nullptr) {
             a.s_t2[o] = s.s[0];
             a.s_cand[o] = s.s[1];
@@ -679,7 +683,7 @@ int extrap_gain(const void* theta, const void* t1, const void* t2,
                 void* s_cand, long long R, long long C, long long T,
                 long long n_tiles, long long rows, long long smem,
                 long long reads_stride, long long inv_stride, int cluster,
-                void* stream) {
+                int skip_unread, void* stream) {
   if (R <= 0) return 0;
   const long long n = clusters_of(R, n_tiles, rows, cluster, smem);
   if (n < 0 || (s_t2 == nullptr) != (s_cand == nullptr))
@@ -704,7 +708,8 @@ int extrap_gain(const void* theta, const void* t1, const void* t2,
                             static_cast<F*>(cand),
                             static_cast<F*>(terms),
                             static_cast<F*>(s_t2),
-                            static_cast<F*>(s_cand)};
+                            static_cast<F*>(s_cand),
+                            skip_unread};
   return launch_at<F, ExtrapGainLaunch>(a, n, cluster,
                                         static_cast<int>(smem), stream);
 }
@@ -786,11 +791,11 @@ extern "C" int emsar_cluster_extrap_gain_f32(
     void* terms, void* s_t2, void* s_cand, long long R, long long C,
     long long T, long long n_tiles, long long rows, long long smem,
     long long reads_stride, long long inv_stride, int cluster,
-    void* stream) {
+    int skip_unread, void* stream) {
   return extrap_gain<float>(theta, t1, t2, rsum, vsum, tiles, layout, reads,
                             eumaps, inv_denom, cand, terms, s_t2, s_cand, R,
                             C, T, n_tiles, rows, smem, reads_stride,
-                            inv_stride, cluster, stream);
+                            inv_stride, cluster, skip_unread, stream);
 }
 
 extern "C" int emsar_cluster_extrap_gain_f64(
@@ -800,11 +805,12 @@ extern "C" int emsar_cluster_extrap_gain_f64(
     void* terms, void* s_t2, void* s_cand, long long R, long long C,
     long long T, long long n_tiles, long long rows, long long smem,
     long long reads_stride, long long inv_stride, int cluster,
-    void* stream) {
+    int skip_unread, void* stream) {
   return extrap_gain<double>(theta, t1, t2, rsum, vsum, tiles, layout,
                              reads, eumaps, inv_denom, cand, terms, s_t2,
                              s_cand, R, C, T, n_tiles, rows, smem,
-                             reads_stride, inv_stride, cluster, stream);
+                             reads_stride, inv_stride, cluster, skip_unread,
+                             stream);
 }
 
 // the clusters of `cluster` blocks of kernel `which` (0 em_pair, 1

@@ -11,6 +11,8 @@
 //       term = both > 0 ? reads * log1p((s_new - s_old) / s_old)
 //                       : (born - died) * 1e30
 //       out  = term - eumaps * (s_new - s_old)
+//     (with skip_unread, a segment without reads takes the second branch,
+//     which is 0 there: no read term, so no NaN);
 //     and, in a block's last cycle, both intensities written out;
 //   block_end: from the last cycle's gain [R] (the row sum of its terms),
 //     cand, t2 and their intensities: theta = gain[r] >= 0 ? cand : t2 (the
@@ -42,7 +44,8 @@
 // makes both, died and born false, and a NaN gain takes t2;
 // clamp(alpha, max=-1) keeps a NaN alpha as torch.clamp does; a read-less
 // segment whose ratio rounds to -1 gives reads * log1p(-1) = 0 * -inf =
-// NaN, as torch does (the NaN block gain that stops a solve).  log1p is
+// NaN, as torch does (the NaN block gain that stops a solve), unless
+// skip_unread leaves that read term out.  log1p is
 // CUDA's, the function torch's own CUDA kernel calls.  The intensities
 // fold the products of a segment in edge order from 0, as
 // csrc/segment_sum.cu does: the bits of sum_groups.  So block_end's
@@ -188,15 +191,19 @@ constexpr int kVecs = 2;
 constexpr long long kSelectEarlyBytes = EMSAR_SELECT_EARLY_BYTES;
 
 // the gain term of one segment (gain_of's, before the sum over segments)
+// (skip_unread: the read term left out where reads == 0, taking the
+// born/died branch, which is 0 there: kernels/csr_cycle.py::gain_terms)
 template <typename F>
-__device__ __forceinline__ F gain_term(F reads, F eumaps, F s_old, F s_new) {
+__device__ __forceinline__ F gain_term(F reads, F eumaps, F s_old, F s_new,
+                                       bool skip_unread) {
   const bool both = s_old > F(0) && s_new > F(0);
   const F d = sub_rn(s_new, s_old);
   const F ratio = log1p_of(both ? div_rn(d, s_old) : F(0));
   const bool died = s_old > F(0) && s_new <= F(0) && reads > F(0);
   const bool born = s_old <= F(0) && s_new > F(0) && reads > F(0);
-  const F term = both ? mul_rn(reads, ratio)
-                      : mul_rn(sub_rn(F(born), F(died)), F(1e30));
+  const bool read_term = both && (!skip_unread || reads > F(0));
+  const F term = read_term ? mul_rn(reads, ratio)
+                           : mul_rn(sub_rn(F(born), F(died)), F(1e30));
   return sub_rn(term, mul_rn(eumaps, d));
 }
 
@@ -280,7 +287,7 @@ __global__ void __launch_bounds__(kTileThreads)
                      const F* __restrict__ eumaps, F* __restrict__ s_old_out,
                      F* __restrict__ s_new_out, F* __restrict__ out,
                      long long G, long long N, long long a_stride,
-                     long long n_tiles) {
+                     long long n_tiles, int skip_unread) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using L = TileSmem<F>;
   const long long r = blockIdx.x / n_tiles;
@@ -361,7 +368,7 @@ __global__ void __launch_bounds__(kTileThreads)
       s_old_out[o] = acc_old;
       s_new_out[o] = acc_new;
     }
-    out[o] = gain_term(rd[i], eu[i], acc_old, acc_new);
+    out[o] = gain_term(rd[i], eu[i], acc_old, acc_new, skip_unread != 0);
   }
 }
 
@@ -377,7 +384,7 @@ __global__ void __launch_bounds__(kThreads)
                      const F* __restrict__ eumaps, F* __restrict__ theta,
                      F* __restrict__ s_out, F* __restrict__ terms,
                      long long R, long long C, long long T,
-                     long long a_stride) {
+                     long long a_stride, int skip_unread) {
   const long long W = C > T ? C : T;
   const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
   if (i >= R * W) return;
@@ -395,7 +402,7 @@ __global__ void __launch_bounds__(kThreads)
     if (s_prev != nullptr) {
       const long long a = r * a_stride + k;
       terms[o] = gain_term(__ldg(reads + a), __ldg(eumaps + a),
-                           __ldg(s_prev + o), s);
+                           __ldg(s_prev + o), s, skip_unread != 0);
     }
   }
 }
@@ -600,7 +607,7 @@ int launch_pair(const void* x_old, const void* x_new, const void* w,
                 const void* reads, const void* eumaps, void* s_old_out,
                 void* s_new_out, void* out, long long R, long long G,
                 long long N, long long a_stride, long long n_tiles, int tile,
-                void* stream) {
+                int skip_unread, void* stream) {
   if (R * G <= 0) return 0;
   const long long blocks = R * n_tiles;
   if (n_tiles <= 0 || tile < 1 || tile > kTile || blocks > 0x7fffffffLL ||
@@ -615,7 +622,7 @@ int launch_pair(const void* x_old, const void* x_new, const void* w,
       static_cast<const int64_t*>(tiles), static_cast<const F*>(reads),
       static_cast<const F*>(eumaps), static_cast<F*>(s_old_out),
       static_cast<F*>(s_new_out), static_cast<F*>(out), G, N, a_stride,
-      n_tiles);
+      n_tiles, skip_unread);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -625,7 +632,7 @@ int launch_block_end(const void* gain, const void* cand, const void* t2,
                      const void* s_prev, const void* reads,
                      const void* eumaps, void* theta, void* s_out,
                      void* terms, long long R, long long C, long long T,
-                     long long a_stride, void* stream) {
+                     long long a_stride, int skip_unread, void* stream) {
   const long long blocks = blocks_for(R * (C > T ? C : T));
   if (blocks <= 0) return 0;
   if (blocks > 0x7fffffffLL || (s_prev != nullptr) != (terms != nullptr))
@@ -637,7 +644,7 @@ int launch_block_end(const void* gain, const void* cand, const void* t2,
       static_cast<const F*>(s_cand), static_cast<const F*>(s_prev),
       static_cast<const F*>(reads), static_cast<const F*>(eumaps),
       static_cast<F*>(theta), static_cast<F*>(s_out), static_cast<F*>(terms),
-      R, C, T, a_stride);
+      R, C, T, a_stride, skip_unread);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -731,10 +738,10 @@ extern "C" int emsar_pair_gain_f32(const void* x_old, const void* x_new,
                                    void* out, long long R, long long G,
                                    long long N, long long a_stride,
                                    long long n_tiles, int tile,
-                                   void* stream) {
+                                   int skip_unread, void* stream) {
   return launch_pair<float>(x_old, x_new, w, idx, offsets, tiles, reads,
                             eumaps, s_old_out, s_new_out, out, R, G, N,
-                            a_stride, n_tiles, tile, stream);
+                            a_stride, n_tiles, tile, skip_unread, stream);
 }
 
 extern "C" int emsar_pair_gain_f64(const void* x_old, const void* x_new,
@@ -745,10 +752,10 @@ extern "C" int emsar_pair_gain_f64(const void* x_old, const void* x_new,
                                    void* out, long long R, long long G,
                                    long long N, long long a_stride,
                                    long long n_tiles, int tile,
-                                   void* stream) {
+                                   int skip_unread, void* stream) {
   return launch_pair<double>(x_old, x_new, w, idx, offsets, tiles, reads,
                              eumaps, s_old_out, s_new_out, out, R, G, N,
-                             a_stride, n_tiles, tile, stream);
+                             a_stride, n_tiles, tile, skip_unread, stream);
 }
 
 // block_end: s_prev and terms both null (no gain terms) or both given
@@ -758,10 +765,11 @@ extern "C" int emsar_block_end_f32(const void* gain, const void* cand,
                                    const void* reads, const void* eumaps,
                                    void* theta, void* s_out, void* terms,
                                    long long R, long long C, long long T,
-                                   long long a_stride, void* stream) {
+                                   long long a_stride, int skip_unread,
+                                   void* stream) {
   return launch_block_end<float>(gain, cand, t2, s_t2, s_cand, s_prev, reads,
                                  eumaps, theta, s_out, terms, R, C, T,
-                                 a_stride, stream);
+                                 a_stride, skip_unread, stream);
 }
 
 extern "C" int emsar_block_end_f64(const void* gain, const void* cand,
@@ -770,10 +778,11 @@ extern "C" int emsar_block_end_f64(const void* gain, const void* cand,
                                    const void* reads, const void* eumaps,
                                    void* theta, void* s_out, void* terms,
                                    long long R, long long C, long long T,
-                                   long long a_stride, void* stream) {
+                                   long long a_stride, int skip_unread,
+                                   void* stream) {
   return launch_block_end<double>(gain, cand, t2, s_t2, s_cand, s_prev,
                                   reads, eumaps, theta, s_out, terms, R, C,
-                                  T, a_stride, stream);
+                                  T, a_stride, skip_unread, stream);
 }
 
 extern "C" int emsar_cycle_extrap_f32(const void* theta, const void* t1,

@@ -53,13 +53,19 @@ void em_step(const Problem& p, const double* theta, double* s,
 }
 
 // logL(s_new) - logL(s_old) from intensity deltas (termwise; resolves
-// tiny gains that differencing two O(1e6) log-likelihoods cannot)
-double gain(const Problem& p, const double* s_old, const double* s_new) {
+// tiny gains that differencing two O(1e6) log-likelihoods cannot).  With
+// skip_unread the read term of a segment without reads is left out (it is
+// 0): the JAX package's library computes it, and a read-less segment whose
+// ratio rounds to -1 then adds 0 * log1p(-1) = NaN.
+double gain(const Problem& p, const double* s_old, const double* s_new,
+            bool skip_unread) {
     double acc = 0.0;
     for (int64_t c = 0; c < p.n_seg; c++) {
         double so = s_old[c], sn = s_new[c];
         double term;
-        if (so > 0 && sn > 0) {
+        if (skip_unread && !(p.reads[c] > 0)) {
+            term = 0.0;
+        } else if (so > 0 && sn > 0) {
             term = p.reads[c] * std::log1p((sn - so) / so);
         } else if (so > 0 && sn <= 0 && p.reads[c] > 0) {
             term = -1e30;  // read-bearing intensity collapse: -inf
@@ -79,7 +85,7 @@ extern "C" int64_t emsar_polish_squarem(
     const int32_t* e_cid, const int32_t* e_tid, const double* mult,
     int64_t n_edges, const double* eumaps, const double* reads,
     int64_t n_seg, const double* inv_denom, int64_t ntid, double* theta,
-    double epsilon, int64_t max_cycles) {
+    double epsilon, int64_t max_cycles, int skip_unread) {
     Problem p{e_cid, e_tid, mult, n_edges, eumaps, reads, n_seg,
               inv_denom, ntid};
     std::vector<double> s_prev(n_seg), s_a(n_seg), s_b(n_seg);
@@ -119,14 +125,14 @@ extern "C" int64_t emsar_polish_squarem(
         intensities(e_cid, e_tid, mult, n_edges, n_seg, cand.data(),
                     s_b.data());
         const double* s_new;
-        if (gain(p, s_a.data(), s_b.data()) >= 0) {
+        if (gain(p, s_a.data(), s_b.data(), skip_unread != 0) >= 0) {
             std::copy(cand.begin(), cand.end(), theta);
             s_new = s_b.data();
         } else {
             std::copy(t2.begin(), t2.end(), theta);
             s_new = s_a.data();
         }
-        if (gain(p, s_prev.data(), s_new) < epsilon) {
+        if (gain(p, s_prev.data(), s_new, skip_unread != 0) < epsilon) {
             cycle++;
             break;
         }

@@ -85,15 +85,19 @@ __device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
 __device__ __forceinline__ float log1p_(float x) { return log1pf(x); }
 __device__ __forceinline__ double log1p_(double x) { return log1p(x); }
 
-// One cycle's accept-test term of a segment row.
+// One cycle's accept-test term of a segment row.  skip_unread leaves the
+// read term out of a row without reads (0 there; kernel5's, kept by
+// default, is 0 * log1p(-1) = NaN where such a row's intensity collapses).
 template <typename F>
-__device__ __forceinline__ F gain_term(F lam2, F lamc, F r, F e) {
+__device__ __forceinline__ F gain_term(F lam2, F lamc, F r, F e,
+                                       bool skip_unread) {
   const bool both = lam2 > F(0) && lamc > F(0);
   const bool died = lam2 > F(0) && lamc <= F(0) && r > F(0);
   const bool born = lam2 <= F(0) && lamc > F(0) && r > F(0);
   const F ratio_c = log1p_(both ? (lamc - lam2) / lam2 : F(0));
-  const F term = both ? r * ratio_c
-                      : (died ? F(-1e30) : (born ? F(1e30) : F(0)));
+  const bool read_term = both && (!skip_unread || r > F(0));
+  const F term = read_term ? r * ratio_c
+                           : (died ? F(-1e30) : (born ? F(1e30) : F(0)));
   return term - e * (lamc - lam2);
 }
 
@@ -155,7 +159,7 @@ squarem_warp_kernel(const F* __restrict__ m, const F* __restrict__ eumaps,
                     const F* __restrict__ reads,
                     const F* __restrict__ inv_denom,
                     const F* __restrict__ theta_in, F* __restrict__ theta_out,
-                    long long B, int n_iters, int vec) {
+                    long long B, int n_iters, int vec, int skip_unread) {
   constexpr int C = 32 * RPL;
   static_assert(C * T * sizeof(F) % 16 == 0 && 32 % T == 0, "warp class");
   __shared__ __align__(16) F Ms[kWarpsPerBlock][C * T];
@@ -214,7 +218,8 @@ squarem_warp_kernel(const F* __restrict__ m, const F* __restrict__ eumaps,
     F gain = F(0);
 #pragma unroll
     for (int k = 0; k < RPL; ++k)
-      gain += warp_sum(gain_term(lam2[k], lamc[k], rr[k], ee[k]));
+      gain += warp_sum(
+          gain_term(lam2[k], lamc[k], rr[k], ee[k], skip_unread != 0));
     th = gain >= F(0) ? cand : t2;
   }
   if (lane < T) theta_out[b * T + lane] = th;
@@ -266,7 +271,7 @@ squarem_block_kernel(const F* __restrict__ m, const F* __restrict__ eumaps,
                      const F* __restrict__ reads,
                      const F* __restrict__ inv_denom,
                      const F* __restrict__ theta_in, F* __restrict__ theta_out,
-                     int C, int T, int n_iters) {
+                     int C, int T, int n_iters, int skip_unread) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   F* th = reinterpret_cast<F*>(smem_raw);
   F* t1 = th + T;
@@ -328,7 +333,7 @@ squarem_block_kernel(const F* __restrict__ m, const F* __restrict__ eumaps,
         lam2 += row[t] * t2[t];
         lamc += row[t] * cand[t];
       }
-      g[0] += gain_term(lam2, lamc, rr[c], ee[c]);
+      g[0] += gain_term(lam2, lamc, rr[c], ee[c], skip_unread != 0);
     }
     block_sums(g, red);
     const bool accept = g[0] >= F(0);
@@ -344,7 +349,8 @@ squarem_block_kernel(const F* __restrict__ m, const F* __restrict__ eumaps,
 template <typename F>
 int launch(const void* m_, const void* eumaps_, const void* reads_,
            const void* inv_denom_, const void* theta_in_, void* theta_out_,
-           long long B, int C, int T, int n_iters, void* stream_) {
+           long long B, int C, int T, int n_iters, int skip_unread,
+           void* stream_) {
   if (B <= 0) return 0;
   const F* m = static_cast<const F*>(m_);
   const F* eumaps = static_cast<const F*>(eumaps_);
@@ -360,12 +366,12 @@ int launch(const void* m_, const void* eumaps_, const void* reads_,
     squarem_warp_kernel<F, 1, 8><<<warp_blocks, kWarpsPerBlock * 32, 0,
                                    stream>>>(m, eumaps, reads, inv_denom,
                                              theta_in, theta_out, B, n_iters,
-                                             vec);
+                                             vec, skip_unread);
   } else if (C == 64 && T == 16) {
     squarem_warp_kernel<F, 2, 16><<<warp_blocks, kWarpsPerBlock * 32, 0,
                                     stream>>>(m, eumaps, reads, inv_denom,
                                               theta_in, theta_out, B,
-                                              n_iters, vec);
+                                              n_iters, vec, skip_unread);
   } else {
     // one thread per row or column, at most 256; M staged when it fits
     int threads = ((C > T ? C : T) + 31) / 32 * 32;
@@ -376,12 +382,12 @@ int launch(const void* m_, const void* eumaps_, const void* reads_,
       squarem_block_kernel<F, true><<<(unsigned int)B, threads, staged,
                                       stream>>>(m, eumaps, reads, inv_denom,
                                                 theta_in, theta_out, C, T,
-                                                n_iters);
+                                                n_iters, skip_unread);
     } else {
       squarem_block_kernel<F, false><<<(unsigned int)B, threads, base,
                                        stream>>>(m, eumaps, reads, inv_denom,
                                                  theta_in, theta_out, C, T,
-                                                 n_iters);
+                                                 n_iters, skip_unread);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -394,9 +400,10 @@ extern "C" int emsar_squarem_block_f32(const void* m, const void* eumaps,
                                        const void* inv_denom,
                                        const void* theta_in, void* theta_out,
                                        long long B, int C, int T,
-                                       int n_iters, void* stream) {
+                                       int n_iters, int skip_unread,
+                                       void* stream) {
   return launch<float>(m, eumaps, reads, inv_denom, theta_in, theta_out, B,
-                       C, T, n_iters, stream);
+                       C, T, n_iters, skip_unread, stream);
 }
 
 extern "C" int emsar_squarem_block_f64(const void* m, const void* eumaps,
@@ -404,7 +411,8 @@ extern "C" int emsar_squarem_block_f64(const void* m, const void* eumaps,
                                        const void* inv_denom,
                                        const void* theta_in, void* theta_out,
                                        long long B, int C, int T,
-                                       int n_iters, void* stream) {
+                                       int n_iters, int skip_unread,
+                                       void* stream) {
   return launch<double>(m, eumaps, reads, inv_denom, theta_in, theta_out, B,
-                        C, T, n_iters, stream);
+                        C, T, n_iters, skip_unread, stream);
 }

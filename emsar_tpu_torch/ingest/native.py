@@ -108,7 +108,7 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.emsar_polish_squarem.argtypes = [
             _i32p, _i32p, _f64p, ctypes.c_int64, _f64p, _f64p,
             ctypes.c_int64, _f64p, ctypes.c_int64, _f64p, ctypes.c_double,
-            ctypes.c_int64]
+            ctypes.c_int64, ctypes.c_int]
         _LIB = lib
         return _LIB
 
@@ -141,10 +141,14 @@ def group_rows(h1: np.ndarray, h2: np.ndarray,
 def polish_squarem(e_cid: np.ndarray, e_tid: np.ndarray, mult: np.ndarray,
                    eumaps: np.ndarray, reads: np.ndarray,
                    inv_denom: np.ndarray, theta: np.ndarray,
-                   epsilon: float, max_cycles: int) -> int:
+                   epsilon: float, max_cycles: int,
+                   skip_unread: bool = False) -> int:
     """In-place float64 SQUAREM polish (csrc/solver.cc); returns the
-    number of cycles run.  Raises RuntimeError when the native library is
-    unavailable (callers fall back to the NumPy implementation)."""
+    number of cycles run.  ``skip_unread`` leaves the read term of a
+    segment without reads out of the gain (the JAX package's library
+    keeps it: see ``kernels.csr_cycle.gain_terms``).  Raises RuntimeError
+    when the native library is unavailable (callers fall back to the NumPy
+    implementation)."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native polish unavailable")
@@ -157,7 +161,8 @@ def polish_squarem(e_cid: np.ndarray, e_tid: np.ndarray, mult: np.ndarray,
     assert theta.dtype == np.float64 and theta.flags.c_contiguous
     return int(lib.emsar_polish_squarem(
         e_cid, e_tid, mult, len(e_cid), eumaps, reads, len(eumaps),
-        inv_denom, len(inv_denom), theta, float(epsilon), int(max_cycles)))
+        inv_denom, len(inv_denom), theta, float(epsilon), int(max_cycles),
+        int(bool(skip_unread))))
 
 
 def available() -> bool:

@@ -52,28 +52,31 @@ def random_modules(rng: np.random.Generator, B: int, C: int, T: int,
     return m, e, r, inv.astype(dtype), theta0.astype(dtype)
 
 
-def accept_margin_ref(m, eumaps, reads, inv_denom, theta, n_iters: int
-                      ) -> torch.Tensor:
+def accept_margin_ref(m, eumaps, reads, inv_denom, theta, n_iters: int,
+                      skip_unread: bool = False) -> torch.Tensor:
     """Per module, the smallest |gain| / gain_scale over the accept tests
-    of ``n_iters`` plain-version cycles from ``theta``."""
+    of ``n_iters`` plain-version cycles from ``theta`` (``skip_unread``:
+    the gain's form, ``squarem_cycle_ref``'s)."""
     margin = torch.full((theta.shape[0],), float("inf"), dtype=theta.dtype,
                         device=theta.device)
     for _ in range(n_iters):
         theta, gain, scale = squarem_cycle_ref(m, eumaps, reads, inv_denom,
-                                               theta)
+                                               theta, skip_unread)
         rel = gain.abs() / torch.where(scale > 0, scale, 1.0)
         margin = torch.minimum(margin, torch.where(scale > 0, rel, margin))
     return margin
 
 
 def block_agreement(got: torch.Tensor, want: torch.Tensor, m, eumaps,
-                    reads, inv_denom, theta0, n_iters: int
-                    ) -> Tuple[float, float, int]:
+                    reads, inv_denom, theta0, n_iters: int,
+                    skip_unread: bool = False) -> Tuple[float, float, int]:
     """Agreement of two ``n_iters``-cycle results from ``theta0`` (``want``
-    the plain version's) over the modules away from the accept boundary:
-    (largest per-module max|got - want| / max|want|, largest |got - want|,
-    number of such modules)."""
-    margin = accept_margin_ref(m, eumaps, reads, inv_denom, theta0, n_iters)
+    the plain version's, both with the gain ``skip_unread`` selects) over
+    the modules away from the accept boundary: (largest per-module
+    max|got - want| / max|want|, largest |got - want|, number of such
+    modules)."""
+    margin = accept_margin_ref(m, eumaps, reads, inv_denom, theta0, n_iters,
+                               skip_unread)
     decisive = margin > ACCEPT_MARGIN[theta0.dtype]
     if not decisive.any():
         return 0.0, 0.0, 0

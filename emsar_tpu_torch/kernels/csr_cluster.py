@@ -110,9 +110,10 @@ EM_PAIR_ARGTYPES = [_P] * 4 + [_PP, _PI] + [_P] * 7 + [_LL] * 7 + [
     _INT, _P]
 # emsar_cluster_extrap_gain_f32/f64(theta, t1, t2, rsum, vsum, tiles[4],
 # layout[7], reads, eumaps, inv_denom, cand, terms, s_t2, s_cand, R, C, T,
-# n_tiles, rows, smem, reads_stride, inv_stride, cluster, stream)
+# n_tiles, rows, smem, reads_stride, inv_stride, cluster, skip_unread,
+# stream)
 EXTRAP_GAIN_ARGTYPES = [_P] * 5 + [_PP, _PI] + [_P] * 7 + [_LL] * 8 + [
-    _INT, _P]
+    _INT, _INT, _P]
 
 Source = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
@@ -505,14 +506,14 @@ def extrap_gain_ref(theta: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
                     r_sq_sum: torch.Tensor, v_sq_sum: torch.Tensor,
                     by_cid: EdgeGroups, by_tid: EdgeGroups,
                     reads: torch.Tensor, eumaps: torch.Tensor,
-                    inv_denom: torch.Tensor, *, intensities: bool = False
-                    ) -> Tuple[torch.Tensor, ...]:
+                    inv_denom: torch.Tensor, *, intensities: bool = False,
+                    skip_unread: bool = False) -> Tuple[torch.Tensor, ...]:
     """Plain version of ``extrap_gain``: (cand, the gain terms), and with
     ``intensities`` t2's and cand's intensities too."""
     x = cycle_extrap_ref(theta, t1, t2, r_sq_sum, v_sq_sum)
     cand = em_step_ref(x, by_cid, by_tid, reads, inv_denom)
     gain = pair_gain_ref(by_cid, reads, eumaps, t2, cand,
-                         intensities=intensities)
+                         intensities=intensities, skip_unread=skip_unread)
     return (cand, *gain) if intensities else (cand, gain)
 
 
@@ -669,11 +670,12 @@ def em_pair(src: Source, plan: TilePlan, reads: torch.Tensor,
 def extrap_gain(theta: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
                 r_sq_sum: torch.Tensor, v_sq_sum: torch.Tensor,
                 plan: TilePlan, reads: torch.Tensor, eumaps: torch.Tensor,
-                inv_denom: torch.Tensor, *, intensities: bool = False
-                ) -> Tuple[torch.Tensor, ...]:
+                inv_denom: torch.Tensor, *, intensities: bool = False,
+                skip_unread: bool = False) -> Tuple[torch.Tensor, ...]:
     """(cand [R, T], gain terms [R, C]) of one cycle: cand one EM step from
     the extrapolation of theta, t1, t2 by the row sums [R, 1] of r * r and
-    v * v, the terms those of cand's intensities over t2's; with
+    v * v, the terms those of cand's intensities over t2's (``skip_unread``:
+    ``csr_cycle.gain_terms``'); with
     ``intensities`` (a block's last cycle) also those of t2 and of cand
     [R, C], which the last pass sums anyway.  reads and eumaps [C] or
     [R, C], inv_denom [T] or [R, T].  One launch on the card, ceil(R /
@@ -682,7 +684,8 @@ def extrap_gain(theta: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
     if theta.device.type == "cpu":
         return extrap_gain_ref(theta, t1, t2, r_sq_sum, v_sq_sum,
                                plan.by_cid, plan.by_tid, reads, eumaps,
-                               inv_denom, intensities=intensities)
+                               inv_denom, intensities=intensities,
+                               skip_unread=skip_unread)
     what = "cluster_extrap_gain"
     _check(theta, what, plan, theta=theta, t1=t1, t2=t2, r_sq_sum=r_sq_sum,
            v_sq_sum=v_sq_sum, reads=reads, eumaps=eumaps,
@@ -709,7 +712,7 @@ def extrap_gain(theta: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
         eumaps.data_ptr(), inv_denom.data_ptr(), cand.data_ptr(),
         terms.data_ptr(), *(None if t is None else t.data_ptr()
                             for t in s_pair), R, C, T, plan.n_tiles,
-        plan.rows, plan.smem, rs, inv_s, plan.cluster,
+        plan.rows, plan.smem, rs, inv_s, plan.cluster, int(skip_unread),
         torch.cuda.current_stream(theta.device).cuda_stream)
     _raise_on(rc, what)
     EXTRAP_GAIN_LAUNCHES += 1

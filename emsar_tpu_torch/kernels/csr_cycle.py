@@ -78,13 +78,13 @@ EXTRAP_LAUNCHES = 0
 SELECT_LAUNCHES = 0
 # emsar_pair_gain_f32/f64(x_old, x_new, w, idx, offsets, tiles, reads,
 # eumaps, s_old_out, s_new_out, out, R, G, N, a_stride, n_tiles, tile,
-# stream)
+# skip_unread, stream)
 PAIR_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 5 + [
-    ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # emsar_block_end_f32/f64(gain, cand, t2, s_t2, s_cand, s_prev, reads,
-# eumaps, theta, s_out, terms, R, C, T, a_stride, stream)
+# eumaps, theta, s_out, terms, R, C, T, a_stride, skip_unread, stream)
 BLOCK_END_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 4 + [
-    ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_void_p]
 # emsar_cycle_extrap_f32/f64(theta, t1, t2, rsum, vsum, out, R, T, stream)
 EXTRAP_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [
     ctypes.c_void_p]
@@ -94,38 +94,47 @@ SELECT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [
 
 
 def gain_terms(reads: torch.Tensor, eumaps: torch.Tensor,
-               s_old: torch.Tensor, s_new: torch.Tensor) -> torch.Tensor:
+               s_old: torch.Tensor, s_new: torch.Tensor,
+               skip_unread: bool = False) -> torch.Tensor:
     """Per segment, logL(s_new) - logL(s_old), termwise from the intensity
     deltas (resolves tiny gains even in float32).  A read-bearing segment
     whose intensity collapses to 0 is a likelihood collapse (-1e30), the
-    reverse +1e30."""
+    reverse +1e30.
+
+    As in the JAX package, a segment without reads whose intensity falls
+    by a factor the ratio rounds to -1 gives reads * log1p(-1) = 0 * -inf
+    = NaN, and a NaN gain stops a solve.  ``skip_unread`` leaves the read
+    term out where reads == 0 (it is 0 there), so such a segment adds only
+    -eumaps * (s_new - s_old) and the gain stays finite."""
     both = (s_old > 0) & (s_new > 0)
     safe_old = torch.where(both, s_old, 1.0)
     ratio = torch.log1p(torch.where(both, (s_new - s_old) / safe_old, 0.0))
     died = (s_old > 0) & (s_new <= 0) & (reads > 0)
     born = (s_old <= 0) & (s_new > 0) & (reads > 0)
-    # died and born exclude each other: the nested where of the JAX code
-    term = torch.where(both, reads * ratio,
+    # died and born exclude each other: the nested where of the JAX code;
+    # a skipped read term takes that branch, (0 - 0) * 1e30 = 0
+    read_term = both & (reads > 0) if skip_unread else both
+    term = torch.where(read_term, reads * ratio,
                        (born.to(s_new.dtype) - died.to(s_new.dtype)) * 1e30)
     return term - eumaps * (s_new - s_old)
 
 
 def pair_gain_ref(g: EdgeGroups, reads: torch.Tensor, eumaps: torch.Tensor,
                   x_old: torch.Tensor, x_new: torch.Tensor, *,
-                  intensities: bool = False):
+                  intensities: bool = False, skip_unread: bool = False):
     """Plain version of ``pair_gain``: the gain terms [R, C] of x_new's
     intensities over x_old's, and with ``intensities`` (terms, x_old's
     intensities, x_new's)."""
     s_old = segment_sum_ref(x_old, g.mult, g.idx, g.offsets)
     s_new = segment_sum_ref(x_new, g.mult, g.idx, g.offsets)
-    terms = gain_terms(reads, eumaps, s_old, s_new)
+    terms = gain_terms(reads, eumaps, s_old, s_new, skip_unread)
     return (terms, s_old, s_new) if intensities else terms
 
 
 def block_end_ref(gain: torch.Tensor, cand: torch.Tensor, t2: torch.Tensor,
                   s_t2: torch.Tensor, s_cand: torch.Tensor,
                   s_prev: Optional[torch.Tensor], reads: torch.Tensor,
-                  eumaps: torch.Tensor
+                  eumaps: torch.Tensor, skip_unread: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor,
                              Optional[torch.Tensor]]:
     """Plain version of ``block_end``: (theta, its intensities, their gain
@@ -134,7 +143,7 @@ def block_end_ref(gain: torch.Tensor, cand: torch.Tensor, t2: torch.Tensor,
     theta = cycle_select_ref(gain, cand, t2)
     s = cycle_select_ref(gain, s_cand, s_t2)
     return theta, s, (None if s_prev is None
-                      else gain_terms(reads, eumaps, s_prev, s))
+                      else gain_terms(reads, eumaps, s_prev, s, skip_unread))
 
 
 def cycle_extrap_ref(theta: torch.Tensor, t1: torch.Tensor,
@@ -236,17 +245,18 @@ def _count(name: str) -> None:
 
 def pair_gain(g: EdgeGroups, reads: torch.Tensor, eumaps: torch.Tensor,
               x_old: torch.Tensor, x_new: torch.Tensor, *,
-              intensities: bool = False
+              intensities: bool = False, skip_unread: bool = False
               ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """The gain terms [R, C] of x_new's intensities over x_old's (both
     [R, T], their intensities the segment sums over ``g``, the edges
     grouped by cid); reads and eumaps [C] or [R, C] (one row shared by
     every row, or one each).  With ``intensities``: (terms, x_old's
-    intensities, x_new's), all [R, C].  One launch on the card, a block
-    per (row, tile of ``g.tiles``)."""
+    intensities, x_new's), all [R, C].  ``skip_unread``: ``gain_terms``'.
+    One launch on the card, a block per (row, tile of ``g.tiles``)."""
     if x_new.device.type == "cpu":
         return pair_gain_ref(g, reads, eumaps, x_old, x_new,
-                             intensities=intensities)
+                             intensities=intensities,
+                             skip_unread=skip_unread)
     what = "pair_gain"
     _on_card(x_new, what)
     R, C = x_new.shape[0], g.n_groups
@@ -263,7 +273,7 @@ def pair_gain(g: EdgeGroups, reads: torch.Tensor, eumaps: torch.Tensor,
         reads.data_ptr(), eumaps.data_ptr(),
         *(None if t is None else t.data_ptr() for t in s_pair),
         out.data_ptr(), R, C, g.n_x, a_stride, g.tiles.shape[1] - 1, TILE,
-        torch.cuda.current_stream(x_new.device).cuda_stream)
+        int(skip_unread), torch.cuda.current_stream(x_new.device).cuda_stream)
     _raise_on(rc, what)
     _count("PAIR_GAIN_LAUNCHES")
     return (out, *s_pair) if intensities else out
@@ -272,16 +282,17 @@ def pair_gain(g: EdgeGroups, reads: torch.Tensor, eumaps: torch.Tensor,
 def block_end(gain: torch.Tensor, cand: torch.Tensor, t2: torch.Tensor,
               s_t2: torch.Tensor, s_cand: torch.Tensor,
               s_prev: Optional[torch.Tensor], reads: torch.Tensor,
-              eumaps: torch.Tensor
+              eumaps: torch.Tensor, skip_unread: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """The end of a block from its last cycle's gain [R], cand and t2
     [R, T] and their intensities [R, C]: (theta = cand in the rows whose
     gain is >= 0, else t2; its intensities, picked the same way; their
     gain terms [R, C] over the intensities ``s_prev``, or None without
-    them).  reads and eumaps [C] or [R, C].  One launch on the card."""
+    them; ``skip_unread``: ``gain_terms``').  reads and eumaps [C] or
+    [R, C].  One launch on the card."""
     if cand.device.type == "cpu":
         return block_end_ref(gain, cand, t2, s_t2, s_cand, s_prev, reads,
-                             eumaps)
+                             eumaps, skip_unread)
     what = "block_end"
     _on_card(cand, what)
     R, T = cand.shape
@@ -301,7 +312,7 @@ def block_end(gain: torch.Tensor, cand: torch.Tensor, t2: torch.Tensor,
         s_cand.data_ptr(), None if s_prev is None else s_prev.data_ptr(),
         reads.data_ptr(), eumaps.data_ptr(), theta.data_ptr(), s.data_ptr(),
         None if terms is None else terms.data_ptr(), R, C, T, a_stride,
-        torch.cuda.current_stream(cand.device).cuda_stream)
+        int(skip_unread), torch.cuda.current_stream(cand.device).cuda_stream)
     _raise_on(rc, what)
     _count("BLOCK_END_LAUNCHES")
     return theta, s, terms

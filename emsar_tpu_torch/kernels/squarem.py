@@ -41,12 +41,13 @@ def _em_ref(m, reads, inv_denom, th):
 
 def squarem_cycle_ref(m: torch.Tensor, eumaps: torch.Tensor,
                       reads: torch.Tensor, inv_denom: torch.Tensor,
-                      theta: torch.Tensor
+                      theta: torch.Tensor, skip_unread: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One cycle of ``kernel5``'s body.  Returns (theta [B, T], gain [B],
     gain_scale [B]): the accept test's termwise likelihood gain and the sum
     of its terms' magnitudes, whose ratio says how far a module sat from
-    the ``gain >= 0`` boundary."""
+    the ``gain >= 0`` boundary.  ``skip_unread`` leaves the read term of
+    a row without reads out of the gain (``csr_cycle.gain_terms``)."""
     t1 = _em_ref(m, reads, inv_denom, theta)
     t2 = _em_ref(m, reads, inv_denom, t1)
     r = t1 - theta
@@ -68,7 +69,8 @@ def squarem_cycle_ref(m: torch.Tensor, eumaps: torch.Tensor,
     died = (lam2 > 0) & (lamc <= 0) & (reads > 0)
     born = (lam2 <= 0) & (lamc > 0) & (reads > 0)
     # died and born exclude each other: kernel5's nested where
-    term = torch.where(both, reads * ratio,
+    read_term = both & (reads > 0) if skip_unread else both
+    term = torch.where(read_term, reads * ratio,
                        (born.to(theta.dtype) - died.to(theta.dtype)) * 1e30)
     delta = eumaps * (lamc - lam2)
     gain = torch.sum(term - delta, dim=1)
@@ -78,10 +80,12 @@ def squarem_cycle_ref(m: torch.Tensor, eumaps: torch.Tensor,
 
 def squarem_block_ref(m: torch.Tensor, eumaps: torch.Tensor,
                       reads: torch.Tensor, inv_denom: torch.Tensor,
-                      theta: torch.Tensor, n_iters: int) -> torch.Tensor:
+                      theta: torch.Tensor, n_iters: int,
+                      skip_unread: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel: ``n_iters`` cycles."""
     for _ in range(n_iters):
-        theta, _, _ = squarem_cycle_ref(m, eumaps, reads, inv_denom, theta)
+        theta, _, _ = squarem_cycle_ref(m, eumaps, reads, inv_denom, theta,
+                                        skip_unread)
     return theta
 
 
@@ -92,7 +96,7 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
@@ -103,12 +107,15 @@ def build() -> None:
 
 def squarem_block(m: torch.Tensor, eumaps: torch.Tensor, reads: torch.Tensor,
                   inv_denom: torch.Tensor, theta: torch.Tensor,
-                  n_iters: int) -> torch.Tensor:
+                  n_iters: int, skip_unread: bool = False) -> torch.Tensor:
     """``n_iters`` SQUAREM cycles per module: m [B, C, T], eumaps/reads
-    [B, C], inv_denom/theta [B, T], float32 or float64.  Returns theta."""
+    [B, C], inv_denom/theta [B, T], float32 or float64.  Returns theta.
+    ``skip_unread``: the accept test's gain without the read term of rows
+    without reads (``squarem_cycle_ref``)."""
     global LAUNCHES
     if theta.device.type == "cpu":
-        return squarem_block_ref(m, eumaps, reads, inv_denom, theta, n_iters)
+        return squarem_block_ref(m, eumaps, reads, inv_denom, theta, n_iters,
+                                 skip_unread)
     if theta.device.type != "cuda":
         raise ValueError(f"squarem_block: unsupported device {theta.device}")
     B, C, T = m.shape
@@ -134,7 +141,7 @@ def squarem_block(m: torch.Tensor, eumaps: torch.Tensor, reads: torch.Tensor,
         return out
     stream = torch.cuda.current_stream(theta.device).cuda_stream
     rc = fn(*(x.data_ptr() for x in args), out.data_ptr(), B, C, T,
-            int(n_iters), stream)
+            int(n_iters), int(skip_unread), stream)
     if rc != 0:
         raise RuntimeError(f"squarem_block: kernel launch failed with CUDA "
                            f"error {rc}")

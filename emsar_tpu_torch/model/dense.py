@@ -35,6 +35,14 @@ from .solver import gain_of, torch_dtype
 # (max segments, max transcripts) per class; larger modules -> CSR
 SIZE_CLASSES: Tuple[Tuple[int, int], ...] = ((32, 8), (64, 16), (128, 32),
                                              (512, 128))
+# The classes whose batches take the hand kernel on a CUDA device without
+# --solver_pallas (``kernel_route``): those it runs one warp a module, M
+# and theta in registers.  On the H100 a converging solve of the smoke's
+# batches took a tenth of torch.bmm's time there in both (1,572 x 32 x 8:
+# 0.020 s against 0.205 s for 116 blocks; 441 x 64 x 16: 0.030 s against
+# 0.325 s for 199 blocks, float64); torch.bmm reads M twice for every
+# contraction of a cycle.
+KERNEL_CLASSES: Tuple[Tuple[int, int], ...] = ((32, 8), (64, 16))
 
 
 @dataclasses.dataclass
@@ -70,12 +78,15 @@ class DensePartition:
 
 @dataclasses.dataclass
 class DeviceBatch:
-    """A DenseBatch's solve inputs on a torch device."""
+    """A DenseBatch's solve inputs on a torch device, and the form of the
+    likelihood gain its solves take (``solver.gain_of``'s
+    ``skip_unread``)."""
 
     m: torch.Tensor  # [B, C, T]
     eumaps: torch.Tensor  # [B, C]
     reads: torch.Tensor  # [B, C]
     inv_denom: torch.Tensor  # [B, T]
+    skip_unread: bool = False
 
 
 def partition_modules(graph: SegmentGraph, modules: ModuleDecomposition,
@@ -206,7 +217,8 @@ def _materialize(flat_idx: torch.Tensor, dtype: torch.dtype, B: int, C: int,
 
 
 def batch_to_device(batch: DenseBatch, device: torch.device,
-                    dtype: torch.dtype) -> DeviceBatch:
+                    dtype: torch.dtype, skip_unread: bool = False
+                    ) -> DeviceBatch:
     """Move a DenseBatch to ``device``: materialize M and the inverse
     denominator sum_c m_ct E_c there (``_prep_dense`` of the JAX code)."""
     B, C, T = batch.shape
@@ -217,7 +229,8 @@ def batch_to_device(batch: DenseBatch, device: torch.device,
     denom = _mc(m, eumaps)
     pos = denom > 0
     inv_denom = torch.where(pos, 1.0 / torch.where(pos, denom, 1.0), 0.0)
-    return DeviceBatch(m=m, eumaps=eumaps, reads=reads, inv_denom=inv_denom)
+    return DeviceBatch(m=m, eumaps=eumaps, reads=reads, inv_denom=inv_denom,
+                       skip_unread=skip_unread)
 
 
 def _theta0(db: DeviceBatch) -> torch.Tensor:
@@ -243,18 +256,20 @@ def _cycle(db: DeviceBatch, th: torch.Tensor) -> torch.Tensor:
     # multiplicative EM and can freeze a suboptimal KKT point
     extrap = th - 2.0 * alpha * r + alpha * alpha * v
     cand = _em_iter_dense(m, R, inv, torch.where(extrap > 0, extrap, t2))
-    better = gain_of(R, E, _mt(m, t2), _mt(m, cand)) >= 0
+    better = gain_of(R, E, _mt(m, t2), _mt(m, cand), db.skip_unread) >= 0
     return torch.where(better[..., None], cand, t2)
 
 
 def _solve_loop(db: DeviceBatch, theta0: torch.Tensor, epsilon: float,
-                block_iters: int, max_blocks: int, *, plain: bool = False
-                ) -> Tuple[torch.Tensor, int]:
+                block_iters: int, max_blocks: int, *, kernel: bool = False,
+                plain: bool = False) -> Tuple[torch.Tensor, int]:
     """SQUAREM EM from ``theta0`` [R, B, T] with the CSR solver's
     convergence semantics (termwise likelihood gains, per-module max).  A
     round stops when its best module's block gain drops below epsilon; the
-    loop runs until every round has stopped or ``max_blocks``.  The blocks
-    run in ``loop.while_loop`` (``plain``: the flag read every block)."""
+    loop runs until every round has stopped or ``max_blocks``.  A round's
+    block is ``block_iters`` torch.bmm cycles, or with ``kernel`` one
+    ``squarem_block`` launch (M shared by the rounds).  The blocks run in
+    ``loop.while_loop`` (``plain``: the flag read every block)."""
     th = theta0.clone()
     s_prev = _mt(db.m, th)
     active = torch.ones(th.shape[0], dtype=torch.bool, device=th.device)
@@ -262,12 +277,18 @@ def _solve_loop(db: DeviceBatch, theta0: torch.Tensor, epsilon: float,
     it = torch.zeros((), dtype=torch.int64, device=th.device)
 
     def block():
-        new = th
-        for _ in range(block_iters):
-            new = _cycle(db, new)
+        if kernel:
+            new = torch.stack([squarem_block(db.m, db.eumaps, db.reads,
+                                             db.inv_denom, th[r],
+                                             block_iters, db.skip_unread)
+                               for r in range(th.shape[0])])
+        else:
+            new = th
+            for _ in range(block_iters):
+                new = _cycle(db, new)
         s_new = _mt(db.m, new)
-        gain = torch.amax(gain_of(db.reads, db.eumaps, s_prev, s_new),
-                          dim=-1)
+        gain = torch.amax(gain_of(db.reads, db.eumaps, s_prev, s_new,
+                                  db.skip_unread), dim=-1)
         # rounds that already stopped keep their state (vmap'd while_loop)
         loop.advance(active, it, ((th, new), (s_prev, s_new)))
         loop.keep_gain(last, gain, active)
@@ -280,28 +301,19 @@ def _solve_loop(db: DeviceBatch, theta0: torch.Tensor, epsilon: float,
 def _dense_solve_pallas(db: DeviceBatch, epsilon: float, block_iters: int,
                         max_blocks: int, *, plain: bool = False
                         ) -> Tuple[torch.Tensor, int]:
-    """The kernel path: each block of ``block_iters`` SQUAREM cycles is one
-    ``squarem_block`` launch, then the same termwise likelihood gain as
-    ``_solve_loop``, with one stop for the whole batch (an ``active``
-    flag, so that blocks after the stop keep theta).  The blocks run in
-    ``loop.while_loop``, as JAX's run in its device ``while_loop``."""
-    th = _theta0(db)
-    s_prev = _mt(db.m, th)
-    active = torch.ones((), dtype=torch.bool, device=th.device)
-    last = torch.zeros_like(active, dtype=th.dtype)
-    it = torch.zeros((), dtype=torch.int64, device=th.device)
+    """The kernel path: ``_solve_loop`` with ``kernel`` from the
+    read-attribution start, one round, so one stop for the whole batch;
+    returns (theta [B, T], n_blocks)."""
+    th, it = _solve_loop(db, _theta0(db)[None], epsilon, block_iters,
+                         max_blocks, kernel=True, plain=plain)
+    return th[0], it
 
-    def block():
-        new = squarem_block(db.m, db.eumaps, db.reads, db.inv_denom, th,
-                            block_iters)
-        s_new = _mt(db.m, new)
-        gain = torch.max(gain_of(db.reads, db.eumaps, s_prev, s_new))
-        loop.advance(active, it, ((th, new), (s_prev, s_new)))
-        loop.keep_gain(last, gain, active)
-        active.logical_and_((gain >= epsilon) & (it < max_blocks))
 
-    loop.while_loop(block, active, plain=plain)
-    return th, loop.finish(it, last, lambda n: n >= max_blocks)
+def kernel_route(batch: DenseBatch, device: torch.device) -> bool:
+    """Whether ``solve_dense_batch`` runs ``batch`` on the hand kernel
+    when --solver_pallas does not ask for it: on a CUDA device, for the
+    classes of ``KERNEL_CLASSES``."""
+    return device.type == "cuda" and tuple(batch.shape[1:]) in KERNEL_CLASSES
 
 
 def subset_batch(batch: DenseBatch, rows: np.ndarray) -> DenseBatch:
@@ -352,16 +364,28 @@ def _pad_b(batch: DenseBatch) -> Tuple[DenseBatch, int]:
 def solve_dense_restarts(batch: DenseBatch, inits: np.ndarray,
                          epsilon: float, device: torch.device,
                          block_iters: int = 8,
-                         max_blocks: int = 2048) -> np.ndarray:
+                         max_blocks: int = 2048,
+                         skip_unread: bool = False,
+                         use_pallas: bool = False) -> np.ndarray:
     """Solve one dense size class from ``inits`` [R, B, T] (the restart
     rounds behind sd.of.FPKM); returns theta [R, B, T].  M and the
-    denominator are materialized once and shared by all rounds."""
+    denominator are materialized once and shared by all rounds.
+    ``skip_unread``: the gain's form (``solver.gain_of``); ``use_pallas``
+    runs the rounds' cycles on the hand kernel (``_solve_loop``'s
+    ``kernel``)."""
+    if use_pallas:
+        db = batch_to_device(batch, device, torch_dtype(batch.eumaps.dtype),
+                             skip_unread)
+        th0 = torch.as_tensor(inits.astype(batch.eumaps.dtype)).to(device)
+        th, _ = _solve_loop(db, th0, epsilon, block_iters, max_blocks,
+                            kernel=True)
+        return th.cpu().numpy()
     batch, B0 = _pad_b(batch)
     B = batch.shape[0]
     if B != B0:
         inits = np.pad(inits, ((0, 0), (0, B - B0), (0, 0)))
     dtype = torch_dtype(batch.eumaps.dtype)
-    db = batch_to_device(batch, device, dtype)
+    db = batch_to_device(batch, device, dtype, skip_unread)
     th0 = torch.as_tensor(inits.astype(batch.eumaps.dtype)).to(device)
     th, _ = _solve_loop(db, th0, epsilon, block_iters, max_blocks)
     return th.cpu().numpy()[:, :B0]
@@ -369,20 +393,21 @@ def solve_dense_restarts(batch: DenseBatch, inits: np.ndarray,
 
 def solve_dense_batch(batch: DenseBatch, epsilon: float,
                       device: torch.device, block_iters: int = 8,
-                      max_blocks: int = 2048, use_pallas: bool = False
+                      max_blocks: int = 2048, use_pallas: bool = False,
+                      skip_unread: bool = False
                       ) -> Tuple[np.ndarray, int]:
     """Solve one dense size class; returns (theta [B, T], n_blocks).
     ``use_pallas`` selects the hand-written CUDA kernel (the name follows
     the JAX package's flag); on CPU tensors the kernel's plain version
-    runs."""
+    runs.  ``skip_unread``: the gain's form (``solver.gain_of``)."""
     B0 = batch.shape[0]
     dtype = torch_dtype(batch.eumaps.dtype)
     if not use_pallas:
         batch, B0 = _pad_b(batch)
-        db = batch_to_device(batch, device, dtype)
+        db = batch_to_device(batch, device, dtype, skip_unread)
         th, it = _solve_loop(db, _theta0(db)[None], epsilon, block_iters,
                              max_blocks)
         return th[0].cpu().numpy()[:B0], it
-    db = batch_to_device(batch, device, dtype)
+    db = batch_to_device(batch, device, dtype, skip_unread)
     th, it = _dense_solve_pallas(db, epsilon, block_iters, max_blocks)
     return th.cpu().numpy(), it

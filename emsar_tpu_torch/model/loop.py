@@ -1,6 +1,6 @@
 """Convergence loops on the device: the port's ``lax.while_loop`` for the EM
-solvers (``model/solver.py::em_solve``, ``model/dense.py::_solve_loop``
-and ``_dense_solve_pallas``, ``parallel/mesh.py::solve_sharded``).
+solvers (``model/solver.py::em_solve``, ``model/dense.py::_solve_loop``,
+``parallel/mesh.py::solve_sharded``).
 
 A solve's state is a fixed set of tensors, allocated once: theta, the
 previous intensities (and whatever else the solve carries), an ``active``

@@ -51,6 +51,21 @@ def _resolve_dtype(cfg: QuantConfig):
     return np.float64
 
 
+def _gain(cfg) -> str:
+    """The solves' gain, ``cfg.solver_gain``; a configuration without that
+    field (the JAX package's) takes the port's default."""
+    gain = getattr(cfg, "solver_gain", QuantConfig.solver_gain)
+    if gain not in ("repaired", "jax"):
+        raise ValueError(f"unknown solver_gain {gain!r}")
+    return gain
+
+
+def _skip_unread(cfg) -> bool:
+    """Whether the solves leave the read term of segments without reads
+    out of their gain (``solver.gain_of``)."""
+    return _gain(cfg) == "repaired"
+
+
 def compute_wf(index: RshIndex, fraglength_counts: np.ndarray) -> np.ndarray:
     """Empirical fragment-length sampling probability (reference:
     transfer_fraglendist_to_Wf, src/emsar_functions.c:2503-2513)."""
@@ -150,9 +165,10 @@ def quantify_sample(index: RshIndex, counts: SampleCounts, cfg: QuantConfig,
                 fpkm, ll, blocks = solve(
                     problem, device, epsilon=cfg.epsilon,
                     max_iters=cfg.max_niter_mle,
-                    block_iters=cfg.solver_block_iters, dtype=dtype)
+                    block_iters=cfg.solver_block_iters, dtype=dtype,
+                    skip_unread=_skip_unread(cfg))
                 note(edges=len(problem.edge_cid), blocks=blocks,
-                     stop=_stop(blocks))
+                     stop=_stop(blocks), gain=_gain(cfg))
             fpkm = fpkm.astype(np.float64)
         if dtype == np.float32 or cfg.solver_mode == "auto":
             # close the float32 convergence floor / dense-CSR seams with a
@@ -188,29 +204,35 @@ def _stop(blocks: int) -> str:
 def _polish(problem: SolverProblem, theta: np.ndarray, cfg: QuantConfig,
             max_cycles: int = 200,
             device: Optional[torch.device] = None) -> np.ndarray:
-    """The f64 SQUAREM polish as the span "solve: polish": its cycles, and
-    whether it met epsilon or ran to ``max_cycles``.  On a CUDA
-    ``device`` it runs on the card (``solver.polish_device``: the problem
-    uploaded once, theta read back once; the span adds the device and
-    ``loop.LAST``'s ``graph`` and ``capture_s``), elsewhere on the host
-    (``polish_host_f64``, C++), as does a problem without segments."""
+    """The f64 SQUAREM polish as the span "solve: polish": its cycles,
+    whether it met epsilon or ran to ``max_cycles``, and its gain
+    (``_gain``).  On a CUDA ``device`` it runs on the card
+    (``solver.polish_device``: the problem uploaded once, theta read back
+    once; the span adds the device, ``loop.LAST``'s ``graph`` and
+    ``capture_s``, and the problem's shape and cluster kernel launches,
+    ``_cluster_work``), elsewhere on the host (``polish_host_f64``, C++),
+    as does a problem without segments."""
     epsilon = max(cfg.epsilon, 1e-9)
+    skip = _skip_unread(cfg)
     with span("solve: polish", cfg.verbose):
         if (device is not None and device.type == "cuda"
                 and len(problem.eumaps)):
-            p = problem_to_device(problem, device, torch.float64)
+            p = problem_to_device(problem, device, torch.float64, skip)
+            launches = _cluster_launches()
             th, cycles = polish_device(
                 p, torch.as_tensor(theta, dtype=torch.float64).to(device),
                 epsilon, max_cycles)
             theta = th.cpu().numpy()
             extra = dict(device=str(device), graph=loop.LAST.graph,
-                         capture_s=loop.LAST.capture_s)
+                         capture_s=loop.LAST.capture_s,
+                         **_cluster_work(problem, 1, 1, launches))
         else:
             theta, cycles = polish_host_f64(problem, theta, epsilon=epsilon,
-                                            max_cycles=max_cycles)
+                                            max_cycles=max_cycles,
+                                            skip_unread=skip)
             extra = {}
         note(cycles=cycles, stop="cap" if cycles >= max_cycles else "eps",
-             **extra)
+             gain=_gain(cfg), **extra)
     return theta
 
 
@@ -277,16 +299,20 @@ def _csr_restarts(problem, fpkm: np.ndarray, cfg: QuantConfig, dtype,
                   device: torch.device) -> Optional[np.ndarray]:
     """Restart rounds on the CSR edge list, restricted to transcripts in
     multi-transcript modules; [num_round-1, ntid] with round-0 values
-    elsewhere, or None when nothing is multi-transcript."""
+    elsewhere, or None when nothing is multi-transcript.  The restricted
+    problem's shape and cluster kernel launches go to the innermost open
+    span (``_cluster_work``)."""
     restricted = restart_problem(problem)
     if restricted is None:
         return None
     sub, multi_tid = restricted
+    launches = _cluster_launches()
     extra = solve_restart_rounds(
         sub, cfg.num_round - 1, device, epsilon=_restart_eps(cfg),
         max_iters=cfg.max_niter_mle, block_iters=cfg.solver_block_iters,
         dtype=dtype, seed=cfg.rng_seed if cfg.rng_seed is not None else 0,
-        polish=False)
+        polish=False, skip_unread=_skip_unread(cfg))
+    note(**_cluster_work(sub, cfg.num_round - 1, 1, launches))
     return np.where(multi_tid[None, :] & (problem.denom > 0)[None, :],
                     extra, fpkm[None, :])
 
@@ -296,9 +322,10 @@ def _make_rounds_dense(problem, fpkm: np.ndarray, cfg: QuantConfig, dtype,
                        read_count) -> np.ndarray:
     """Restart rounds riding the dense batches of the main solve: module
     rows with >= 2 distinct transcripts are re-solved from uniform(0,100)
-    inits over a leading rounds axis with M shared; modules the main solve
-    left to the CSR path restart there."""
-    from .dense import solve_dense_restarts, subset_batch
+    inits over a leading rounds axis with M shared, on the hand kernel
+    where the class takes it on the card (``dense.kernel_route``); modules
+    the main solve left to the CSR path restart there."""
+    from .dense import kernel_route, solve_dense_restarts, subset_batch
 
     ntid = problem.n_transcripts
     n_extra = cfg.num_round - 1
@@ -331,10 +358,34 @@ def _make_rounds_dense(problem, fpkm: np.ndarray, cfg: QuantConfig, dtype,
                    if np.dtype(sub.eumaps.dtype) == np.float32
                    else restart_eps)
             theta = solve_dense_restarts(
-                sub, inits, eps, device, block_iters=cfg.solver_block_iters)
+                sub, inits, eps, device, block_iters=cfg.solver_block_iters,
+                skip_unread=_skip_unread(cfg),
+                use_pallas=kernel_route(sub, device))
             mask = sub.tid_map >= 0
             rounds[:, sub.tid_map[mask]] = theta[:, mask]
     return np.concatenate([fpkm[None, :], rounds], axis=0)
+
+
+def _cluster_launches() -> int:
+    """The launches of the two cluster kernels so far (their wrappers'
+    counters, which count a replayed graph's launches too)."""
+    from ..kernels import csr_cluster
+    return csr_cluster.EM_PAIR_LAUNCHES + csr_cluster.EXTRAP_GAIN_LAUNCHES
+
+
+def _cluster_work(problem: SolverProblem, rows: int, operand_rows: int,
+                  since: int) -> dict:
+    """A span's attributes for the cluster kernels' work of the solve it
+    holds: the problem's ``edges``, ``segments`` and ``transcripts``, the
+    ``rows`` solved together, the rows of their reads, EUMAps and 1 /
+    denom (``operand_rows``: 1 where the rows share them), and
+    ``cluster_launches``, those of ``cluster_em_pair`` and
+    ``cluster_extrap_gain`` since the count ``since``
+    (``_cluster_launches``)."""
+    return dict(edges=len(problem.edge_cid), segments=len(problem.eumaps),
+                transcripts=problem.n_transcripts, rows=rows,
+                operand_rows=operand_rows,
+                cluster_launches=_cluster_launches() - since)
 
 
 def _host_loglik(problem, theta: np.ndarray) -> float:
@@ -352,10 +403,13 @@ def _host_loglik(problem, theta: np.ndarray) -> float:
 def _solve_auto(graph, modules, eumaps, read_count, problem, cfg, dtype,
                 device: torch.device):
     """Dense batched solve for small modules + CSR for the rest; returns
-    (fpkm, the blocks of every loop, the partition).  Each step is a span
-    (``solve: partition``, a ``solve: dense batch`` a size class,
-    ``solve: csr``) with its blocks and stop reason."""
-    from .dense import partition_modules, solve_dense_batch
+    (fpkm, the blocks of every loop, the partition).  A dense batch runs on
+    the hand kernel with --solver_pallas, and on a CUDA device where its
+    class is one of ``dense.KERNEL_CLASSES``; else on torch.bmm.  Each
+    step is a span (``solve: partition``, a ``solve: dense batch`` a size
+    class with its route, ``solve: csr``) with its blocks and stop
+    reason."""
+    from .dense import kernel_route, partition_modules, solve_dense_batch
 
     with span("solve: partition", cfg.verbose):
         part = partition_modules(graph, modules, eumaps, read_count,
@@ -366,12 +420,14 @@ def _solve_auto(graph, modules, eumaps, read_count, problem, cfg, dtype,
     blocks_total = 0
     for batch in part.batches:
         with span("solve: dense batch", cfg.verbose):
+            kernel = cfg.solver_pallas or kernel_route(batch, device)
             theta, blocks = solve_dense_batch(
                 batch, eps, device, block_iters=cfg.solver_block_iters,
-                use_pallas=cfg.solver_pallas)
+                use_pallas=kernel, skip_unread=_skip_unread(cfg))
             note(shape="x".join(map(str, batch.shape)), blocks=blocks,
                  stop=loop.LAST.stop, graph=loop.LAST.graph,
-                 capture_s=loop.LAST.capture_s)
+                 capture_s=loop.LAST.capture_s, gain=_gain(cfg),
+                 route="kernel" if kernel else "bmm")
             blocks_total += blocks
             mask = batch.tid_map >= 0
             fpkm[batch.tid_map[mask]] = theta[mask].astype(np.float64)
@@ -386,9 +442,10 @@ def _solve_auto(graph, modules, eumaps, read_count, problem, cfg, dtype,
                                      epsilon=cfg.epsilon,
                                      max_iters=cfg.max_niter_mle,
                                      block_iters=cfg.solver_block_iters,
-                                     dtype=dtype)
+                                     dtype=dtype,
+                                     skip_unread=_skip_unread(cfg))
             note(edges=len(csr_problem.edge_cid), blocks=blocks,
-                 stop=_stop(blocks))
+                 stop=_stop(blocks), gain=_gain(cfg))
             blocks_total += blocks
             touched = np.zeros(graph.n_transcripts, dtype=bool)
             touched[csr_problem.edge_tid] = True
@@ -488,11 +545,14 @@ def quantify_samples_batched(index: RshIndex, counts_list, cfg: QuantConfig,
     with span("solve: sharded loop", cfg.verbose):
         sp = shard_problem(b.problem, b.R, make_mesh(device=device),
                            dtype=dtype, eumaps_per_sample=b.E,
-                           denom_per_sample=b.denom)
+                           denom_per_sample=b.denom,
+                           skip_unread=_skip_unread(cfg))
+        launches = _cluster_launches()
         theta, ll, blocks = solve_sharded(
             sp, epsilon=max(cfg.epsilon, 1e-5) if dtype == np.float32
             else cfg.epsilon, block_iters=cfg.solver_block_iters)
-        note(samples=S, blocks=blocks, stop=loop.LAST.stop)
+        note(samples=S, blocks=blocks, stop=loop.LAST.stop,
+             gain=_gain(cfg), **_cluster_work(b.problem, S, S, launches))
     theta = theta.astype(np.float64)
 
     results = []

@@ -94,7 +94,8 @@ class SolverProblem:
 @dataclasses.dataclass
 class DeviceProblem:
     """A SolverProblem's arrays on a torch device in the solve dtype, its
-    edges grouped by cid (``by_cid``) and by tid (``by_tid``)."""
+    edges grouped by cid (``by_cid``) and by tid (``by_tid``), and the
+    form of its likelihood gain: ``skip_unread`` (``gain_of``)."""
 
     n_segments: int
     by_cid: EdgeGroups
@@ -102,6 +103,7 @@ class DeviceProblem:
     eumaps: torch.Tensor  # [C]
     reads: torch.Tensor  # [C]
     inv_denom: torch.Tensor  # [ntid], 0 where denom == 0
+    skip_unread: bool = False
 
 
 def build_problem(graph: SegmentGraph, modules: ModuleDecomposition,
@@ -156,13 +158,15 @@ def group_edges(seg: np.ndarray, other: np.ndarray, mult: np.ndarray,
 
 
 def problem_to_device(problem: SolverProblem, device: torch.device,
-                      dtype: torch.dtype) -> DeviceProblem:
+                      dtype: torch.dtype, skip_unread: bool = False
+                      ) -> DeviceProblem:
     """Move a SolverProblem to ``device`` in ``dtype``, with the edges
     grouped by cid and by tid (``kernels.segment_sum.EdgeGroups``, checked
     here once for every launch of the solve).  Both groupings are stable
     sorts of the edge list, so each segment keeps the edges' own order
     (``build_problem`` emits edges sorted by (cid, tid): the cid grouping
-    is then the identity)."""
+    is then the identity).  ``skip_unread``: the gain its solves take
+    (``gain_of``)."""
     cid, tid, mult = problem.edge_cid, problem.edge_tid, problem.edge_mult
 
     def f(a):
@@ -175,7 +179,7 @@ def problem_to_device(problem: SolverProblem, device: torch.device,
         by_cid=group_edges(cid, tid, mult, n_seg, ntid, device, dtype),
         by_tid=group_edges(tid, cid, mult, ntid, n_seg, device, dtype),
         eumaps=f(problem.eumaps), reads=f(problem.reads),
-        inv_denom=inverse_denom(f(problem.denom)))
+        inv_denom=inverse_denom(f(problem.denom)), skip_unread=skip_unread)
 
 
 def inverse_denom(denom: torch.Tensor) -> torch.Tensor:
@@ -201,14 +205,22 @@ def _em_iter(p: DeviceProblem, theta: torch.Tensor) -> torch.Tensor:
 
 
 def gain_of(reads: torch.Tensor, eumaps: torch.Tensor, s_old: torch.Tensor,
-            s_new: torch.Tensor) -> torch.Tensor:
+            s_new: torch.Tensor, skip_unread: bool = False) -> torch.Tensor:
     """logL(s_new) - logL(s_old) summed over the last (segment) axis,
     termwise from the intensity deltas (resolves tiny gains even in
     float32).  A read-bearing segment whose intensity collapses to 0 is a
     likelihood collapse (-1e30), the reverse +1e30.  Shared by the CSR and
     the dense solvers (the CSR cycle computes the terms in
-    ``kernels.csr_cycle``'s kernels on the card)."""
-    return torch.sum(gain_terms(reads, eumaps, s_old, s_new), dim=-1)
+    ``kernels.csr_cycle``'s kernels on the card).
+
+    By default the terms are the JAX package's, whose read term of a
+    segment without reads turns NaN when that segment's intensity
+    collapses, and a NaN gain stops a solve early; ``skip_unread`` leaves
+    that term out (``kernels.csr_cycle.gain_terms``), so a solve stops on
+    a real gain.  The quantifier takes it by default
+    (``QuantConfig.solver_gain``)."""
+    return torch.sum(gain_terms(reads, eumaps, s_old, s_new, skip_unread),
+                     dim=-1)
 
 
 def loglik_of(reads: torch.Tensor, eumaps: torch.Tensor, s: torch.Tensor
@@ -247,7 +259,7 @@ def _squarem_cycle_launches(p: DeviceProblem, src: Source,
                      torch.sum(v_sq, dim=1, keepdim=True))
     cand = _em_iter(p, x)  # stabilization
     gain = pair_gain(p.by_cid, p.reads, p.eumaps, t2, cand,
-                     intensities=intensities)
+                     intensities=intensities, skip_unread=p.skip_unread)
     terms, s_pair = (gain[0], gain[1:]) if intensities else (gain, ())
     return (torch.sum(terms, dim=-1), cand, t2, *s_pair)
 
@@ -321,7 +333,8 @@ def _squarem_block(p: DeviceProblem, theta: torch.Tensor, n: int,
     the extrapolation falls back to the double-EM value whenever it loses
     likelihood, so convergence stays monotone.  ``p`` is a DeviceProblem
     or anything with its edge groupings and reads, eumaps and inv_denom of
-    one row or one per row of theta (the batched solve's ShardedProblem).
+    one row or one per row of theta (the batched solve's ShardedProblem),
+    and ``skip_unread``, the gain's form (``gain_of``).
     Returns (theta, its intensities [R, C], their gain terms over
     ``s_prev`` or None without it): the block's end, ``block_end``.
 
@@ -341,10 +354,11 @@ def _squarem_block(p: DeviceProblem, theta: torch.Tensor, n: int,
             cand, terms, *s_pair = extrap_gain(
                 th, t1, t2, torch.sum(r_sq, dim=1, keepdim=True),
                 torch.sum(v_sq, dim=1, keepdim=True), plan, p.reads,
-                p.eumaps, p.inv_denom, intensities=last)
+                p.eumaps, p.inv_denom, intensities=last,
+                skip_unread=p.skip_unread)
             out = (torch.sum(terms, dim=-1), cand, t2, *s_pair)
         src = out[:3]
-    return block_end(*out, s_prev, p.reads, p.eumaps)
+    return block_end(*out, s_prev, p.reads, p.eumaps, p.skip_unread)
 
 
 def _squarem_cycles(p: DeviceProblem, theta: torch.Tensor, n: int,
@@ -430,7 +444,8 @@ def polish_device(p: DeviceProblem, theta: torch.Tensor, epsilon: float,
 
 def polish_host_f64(problem: SolverProblem, theta: np.ndarray,
                     epsilon: float = 1e-9, max_cycles: int = 200,
-                    native: Optional[bool] = None
+                    native: Optional[bool] = None,
+                    skip_unread: bool = False
                     ) -> Tuple[np.ndarray, int]:
     """Short float64 SQUAREM polish on the host; returns (theta, the cycles
     it ran, the last one that met ``epsilon`` included).
@@ -438,7 +453,8 @@ def polish_host_f64(problem: SolverProblem, theta: np.ndarray,
     Closes the float32 convergence floor and the dense/CSR seams; starts at
     the device solution so only a handful of cycles run.  Runs in the C++
     library (csrc/solver.cc, a copy of the JAX package's) when available;
-    ``native=False`` forces the NumPy path."""
+    ``native=False`` forces the NumPy path.  ``skip_unread``: the gain
+    without the read term of segments without reads (``gain_terms``)."""
     if native is not False:
         try:
             from ..ingest import native as native_mod
@@ -449,7 +465,7 @@ def polish_host_f64(problem: SolverProblem, theta: np.ndarray,
             cycles = native_mod.polish_squarem(
                 problem.edge_cid, problem.edge_tid, problem.edge_mult,
                 problem.eumaps, problem.reads, inv_denom, th,
-                epsilon, max_cycles)
+                epsilon, max_cycles, skip_unread)
             return th, cycles
         except RuntimeError:
             if native:
@@ -477,7 +493,8 @@ def polish_host_f64(problem: SolverProblem, theta: np.ndarray,
                                   np.where(both, s_old, 1.0), 0.0))
         died = (s_old > 0) & (s_new <= 0) & (R > 0)
         born = (s_old <= 0) & (s_new > 0) & (R > 0)
-        term = np.where(both, R * ratio,
+        read_term = both & (R > 0) if skip_unread else both
+        term = np.where(read_term, R * ratio,
                         np.where(died, -1e30, np.where(born, 1e30, 0.0)))
         return float(np.sum(term - E * (s_new - s_old)))
 
@@ -522,15 +539,16 @@ def solve_restart_rounds(problem: SolverProblem, n_rounds: int,
                          device: torch.device, epsilon: float = 1e-9,
                          max_iters: int = 200000, block_iters: int = 8,
                          dtype=np.float32, seed: int = 0,
-                         polish: bool = True) -> np.ndarray:
+                         polish: bool = True,
+                         skip_unread: bool = False) -> np.ndarray:
     """``n_rounds`` EM solves from independent uniform(0,100) inits, as one
     batched device solve over a leading rounds axis.
 
     Gives ``-n``/sd.of.FPKM its reference semantics (the reference re-runs
     the MLE NUM_ROUND times from fresh inits, src/emsar_functions.c:3077-
     3080).  The inits are the JAX package's NumPy draws (same seed), so the
-    two packages restart from identical points.  Returns theta
-    [n_rounds, ntid] (float64)."""
+    two packages restart from identical points.  ``skip_unread``: the
+    gain's form (``gain_of``).  Returns theta [n_rounds, ntid] (float64)."""
     ntid = problem.n_transcripts
     n_seg = len(problem.eumaps)
     inits = restart_inits(problem, n_rounds, seed, dtype)
@@ -540,14 +558,15 @@ def solve_restart_rounds(problem: SolverProblem, n_rounds: int,
         epsilon = max(epsilon, 1e-5)
 
     tdt = torch_dtype(dtype)
-    p = problem_to_device(problem, device, tdt)
+    p = problem_to_device(problem, device, tdt, skip_unread)
     theta, _, _ = em_solve(p, torch.as_tensor(inits).to(device, tdt),
                            epsilon, block_iters, max_iters)
     theta = theta.cpu().numpy().astype(np.float64)
     if polish and np.dtype(dtype) == np.float32:
         for r in range(n_rounds):
-            theta[r] = polish_host_f64(problem, theta[r],
-                                       epsilon=1e-9, max_cycles=200)[0]
+            theta[r] = polish_host_f64(problem, theta[r], epsilon=1e-9,
+                                       max_cycles=200,
+                                       skip_unread=skip_unread)[0]
     return theta
 
 
@@ -577,9 +596,10 @@ def read_attribution_start(problem: SolverProblem) -> np.ndarray:
 def solve(problem: SolverProblem, device: torch.device,
           epsilon: float = 1e-9, max_iters: int = 200000,
           block_iters: int = 8, dtype=None,
-          theta0: Optional[np.ndarray] = None
+          theta0: Optional[np.ndarray] = None, skip_unread: bool = False
           ) -> Tuple[np.ndarray, float, int]:
-    """Solve the global EM problem; returns (fpkm [ntid], logL, n_blocks)."""
+    """Solve the global EM problem; returns (fpkm [ntid], logL, n_blocks).
+    ``skip_unread``: the gain's form (``gain_of``)."""
     ntid = problem.n_transcripts
     n_seg = len(problem.eumaps)
     if dtype is None:
@@ -594,7 +614,7 @@ def solve(problem: SolverProblem, device: torch.device,
     theta0 = np.where(problem.denom > 0, theta0, 0.0).astype(dtype)
 
     tdt = torch_dtype(dtype)
-    p = problem_to_device(problem, device, tdt)
+    p = problem_to_device(problem, device, tdt, skip_unread)
     theta, ll, it = em_solve(p, torch.as_tensor(theta0)[None, :].to(device),
                              epsilon, block_iters, max_iters)
     return theta[0].cpu().numpy(), float(ll[0]), it

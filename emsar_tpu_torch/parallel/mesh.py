@@ -159,20 +159,22 @@ class ShardedProblem:
     theta0: torch.Tensor  # the read-attribution start, like inv_denom
     mesh: Mesh
     layout: str = "edges"
+    skip_unread: bool = False  # the gain's form (solver.gain_of)
 
 
 def shard_problem(problem: SolverProblem, reads_per_sample: np.ndarray,
                   mesh: Mesh, dtype=np.float32, shard_by: str = "edges",
                   eumaps_per_sample: Optional[np.ndarray] = None,
-                  denom_per_sample: Optional[np.ndarray] = None
-                  ) -> ShardedProblem:
+                  denom_per_sample: Optional[np.ndarray] = None,
+                  skip_unread: bool = False) -> ShardedProblem:
     """This rank's shard of ``problem`` with ``reads_per_sample`` [S, C]
     (one row per sample) on ``mesh.device`` in ``dtype``.
 
     ``eumaps_per_sample`` / ``denom_per_sample``: per-sample EUMAps [S, C]
     and denominators [S, T] (multisample batches weight EUMA by each
     sample's fragment-length distribution); default the shared values of
-    ``problem``.  ``shard_by``: 'edges' or 'transcript' (module note)."""
+    ``problem``.  ``shard_by``: 'edges' or 'transcript' (module note).
+    ``skip_unread``: the gain's form (``model/solver.py::gain_of``)."""
     if shard_by not in ("edges", "transcript"):
         raise ValueError(f"unknown shard_by {shard_by!r}")
     dp, tp = mesh.dp, mesh.tp
@@ -225,7 +227,8 @@ def shard_problem(problem: SolverProblem, reads_per_sample: np.ndarray,
         by_tid=group_edges(tid, cid, mult, blk, C, dev, tdt),
         eumaps=local(eumaps_per_sample, C), reads=local(reads_per_sample, C),
         inv_denom=inverse_denom(local(denom_per_sample, ncol, cols)),
-        theta0=local(th0, ncol, cols), mesh=mesh, layout=shard_by)
+        theta0=local(th0, ncol, cols), mesh=mesh, layout=shard_by,
+        skip_unread=skip_unread)
 
 
 def _intensities(sp: ShardedProblem, th: torch.Tensor) -> torch.Tensor:
@@ -274,7 +277,7 @@ def _cycle_tp(sp: ShardedProblem, th: torch.Tensor) -> torch.Tensor:
     extrap = th - 2.0 * alpha * r + (alpha * alpha) * v
     cand = _em_iter(sp, torch.where(extrap > 0, extrap, t2))
     better = gain_of(sp.reads, sp.eumaps, _intensities(sp, t2),
-                     _intensities(sp, cand)) >= 0
+                     _intensities(sp, cand), sp.skip_unread) >= 0
     return torch.where(better[:, None], cand, t2)
 
 
@@ -294,7 +297,8 @@ def _cycles(sp: ShardedProblem, th: torch.Tensor, block_iters: int,
         th = _cycle_tp(sp, th)
     s = _intensities(sp, th)
     return th, s, (None if s_prev is None
-                   else gain_of(sp.reads, sp.eumaps, s_prev, s))
+                   else gain_of(sp.reads, sp.eumaps, s_prev, s,
+                                sp.skip_unread))
 
 
 def _block(sp: ShardedProblem, th: torch.Tensor, block_iters: int,

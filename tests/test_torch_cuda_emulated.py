@@ -271,9 +271,9 @@ def test_squarem_source_matches_plain(emulated, C, T, dtype, n_iters):
           else lib.emsar_squarem_block_f32)
     fn.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     assert fn(*(a.data_ptr() for a in args), out.data_ptr(), B, C, T,
-              n_iters, None) == 0
+              n_iters, 0, None) == 0
     want = squarem.squarem_block_ref(*args, n_iters)
     err, _, n = block_agreement(out, want, *args, n_iters)
     assert n >= 1 and torch.isfinite(out).all()
@@ -560,14 +560,17 @@ def test_em_cycle_update_source_matches_plain(emulated, dtype, lanes,
     assert (want[1] > 0).any() and (want[2] > 0).any()
 
 
-def _log1p_tolerance(got, want, reads, s_old, s_new):
+def _log1p_tolerance(got, want, reads, s_old, s_new, skip_unread=False):
     """The emulated gain terms against the plain version's: the same bits
     where the term has no log1p, and where it has one within 4 ulps of
     reads * log1p(...) plus one ulp of the term (the host libm's log1p
     and torch's CPU log1p may differ by an ulp, and the term's last
     rounding then by one more; on the card both are CUDA's log1p, and the
-    terms are bit-equal there)."""
+    terms are bit-equal there; with ``skip_unread`` a segment without
+    reads has no log1p)."""
     both = (s_old > 0) & (s_new > 0)
+    if skip_unread:
+        both &= reads > 0
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     ok = ~torch.isnan(want)
     exact = ok & ~both
@@ -586,7 +589,8 @@ def _identity_groups(n, dtype):
                                torch.ones(n, dtype=dtype), n)
 
 
-def _emulated_gain(lib, g, reads, eumaps, x_old, x_new, intensities=True):
+def _emulated_gain(lib, g, reads, eumaps, x_old, x_new, intensities=True,
+                   skip_unread=False):
     """The emulated pair_gain launch over the emulated build's tiles of
     ``g``: (terms, x_old's intensities, x_new's), the intensities None
     unless asked for."""
@@ -604,12 +608,13 @@ def _emulated_gain(lib, g, reads, eumaps, x_old, x_new, intensities=True):
               g.idx.data_ptr(), g.offsets.data_ptr(), tiles.data_ptr(),
               reads.data_ptr(), eumaps.data_ptr(),
               *(_ptr(t) for t in s_pair), out.data_ptr(), R, C, g.n_x,
-              a_stride, tiles.shape[1] - 1, PAIR_TILE, None) == 0
+              a_stride, tiles.shape[1] - 1, PAIR_TILE, int(skip_unread),
+              None) == 0
     return (out, *s_pair)
 
 
 def _emulated_block_end(lib, gain, cand, t2, s_t2, s_cand, s_prev, reads,
-                        eumaps):
+                        eumaps, skip_unread=False):
     """The emulated block_end launch: (theta, intensities, terms or
     None)."""
     fn = (lib.emsar_block_end_f64 if cand.dtype == torch.float64
@@ -625,7 +630,7 @@ def _emulated_block_end(lib, gain, cand, t2, s_t2, s_cand, s_prev, reads,
               s_t2.data_ptr(), s_cand.data_ptr(), _ptr(s_prev),
               reads.data_ptr(), eumaps.data_ptr(), theta.data_ptr(),
               s.data_ptr(), _ptr(terms), R, C, T,
-              C if reads.dim() == 2 else 0, None) == 0
+              C if reads.dim() == 2 else 0, int(skip_unread), None) == 0
     return theta, s, terms
 
 
@@ -947,7 +952,7 @@ def emulated_em_pair(lib, src, plan, reads, inv_denom):
 
 
 def emulated_extrap_gain(lib, theta, t1, t2, rs, vs, plan, reads, eumaps,
-                         inv_denom, intensities=False):
+                         inv_denom, intensities=False, skip_unread=False):
     """The emulated cluster_extrap_gain: (cand, gain terms), and with
     ``intensities`` t2's and cand's intensities too."""
     R, T = theta.shape
@@ -964,7 +969,7 @@ def emulated_extrap_gain(lib, theta, t1, t2, rs, vs, plan, reads, eumaps,
               terms.data_ptr(), *(_ptr(t) for t in s_pair), R, C, T,
               plan.n_tiles, plan.rows, plan.smem,
               C if reads.dim() == 2 else 0, T if inv_denom.dim() == 2 else 0,
-              plan.cluster, None) == 0
+              plan.cluster, int(skip_unread), None) == 0
     return (cand, terms, *s_pair) if intensities else (cand, terms)
 
 
@@ -1097,6 +1102,105 @@ def test_cluster_kernels_nan_branches(emulated, dtype):
     assert torch.equal(out[0][0], theta[0] * 2)
     for g, w in zip(out, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_gain_term_source_skips_unread(emulated, dtype):
+    """``skip_unread``: every branch of the gain term, through pair_gain
+    and block_end, with the read term of segments without reads left out:
+    finite wherever the intensities are (the read-less collapses of
+    ``gain_branch_cases`` are NaN without it), the plain version's bits
+    with the same option but for the log1p tolerance, and the JAX
+    package's terms on every read-bearing segment."""
+    s_old, s_new, reads, eumaps = gain_branch_cases(dtype)
+    g = _identity_groups(s_old.shape[1], dtype)
+    lib = emulated[csr_cycle.SOURCE]
+    want = csr_cycle.gain_terms(reads, eumaps, s_old, s_new, True)
+    jax = csr_cycle.gain_terms(reads, eumaps, s_old, s_new)
+    finite = ~(torch.isnan(s_old) | torch.isnan(s_new))
+    assert torch.isfinite(want[finite]).all()
+    assert torch.isnan(jax[finite]).any()
+    assert torch.equal(want[reads > 0].nan_to_num(),
+                       jax[reads > 0].nan_to_num())
+    got, _, _ = _emulated_gain(lib, g, reads, eumaps, s_old, s_new,
+                               skip_unread=True)
+    _log1p_tolerance(got, want, reads, s_old, s_new, True)
+    gain = torch.zeros((s_new.shape[0],), dtype=dtype)
+    _, _, got = _emulated_block_end(lib, gain, s_new, s_new, s_new, s_new,
+                                    s_old, reads, eumaps, skip_unread=True)
+    _log1p_tolerance(got, want, reads, s_old, s_new, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_squarem_source_skips_unread(emulated, dtype):
+    """The dense kernel with ``skip_unread`` on modules of which the first
+    holds a read-less segment that collapses in a cycle (``kernel5``'s
+    accept gain is then NaN): the plain version's theta with the same
+    option, within the kernel's agreement rule."""
+    B, C, T, n_iters = 5, 32, 8, 3
+    rng = np.random.default_rng(5)
+    args = [torch.as_tensor(a).to(dtype) for a in random_modules(rng, B, C, T)]
+    m, eumaps, reads, inv_denom, theta = args
+    # module 0: segments {t0, t1} (100 reads) and {t1} (no reads, a large
+    # EUMAp): an EM step cuts t1 by that factor, more than the precision
+    big = 1e17 if dtype == torch.float64 else 1e8
+    m[0], eumaps[0], reads[0], theta[0] = 0.0, 0.0, 0.0, 0.0
+    m[0, 0, :2] = m[0, 1, 1] = 1.0
+    eumaps[0, :2] = torch.tensor([1.0, big], dtype=dtype)
+    reads[0, 0] = 100.0
+    theta[0, :2] = torch.tensor([100.0, 1.0], dtype=dtype)
+    denom = torch.sum(m * eumaps[:, :, None], dim=1)
+    inv_denom.copy_(torch.where(denom > 0, 1.0 / torch.where(
+        denom > 0, denom, 1.0), 0.0))
+    _, gain, _ = squarem.squarem_cycle_ref(*args)
+    _, fixed, _ = squarem.squarem_cycle_ref(*args, True)
+    assert torch.isnan(gain[0]) and torch.isfinite(fixed).all()
+    lib = emulated[squarem.SOURCE]
+    fn = (lib.emsar_squarem_block_f64 if dtype == torch.float64
+          else lib.emsar_squarem_block_f32)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    out = torch.empty_like(theta)
+    assert fn(*(a.data_ptr() for a in args), out.data_ptr(), B, C, T,
+              n_iters, 1, None) == 0
+    want = squarem.squarem_block_ref(*args, n_iters, True)
+    err, _, n = block_agreement(out, want, *args, n_iters, True)
+    assert n >= 1 and torch.isfinite(out).all()
+    assert err <= block_tol(dtype, n_iters), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_cluster_kernels_skip_unread(emulated, dtype):
+    """``test_cluster_kernels_nan_branches``' collapse with ``skip_unread``
+    through cluster_extrap_gain: the collapsing read-less segment's term
+    is -eumaps * (s_new - s_old), finite, and every term the plain
+    version's with the same option."""
+    p, theta, reads, eumaps, inv_denom = _cluster_inputs(3, dtype, False, 2,
+                                                         (2, 4))
+    T = theta.shape[1]
+    big = 1e15 if dtype == torch.float64 else 1e7
+    theta[0, T - 2:] = torch.tensor([big, 1.0], dtype=dtype)
+    theta[1, T - 2:] = torch.tensor([1.0, 1.0], dtype=dtype)
+    zero = torch.zeros((3, 1), dtype=dtype)
+    lib = emulated[csr_cluster.SOURCE]
+    args = (theta, theta, theta, zero, zero)  # alpha -1: x = theta
+    jax = csr_cluster.extrap_gain_ref(*args, p.by_cid, p.by_tid, reads,
+                                      eumaps, inv_denom)
+    want = csr_cluster.extrap_gain_ref(*args, p.by_cid, p.by_tid, reads,
+                                       eumaps, inv_denom, skip_unread=True)
+    got = emulated_extrap_gain(lib, *args, p, reads, eumaps, inv_denom,
+                               skip_unread=True)
+    assert torch.isnan(jax[1][0, -1]) and torch.isfinite(want[1]).all()
+    assert torch.equal(got[0], want[0])
+    s_old, s_new = (segment_sum.segment_sum_ref(
+        a, p.by_cid.mult, p.by_cid.idx, p.by_cid.offsets)
+        for a in (theta, want[0]))
+    _log1p_tolerance(got[1], want[1], reads, s_old, s_new, True)
+    assert torch.isfinite(torch.sum(got[1], dim=-1)).all()
 
 
 # (R, dtype, a row of operands each) of the distributed-read cases

@@ -13,6 +13,7 @@ apart); FPKM at ``tests/test_cli_paths.py``'s batched-vs-loop tolerances
 outputs of a merge of shards, and every ``.rsh`` and
 ``.fraglength_effect``, byte-equal."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -30,6 +31,8 @@ from emsar_tpu.index.build import build_se_index as jax_build_se_index
 from emsar_tpu.ingest.collapse import SampleCounts as JaxSampleCounts
 from emsar_tpu.io.fasta import build_transcriptome as jax_transcriptome
 from emsar_tpu.io.rsh import RshIndex as JaxRshIndex
+from emsar_tpu.model.quantify import \
+    quantify_sample as jax_quantify_sample
 from emsar_tpu.model.quantify import \
     quantify_samples_batched as jax_quantify_batched
 from emsar_tpu.sim import fragments_to_reads, simulate_fragments
@@ -94,33 +97,48 @@ def test_split_by_qname_keeps_reads_whole(fixture):
 
 
 def test_batched_matches_jax(fixture):
-    """``quantify_samples_batched`` on 4 samples: per sample, logL and gene
-    TPM as the JAX package's batched path gives them; ``wf`` and iEUMA
-    equal."""
+    """``quantify_samples_batched`` on 4 samples with the JAX package's
+    gain (``solver_gain`` 'jax'): per sample, logL and gene TPM as the JAX
+    package's batched path gives them; ``wf`` and iEUMA equal.  With the
+    port's default gain, whose solve stops on a real gain where the JAX
+    package's batched solve may stop on a NaN one first: each sample's
+    logL no lower than that path's less rel 1e-9, and logL and gene TPM
+    as the JAX package's per-sample path (``quantify_sample``, the ``-M``
+    loop) gives them."""
     rsh, _, listfile = fixture
     paths = open(listfile).read().split()
     index, counts = _counts(rsh, paths)
     cfg = QuantConfig(verbose=0, min_fraglength=index.min_fraglength,
                       max_fraglength=index.max_fraglength)
-    got = tquant.quantify_samples_batched(index, counts, cfg, CPU)
-    want = jax_quantify_batched(
-        JaxRshIndex.load(rsh), [JaxSampleCounts(**c.__dict__) for c in counts],
-        JaxQuantConfig(verbose=0, min_fraglength=index.min_fraglength,
-                       max_fraglength=index.max_fraglength))
-    assert got is not None and len(got) == len(want) == 4
-    assert got[0].loglik == got[3].loglik  # the batch's total, as in JAX
-    assert abs(got[0].loglik - want[0].loglik) <= 1e-9 * abs(want[0].loglik)
-    for s, (g, w) in enumerate(zip(got, want)):
-        x = tquant.prepare_sample(index, counts[s], cfg)
-        problem = build_problem(x.graph, x.modules, x.eumaps, x.read_count)
-        ll_g = tquant._host_loglik(problem, g.fpkm)
-        ll_w = tquant._host_loglik(problem, w.fpkm)
-        assert abs(ll_g - ll_w) <= 1e-9 * abs(ll_w), (s, ll_g, ll_w)
-        tg, tw = _tpm(index.names, g.fpkm), _tpm(index.names, w.fpkm)
-        assert (np.abs(tg - tw) / np.maximum(tw, 1.0)).max() <= 1e-3
-        assert np.array_equal(g.wf, w.wf)
-        assert np.array_equal(g.ieuma, w.ieuma)
-        assert g.fpkm_rounds.shape == w.fpkm_rounds.shape
+    jcfg = JaxQuantConfig(verbose=0, min_fraglength=index.min_fraglength,
+                          max_fraglength=index.max_fraglength)
+    jindex = JaxRshIndex.load(rsh)
+    jcounts = [JaxSampleCounts(**c.__dict__) for c in counts]
+    want = jax_quantify_batched(jindex, jcounts, jcfg)
+    loop = [jax_quantify_sample(jindex, c, jcfg) for c in jcounts]
+    for gain in ("jax", "repaired"):
+        got = tquant.quantify_samples_batched(
+            index, counts, dataclasses.replace(cfg, solver_gain=gain), CPU)
+        assert got is not None and len(got) == len(want) == 4
+        assert got[0].loglik == got[3].loglik  # the batch's total, as in JAX
+        if gain == "jax":
+            assert abs(got[0].loglik - want[0].loglik) <= \
+                1e-9 * abs(want[0].loglik)
+        for s, (g, w) in enumerate(zip(got, want)):
+            x = tquant.prepare_sample(index, counts[s], cfg)
+            problem = build_problem(x.graph, x.modules, x.eumaps,
+                                    x.read_count)
+            ll_g, ll_w, ll_l = (tquant._host_loglik(problem, r.fpkm)
+                                for r in (g, w, loop[s]))
+            assert ll_g - ll_w >= -1e-9 * abs(ll_w), (gain, s, ll_g, ll_w)
+            ref, ll_ref = (w, ll_w) if gain == "jax" else (loop[s], ll_l)
+            assert abs(ll_g - ll_ref) <= 1e-9 * abs(ll_ref), \
+                (gain, s, ll_g, ll_ref)
+            tg, tw = _tpm(index.names, g.fpkm), _tpm(index.names, ref.fpkm)
+            assert (np.abs(tg - tw) / np.maximum(tw, 1.0)).max() <= 1e-3
+            assert np.array_equal(g.wf, w.wf)
+            assert np.array_equal(g.ieuma, w.ieuma)
+            assert g.fpkm_rounds.shape == w.fpkm_rounds.shape
 
 
 def test_batched_matches_per_sample(tmp_path):
@@ -154,19 +172,30 @@ def test_batched_matches_per_sample(tmp_path):
 
 
 def test_cli_batch_samples_matches_jax(fixture, tmp_path):
+    """``emsar -M --batch_samples`` of the port (its default gain) against
+    the JAX package's: each sample's logL no lower than its batched run's
+    less rel 1e-9, and logL and gene TPM as its ``-M`` loop gives them,
+    which runs each sample to its maximum; ``.fraglength_effect`` equal."""
     rsh, _, listfile = fixture
-    out_j, out_t = tmp_path / "jax", tmp_path / "torch"
+    out_j, out_l, out_t = (tmp_path / k for k in ("jax", "jax_loop",
+                                                  "torch"))
     args = ["-q", "-M", "--batch_samples", "-I", rsh]
     assert jax_cli.main(args + [str(out_j), "s", listfile]) == 0
+    assert jax_cli.main(["-q", "-M", "-I", rsh, str(out_l), "s",
+                         listfile]) == 0
     assert torch_cli.main(args + [str(out_t), "s", listfile]) == 0
     for i, aln in enumerate(open(listfile).read().split()):
-        pj, pt = out_j / f"s.{i}", out_t / f"s.{i}"
+        pj, pl, pt = (d / f"s.{i}" for d in (out_j, out_l, out_t))
         assert (open(f"{pt}.fraglength_effect", "rb").read()
                 == open(f"{pj}.fraglength_effect", "rb").read())
-        _, cols_j = _parse_fpkm(f"{pj}.fpkm")
-        _, cols_t = _parse_fpkm(f"{pt}.fpkm")
-        ll_j, ll_t = (_loglik(rsh, aln, c[:, 0]) for c in (cols_j, cols_t))
-        assert abs(ll_t - ll_j) <= 1e-9 * abs(ll_j), (i, ll_t, ll_j)
+        names, cols_t = _parse_fpkm(f"{pt}.fpkm")
+        cols_j, cols_l = (_parse_fpkm(f"{p}.fpkm")[1] for p in (pj, pl))
+        ll_t, ll_j, ll_l = (_loglik(rsh, aln, c[:, 0])
+                            for c in (cols_t, cols_j, cols_l))
+        assert ll_t - ll_j >= -1e-9 * abs(ll_j), (i, ll_t, ll_j)
+        assert abs(ll_t - ll_l) <= 1e-9 * abs(ll_l), (i, ll_t, ll_l)
+        tt, tl = (_tpm(names, c[:, 0]) for c in (cols_t, cols_l))
+        assert (np.abs(tt - tl) / np.maximum(tl, 1.0)).max() <= 1e-3
 
 
 def _shards(fixture, tmp_path, n):

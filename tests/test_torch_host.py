@@ -127,8 +127,12 @@ def test_config(name):
         with pytest.raises(ValueError):
             tconfig.StrandType.parse("ssf", True)
     else:
-        assert dataclasses.asdict(getattr(jconfig, name)()) == \
-            dataclasses.asdict(getattr(tconfig, name)())
+        # the port's own field: the form of the solves' likelihood gain,
+        # the repaired one by default (tconfig.QuantConfig.solver_gain)
+        port = dataclasses.asdict(getattr(tconfig, name)())
+        if name == "QuantConfig":
+            assert port.pop("solver_gain") == "repaired"
+        assert dataclasses.asdict(getattr(jconfig, name)()) == port
 
 
 @pytest.mark.parametrize("draw", ["gene_family", "fragments", "reads"])
@@ -313,21 +317,54 @@ def _polish_problem(seed=0):
             rng.uniform(0, 10, ntid))
 
 
+def _collapse_problem():
+    """Segments {t0, t1} (100 reads) and {t1} (no reads, EUMAp 1e10), t0
+    at its maximum and t1 at 1e-20: each EM step cuts t1 by 1e10, so in a
+    polish cycle the read-less segment's intensity falls by more than 1e16
+    and its read term is 0 * log1p(-1) = NaN, until t1 underflows to 0."""
+    cid = np.array([0, 0, 1], dtype=np.int32)
+    tid = np.array([0, 1, 1], dtype=np.int32)
+    eumaps = np.array([1.0, 1e10])
+    inv = 1.0 / np.array([1.0, 1.0 + 1e10])
+    return (cid, tid, np.ones(3), eumaps, np.array([100.0, 0.0]), inv,
+            np.array([100.0, 1e-20]))
+
+
 @pytest.mark.parametrize("fn", ["polish_squarem", "group_rows"])
 def test_native_library(fn):
     """The port's own C++ library (built from its csrc/ into its _build/)
-    against the JAX package's."""
+    against the JAX package's.  The polish is the JAX library's by default;
+    with ``skip_unread`` its gain leaves the read term of segments without
+    reads out, which departs from the JAX library only where that term is
+    not finite: on ``_polish_problem`` (every term finite) it gives the
+    JAX library's bits, and where a read-less segment collapses
+    (``_collapse_problem``) the JAX library's stop gain is NaN, on which
+    the polish runs on, while the port's stops on a real gain."""
     assert tnative.available()
     assert tnative._SO != jnative._SO
     assert os.path.dirname(tnative._SRCS[0]).endswith(
         os.path.join("emsar_tpu_torch", "csrc"))
     if fn == "polish_squarem":
         *args, theta = _polish_problem()
-        tj, tt = theta.copy(), theta.copy()
+        tj, tt, ts = theta.copy(), theta.copy(), theta.copy()
         nj = jnative.polish_squarem(*args, tj, 1e-12, 50)
         nt = tnative.polish_squarem(*args, tt, 1e-12, 50)
         assert nj == nt > 0
         _assert_same(tj, tt)
+        assert tnative.polish_squarem(*args, ts, 1e-12, 50,
+                                      skip_unread=True) == nj
+        _assert_same(tj, ts)
+        *args, theta = _collapse_problem()
+        tj, tt, ts = theta.copy(), theta.copy(), theta.copy()
+        nj = jnative.polish_squarem(*args, tj, 1e-9, 50)
+        assert tnative.polish_squarem(*args, tt, 1e-9, 50) == nj == 11
+        _assert_same(tj, tt)
+        assert tj[1] == 0.0  # NaN stop gains ran on until t1 underflowed
+        # without t1's read term the first cycle's gain, 1e10 * 1e-20,
+        # is real and below epsilon
+        assert tnative.polish_squarem(*args, ts, 1e-9, 50,
+                                      skip_unread=True) == 1
+        assert 0.0 < ts[1] < 1e-40 and ts[0] == tj[0]
     else:
         rng = np.random.default_rng(4)
         h1 = rng.integers(0, 5, 500).astype(np.uint64)

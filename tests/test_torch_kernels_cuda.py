@@ -406,6 +406,83 @@ def test_gain_term_kernel_branches(cuda, dtype):
                        csr_cycle.cycle_extrap_ref(th, t1, t2, rs, vs))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_gain_term_kernel_skips_unread(cuda, dtype):
+    """``test_gain_term_kernel_branches``' terms with ``skip_unread``:
+    pair_gain and block_end give torch's terms with the same option on
+    the card bit for bit, finite wherever the intensities are."""
+    s_old, s_new, reads, eumaps = gain_branch_cases(dtype, cuda)
+    n = s_old.shape[1]
+    g = ssum.prepare(torch.arange(n + 1, device=cuda),
+                     torch.arange(n, device=cuda),
+                     torch.ones(n, dtype=dtype, device=cuda), n)
+    want = csr_cycle.gain_terms(reads, eumaps, s_old, s_new, True)
+    finite = ~(torch.isnan(s_old) | torch.isnan(s_new))
+    assert torch.isfinite(want[finite]).all()
+    ones = torch.ones(s_new.shape[0], dtype=dtype, device=cuda)
+    for got in (csr_cycle.pair_gain(g, reads, eumaps, s_old, s_new,
+                                    skip_unread=True),
+                csr_cycle.block_end(ones, s_new, s_old, s_old, s_new, s_old,
+                                    reads, eumaps, True)[2]):
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("R", [1, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_cluster_extrap_gain_skips_unread(cuda, dtype, R):
+    """cluster_extrap_gain with ``skip_unread`` on a random problem, a
+    fifth of its segments without reads: cand bit for bit the plain
+    version's, the terms torch's with the same option on the card over
+    intensities summed on the CPU."""
+    rng = np.random.default_rng(R + 77)
+    pg, pc, th = _cycle_inputs(rng, R, dtype, cuda)
+    unread = torch.as_tensor(rng.random(pg.reads.shape[-1]) < 0.2)
+    pg = dataclasses.replace(pg, reads=torch.where(
+        unread.to(cuda), 0.0, pg.reads))
+    pc = dataclasses.replace(pc, reads=torch.where(unread, 0.0, pc.reads))
+    plan = csr_cluster.plan_for(pg.by_cid, pg.by_tid, R)
+    thg = th.to(cuda)
+    _, t1, t2, r_sq, v_sq = csr_cluster.em_pair(thg, plan, pg.reads,
+                                                pg.inv_denom)
+    rs = torch.sum(r_sq, dim=1, keepdim=True)
+    vs = torch.sum(v_sq, dim=1, keepdim=True)
+    cand, terms = csr_cluster.extrap_gain(
+        thg, t1, t2, rs, vs, plan, pg.reads, pg.eumaps, pg.inv_denom,
+        skip_unread=True)
+    torch.cuda.synchronize()
+    x = csr_cycle.cycle_extrap_ref(thg, t1, t2, rs, vs).cpu()
+    assert torch.equal(cand.cpu(), ssum.em_step_ref(
+        x, pc.by_cid, pc.by_tid, pc.reads, pc.inv_denom))
+    s_t2, s_cand = (ssum.segment_sum_ref(a.cpu(), pc.by_cid.mult,
+                                         pc.by_cid.idx, pc.by_cid.offsets)
+                    .to(cuda) for a in (t2, cand))
+    assert _same(terms, csr_cycle.gain_terms(pg.reads, pg.eumaps, s_t2,
+                                             s_cand, True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("C,T", SIZE_CLASSES,
+                         ids=[f"{c}x{t}" for c, t in SIZE_CLASSES])
+def test_squarem_kernel_skips_unread(cuda, C, T, dtype):
+    """The dense kernel with ``skip_unread`` against its plain version with
+    the same option, every class, a block of 8 cycles on modules with
+    read-less rows."""
+    rng = np.random.default_rng(C + T + 5)
+    args = [torch.as_tensor(a).to(cuda, dtype)
+            for a in random_modules(rng, 64, C, T)]
+    args[2][:, ::3] = 0  # every third row without reads
+    got = squarem.squarem_block(*args, 8, True)
+    torch.cuda.synchronize()
+    want = squarem.squarem_block_ref(*args, 8, True)
+    err, _, n = block_agreement(got, want, *args, 8, True)
+    assert n >= 32 and torch.isfinite(got).all()
+    assert err <= block_tol(dtype, 8), err
+
+
 # (rows, transcripts) of cycle_extrap's and cycle_select's calls: the
 # smoke's CSR problem at R 1, 3 (its restart rounds) and 16 (the batched
 # solve), the oversized module's problem (159,815 edges), the 11.6 M-edge

@@ -218,8 +218,9 @@ def test_polish_span_counts_cycles_and_stop():
     quantify._polish(problem, theta, cfg, max_cycles=2)
     first, second = timing.spans()
     assert first.name == second.name == "solve: polish"
-    assert first.attrs == {"cycles": cycles, "stop": "eps"}
-    assert second.attrs == {"cycles": 2, "stop": "cap"}
+    assert first.attrs == {"cycles": cycles, "stop": "eps",
+                           "gain": "repaired"}
+    assert second.attrs == {"cycles": 2, "stop": "cap", "gain": "repaired"}
     timing.reset_phases()
 
 
@@ -247,15 +248,19 @@ def test_quantifier_spans_nest_under_em_solve(fixture, tmp_path, flags):
     if flags[:1] == ["--solver_mode"]:
         assert {s.name for s in solve} == {"solve: problem", "solve: csr"}
         assert got["solve: csr"][0].attrs["stop"] in STOPS.values()
+        assert got["solve: csr"][0].attrs["gain"] == "repaired"
     else:
         dense = got["solve: dense batch"]
         assert got["solve: partition"][0].attrs["batches"] == len(dense)
         for s in dense:
             assert set(s.attrs) == {"shape", "blocks", "stop", "graph",
-                                    "capture_s"}
+                                    "capture_s", "gain", "route"}
+            assert s.attrs["gain"] == "repaired"
+            assert s.attrs["route"] == ("kernel" if flags else "bmm")
             assert s.attrs["blocks"] >= 1
             assert s.attrs["stop"] in STOPS.values()
         assert got["solve: polish"][0].attrs["stop"] in ("eps", "cap")
+        assert got["solve: polish"][0].attrs["gain"] == "repaired"
         assert "solve: loglik" in got
     ws, = got["writing outputs"]
     assert ws.phase and ws.attrs == {"sample": 0} and ws.parent is None
@@ -284,6 +289,9 @@ def test_batched_spans_nest_under_the_batched_solve(fixture, tmp_path):
     assert inputs.attrs == {"samples": 2}
     assert sharded.attrs["samples"] == 2 and sharded.attrs["blocks"] >= 0
     assert sharded.attrs["stop"] in STOPS.values()
+    assert sharded.attrs["gain"] == "repaired" and sharded.attrs["rows"] == 2
+    assert {"edges", "segments", "transcripts", "operand_rows",
+            "cluster_launches"} <= set(sharded.attrs)
     assert [s.attrs for s in got["writing outputs"]] == [{"sample": 0},
                                                          {"sample": 1}]
     timing.reset_phases()
